@@ -9,20 +9,32 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failed check raises
 and the script exits non-zero):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build the four CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``;
+2. build the six CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
+   (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
-   tolerance printed beside the error, and each one's time;
-4. the slice: ``process_grid_planar_raw`` on the full bench grid for three
-   grids in a row with the launch counters checked, the fit checked against
-   the phantom's ground truth, and the whole kernel path against the plain
-   path on the card;
-5. timing: median ms per grid over synchronized grids, and voxels/s.
+   tolerance printed beside the error, and each one's time, its plain
+   version's, a single PyTorch call's where one computes the same function,
+   and its bound on the card;
+4. the slice: ``process_grid_planar_raw`` (single-pivot autophase) on the
+   full bench grid for three grids in a row with the launch counters
+   checked, the fit checked against the phantom's ground truth, and the
+   whole kernel path against the plain path on the card;
+   4b. ``process_grid_planar_raw`` with per-voxel autophase (K1 and K5)
+   against the plain path;
+   4c. ``fit_amares`` on the bench grid as a labeled (x, y, z, time) array
+   (K2, K3 and K6b) against the phantom's truth and the plain path;
+5. timing: median ms per single-pivot grid over synchronized grids, and
+   voxels/s; median ms of a per-voxel-autophased grid; median s of one
+   ``fit_amares`` call.
 
-``--profile-dir DIR`` adds a ``torch.profiler`` look at one grid: the
-device-busy share on stdout and kernel tables in ``DIR/profile.txt``.  The last line of standard output is one JSON object with
-``"ok": true`` and the device.  Without a CUDA device, or outside a
-checkout of the repo, it exits non-zero and prints no result.
+``--profile-dir DIR`` adds a ``torch.profiler`` look at one grid of each
+autophase mode: the device-busy share on stdout and kernel tables in
+``DIR/profile.txt`` and ``DIR/profile_per_voxel.txt``.  The
+line before the card's name lists every kernel as JSON; the last line of
+standard output is one JSON object with ``"ok": true`` and the device.
+Without a CUDA device, or outside a checkout of the repo, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -97,6 +109,27 @@ def _time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def _bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the fp32 rate, in ms, and which
+    one bounds it."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _wrapped(a):
+    """Phase difference in degrees wrapped into [-180, 180)."""
+    import torch
+
+    return torch.remainder(a + 180.0, 360.0) - 180.0
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -113,10 +146,14 @@ def main(argv) -> int:
         print("chip_smoke: run from the root of a checkout of the repository",
               file=sys.stderr)
         return 2
+    import dataclasses
+
     import numpy as np
 
     from xmris_tpu_torch import bench_inputs as bi
+    from xmris_tpu_torch.core.array import Coord, XmrArray
     from xmris_tpu_torch.fitting.amares import (
+        fit_amares,
         seed_grid,
         seed_plan,
         seeded_fit_grid_raw,
@@ -124,13 +161,27 @@ def main(argv) -> int:
     )
     from xmris_tpu_torch.fitting.lm import (
         _expand_params_batched,
+        crlb_batched_planar,
         hashable_pmap,
         internal_to_external_torch,
         normal_eq_plan,
+        slab_to_bff,
     )
     from xmris_tpu_torch.fitting.prior import prior_from_csv_text
     from xmris_tpu_torch.ops import kernels as K
-    from xmris_tpu_torch.ops.kernels import _build, dft_cuda, lm_cuda, spd
+    from xmris_tpu_torch.ops.kernels import (
+        _build,
+        acme_cuda,
+        dft_cuda,
+        lm_cuda,
+        spd,
+    )
+    from xmris_tpu_torch.ops.phasing import (
+        POLISH_ITERS,
+        _grid_phase_search,
+        _phased_real_planar,
+        acme_score_raw,
+    )
     from xmris_tpu_torch.parallel.pipeline import PipelineConfig
     from xmris_tpu_torch.parallel.planar_pipeline import (
         spectral_pipeline_planar_raw,
@@ -176,16 +227,20 @@ def main(argv) -> int:
     ps = hashable_pmap(pk.pmap)
     amp_slots, ls_plan = seed_plan(pk)
     t_np = (np.arange(bi.N_TIME) / bi.SW).astype(np.float32)
-    x_template = template_optimum(fids, pk, torch.from_numpy(t_np), bi.MHZ)
+    x_template = template_optimum(fids, pk, torch.from_numpy(t_np).to(dev),
+                                  bi.MHZ)
     args = grid_inputs_from_numpy(fids, weight, freqs, t_np, x_template, pk,
                                   dev)
     re, im, w_d, f_d, t_d, xt_d, lower, upper, kind = args
     n_free = pk.n_free
     cfg = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="single",
                          ap_optimizer="grid", spec_layout="stacked")
+    cfg_all = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="all",
+                             ap_optimizer="grid", spec_layout="flat")
     fit_kw = dict(cfg=cfg, pmap_static=ps, mhz=bi.MHZ, amp_slots=amp_slots,
                   ls_plan=ls_plan, max_iter=24, plateau_streak=3,
                   uniform_t_ok=True)
+    fit_kw_all = dict(fit_kw, cfg=cfg_all)
     _sync()
 
     # ---- 3. kernels vs plain at bench shapes ----
@@ -205,6 +260,8 @@ def main(argv) -> int:
     if not torch.equal(ks[3].long(), kp[3].long()):
         raise AssertionError("K1: per-voxel argmax indices differ")
     print("   K1 argmax indices identical", flush=True)
+    z_win = torch.complex(re * win, im * win)
+    n_in, n_out = bi.N_TIME, bi.ZERO_FILL
     report["spectrum"] = dict(
         err=e1,
         ms=_time_ms(lambda: dft_cuda.spectrum(
@@ -213,7 +270,14 @@ def main(argv) -> int:
         plain_ms=_time_ms(lambda: dft_cuda.spectrum_plain(
             re, im, bi.ZERO_FILL, window=win, with_maxmag=True,
             stacked_out=True), 5),
+        # One call of the same transform on the windowed input (cuFFT).
+        library_ms=_time_ms(lambda: torch.fft.fft(
+            z_win, n=n_out, dim=-1, norm="ortho"), 10),
+        # Planes in, planes + per-voxel peak out; an FFT's 5 n log2 n.
+        bound=_bound(b * (8 * n_in + 8 * n_out + 8) + 4 * n_in,
+                     b * 5 * n_out * np.log2(n_out)),
     )
+    del z_win
 
     u0 = seed_grid(re, im, t_d, xt_d, lower, upper, kind, pmap_static=ps,
                    mhz=bi.MHZ, amp_slots=amp_slots, ls_plan=ls_plan)
@@ -228,12 +292,23 @@ def main(argv) -> int:
     _assert_close("K2 cost", c_k, c_p, 1e-5, 0.0)
     e2g = _assert_close("K2 g", g_k, g_p, 1e-4, 1e-3 * float(g_p.abs().max()))
     e2h = _assert_close("K2 H", h_k, h_p, 1e-4, 1e-3 * float(h_p.abs().max()))
+    kp_, qn = pk.n_peaks, plan.q_n
     report["eq6_normal_eq_v9"] = dict(
         err=max(e2g, e2h),
         ms=_time_ms(lambda: lm_cuda.eq6_normal_equations(
             grids, re, im, t_d, dxdu, plan), 10),
         plain_ms=_time_ms(lambda: lm_cuda.eq6_normal_equations_plain(
             grids, re, im, t_d, dxdu, plan), 3),
+        library_ms=None,
+        # Per (voxel, t): the model (~10 per peak), residual and cost (6),
+        # one complex product per peak pair with 2*q_n+1 t-power moments
+        # (6 + 4 each) and the gradient moments per peak (6 + 4 (q_n+1)).
+        bound=_bound(
+            b * 4 * (kp_ * 5 + 2 * n_in + n_free + 1 + n_free + n_free ** 2)
+            + 4 * n_in,
+            b * n_in * (10 * kp_ + 6 + kp_ * (kp_ + 1) / 2 * (6 + 4 * (2 * qn + 1))
+                        + kp_ * (6 + 4 * (qn + 1))),
+        ),
     )
 
     planted = torch.tensor([5, 777, b - 3], device=dev)
@@ -242,31 +317,109 @@ def main(argv) -> int:
     lam = torch.full((b,), 1e-3, device=dev)
     bad = torch.zeros(b, dtype=torch.bool, device=dev)
     bad[planted] = True
+    h_dense = slab_to_bff(h_sp, n_free)
     d_k = spd.spd_solve_damped(h_sp, g_k, lam)
     d_p = spd.spd_solve_damped_plain(h_sp, g_k, lam)
     i_k = spd.spd_inverse_diag(h_sp, 1e-12)
     i_p = spd.spd_inverse_diag_plain(h_sp, 1e-12)
+    j_k = spd.spd_inverse_diag_dense(h_dense)
+    j_p = spd.spd_inverse_diag_dense_plain(h_dense)
     _sync()
-    for name, out in (("K3", d_k), ("K4", i_k)):
+    for name, out in (("K3", d_k), ("K4", i_k), ("K6b", j_k)):
         rows_nan = torch.isnan(out).all(1)
         if not torch.equal(rows_nan, bad) or torch.isnan(out[~bad]).any():
             raise AssertionError(f"{name}: NaN rows are not the planted ones")
-    print("   K3/K4 NaN rows exactly at the planted non-SPD voxels")
+    print("   K3/K4/K6b NaN rows exactly at the planted non-SPD voxels")
     e3 = _assert_close("K3 solve", d_k, d_p, 2e-6, 1e-7, mask=~bad)
     e4 = _assert_close("K4 inverse diag", i_k, i_p, 2e-4, 0.0, mask=~bad)
+    e6 = _assert_close("K6b inverse diag (dense)", j_k, j_p, 2e-4, 0.0,
+                       mask=~bad)
+    h_bff = slab_to_bff(h_k, n_free)
+    spd_flops = b * n_free ** 3 / 3.0
     report["spd_solve_damped"] = dict(
         err=e3,
         ms=_time_ms(lambda: spd.spd_solve_damped(h_k, g_k, lam), 10),
         plain_ms=_time_ms(lambda: spd.spd_solve_damped_plain(h_k, g_k, lam), 3),
+        library_ms=None,
+        bound=_bound(b * 4 * (n_free ** 2 + 2 * n_free + 1),
+                     spd_flops + b * 2 * n_free ** 2),
     )
     report["spd_inverse_diag"] = dict(
         err=e4,
         ms=_time_ms(lambda: spd.spd_inverse_diag(h_k, 1e-12), 10),
         plain_ms=_time_ms(lambda: spd.spd_inverse_diag_plain(h_k, 1e-12), 3),
+        library_ms=None,
+        bound=_bound(b * 4 * (n_free ** 2 + n_free), 2 * spd_flops),
     )
+    report["spd_inverse_diag_dense"] = dict(
+        err=e6,
+        ms=_time_ms(lambda: spd.spd_inverse_diag_dense(h_bff), 10),
+        plain_ms=_time_ms(lambda: spd.spd_inverse_diag_dense_plain(h_bff), 3),
+        library_ms=None,
+        bound=_bound(b * 4 * (n_free ** 2 + n_free), 2 * spd_flops),
+    )
+    del c_p, g_p, h_p, h_sp, h_dense, d_k, d_p, i_k, i_p, j_k, j_p, h_bff
+
+    # K5 on the unphased flat bench spectra, each voxel's own pivot.
+    sr, si, _, mi = dft_cuda.spectrum(re, im, bi.ZERO_FILL, window=win,
+                                      with_maxmag=True)
+    piv = f_d[mi.long()]
+    x_range = float(f_d[-1] - f_d[0])
+    rng = np.random.default_rng(0)
+    p_rand = torch.as_tensor(np.stack([
+        rng.uniform(-150, 150, b), rng.uniform(-3000, 3000, b)], 1
+    ).astype(np.float32), device=dev)
+    e5 = 0.0
+    for p0_only in (False, True):
+        tag = "p0" if p0_only else "p0+p1"
+        kw = dict(n_iter=0, p0_only=p0_only, with_grad=True)
+        _, fk, gk = acme_cuda.acme_polish(sr, si, f_d, piv, p_rand, x_range, **kw)
+        _, fp, gp = acme_cuda.acme_polish_plain(sr, si, f_d, piv, p_rand,
+                                                x_range, **kw)
+        _sync()
+        e5 = max(e5, _assert_close(f"K5 score, one evaluation ({tag})", fk, fp,
+                                   1e-5, 0.0, mask=torch.isfinite(fp)))
+        e5 = max(e5, _assert_close(f"K5 gradient, one evaluation ({tag})", gk,
+                                   gp, 1e-5, 1e-7 * float(gp.abs().max())))
+    # The whole 40-step polish from the grid scan's seeds (the scan with a
+    # polish that returns its seeds).
+    seeds_only = dataclasses.replace(K.PLAIN,
+                                     acme_polish=lambda *a, **k: (a[4], None))
+    for p0_only in (False, True):
+        tag = "p0" if p0_only else "p0+p1"
+        seed = _grid_phase_search(sr, si, f_d, x_range, piv, p0_only,
+                                  polish_optimizer="fused", kernels=seeds_only)
+        pk_, fk = acme_cuda.acme_polish(sr, si, f_d, piv, seed, x_range,
+                                        p0_only=p0_only)
+        pp_, fp = acme_cuda.acme_polish_plain(sr, si, f_d, piv, seed, x_range,
+                                              p0_only=p0_only)
+        _sync()
+        _scores_both_ways(f"K5 polish scores ({tag})", fk, fp)
+        dp = torch.stack([_wrapped(pk_[:, 0] - pp_[:, 0]),
+                          pk_[:, 1] - pp_[:, 1]], 1)
+        _share_within(f"K5 polish phases ({tag})", dp, torch.zeros_like(dp),
+                      0.0, 0.01, 0.99)
+        e5 = max(e5, float(dp.abs().max()))
+    seed = _grid_phase_search(sr, si, f_d, x_range, piv, False,
+                              polish_optimizer="fused", kernels=seeds_only)
+    n_eval = POLISH_ITERS + 1  # the seed's evaluation and one per trial
+    report["acme_polish"] = dict(
+        err=e5,
+        ms=_time_ms(lambda: acme_cuda.acme_polish(
+            sr, si, f_d, piv, seed, x_range), 3),
+        plain_ms=_time_ms(lambda: acme_cuda.acme_polish_plain(
+            sr, si, f_d, piv, seed, x_range), 1, warmup=1),
+        library_ms=None,
+        # Rows read once; ~40 operations per point and evaluation (a sin, a
+        # cos and a log counted as one each).
+        bound=_bound(b * (8 * n_out + 4 + 16 + 12) + 4 * n_out,
+                     n_eval * b * n_out * 40),
+    )
+    del sr, si, seed
     for name, r in report.items():
-        print(f"   {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
-    del ks, kp, c_p, g_p, h_p, h_sp, d_k, d_p, i_k, i_p
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f}"
+        print(f"   {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              f"{lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     torch.cuda.empty_cache()
 
     # ---- 4. the slice: three grids through the port's main path ----
@@ -280,11 +433,8 @@ def main(argv) -> int:
     first3_s = time.perf_counter() - t0
     counts = K.counters()
     print(f"   3 grids in {first3_s:.3f} s; counters {counts}")
-    for name in K.LAUNCHES:
-        if counts["launches"][name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched")
-        if counts["plain_calls"][name] != 0:
-            raise AssertionError(f"plain {name} ran on the main path")
+    _check_path(K, counts, "grid_single_pivot")
+    launches = dict(counts["launches"])
     sr, si, (p0, p1, pivot), x_free, cost, conv, sds = outs[-1]
     n2, n1 = dft_cuda.stacked_spec_shape(bi.N_TIME, bi.ZERO_FILL)
     if sr.shape != (b, n2, n1) or x_free.shape != (b, n_free):
@@ -317,18 +467,13 @@ def main(argv) -> int:
     if dp0 > 0.5:
         raise AssertionError("phase differs from the plain path")
     # Rotate the plain spectra onto the kernel path's phases, then compare.
-    x_range = f_d[-1] - f_d[0]
+    x_range_t = f_d[-1] - f_d[0]
 
     def phi(a0, a1):
-        return (torch.deg2rad(a0) + torch.deg2rad(a1) * ((f_d - pivot) / x_range)
-                ).reshape(n2, n1)[None]
+        return (torch.deg2rad(a0) + torch.deg2rad(a1)
+                * ((f_d - pivot) / x_range_t)).reshape(n2, n1)[None]
 
-    dphi = phi(p0, p1) - phi(p0_p, p1_p)
-    c, s = torch.cos(dphi), torch.sin(dphi)
-    rot_re, rot_im = sr_p * c - si_p * s, sr_p * s + si_p * c
-    sc = float(torch.maximum(sr_p.abs().max(), si_p.abs().max()))
-    _assert_close("slice spectra re", sr, rot_re, 0.0, 1e-6 * sc)
-    _assert_close("slice spectra im", si, rot_im, 0.0, 1e-6 * sc)
+    _rotated_close("slice spectra", sr, si, sr_p, si_p, phi(p0, p1) - phi(p0_p, p1_p))
     _assert_close("slice cost", cost, cost_p, 1e-4, 0.0)
     # The LM stops on float32-resolution criteria, so where the two paths'
     # K2 outputs differ in the last bits a few voxels stop at slightly
@@ -336,23 +481,137 @@ def main(argv) -> int:
     # the CPU parity tests must hold for >= 99 % of voxels, and every voxel
     # within a tenth of its CRLB.
     _share_within("slice x_free", x_free, x_p, 2e-3, 2e-3, 0.99)
-    dx = (x_free - x_p).abs()
-    worst = float((dx / (2e-3 + 0.1 * sds)).max())
-    print(f"   slice x_free: max |dx| / (2e-3 + 0.1*CRLB) = {worst:.3f} "
-          f"(limit 1)")
-    if not worst <= 1.0:
-        raise AssertionError("x_free differs by more than 0.1 CRLB")
+    _within_crlb("slice x_free", x_free, x_p, sds)
     _share_within("slice CRLB", sds, sds_p, 2e-2, 1e-4, 0.99)
     if not torch.equal(conv, conv_p):
         print(f"   note: converged flags differ on "
               f"{int((conv != conv_p).sum())} voxels")
-    del plain, sr_p, si_p, rot_re, rot_im
+    del plain, sr_p, si_p, outs
+    torch.cuda.empty_cache()
+
+    # ---- 4b. per-voxel autophase (K1 + K5) ----
+    _phase("4b per-voxel autophase: process_grid_planar_raw, autophase='all'")
+    K.reset_counters()
+    out = process_grid_planar_raw(*args, **fit_kw_all)
+    _sync()
+    counts = K.counters()
+    print(f"   counters {counts}")
+    _check_path(K, counts, "grid_per_voxel")
+    launches["acme_polish"] = counts["launches"]["acme_polish"]
+    sr, si, (p0s, p1s, pivs), x_all, _, conv_all, _ = out
+    if sr.shape != (b, bi.ZERO_FILL) or p0s.shape != (b,) or pivs.shape != (b,):
+        raise AssertionError("unexpected per-voxel output shapes")
+    for name, val in (("spectra", sr), ("p0", p0s), ("p1", p1s)):
+        if not torch.isfinite(val).all():
+            raise AssertionError(f"non-finite per-voxel {name}")
+    if not torch.isfinite(x_all).all() or float(conv_all.float().mean()) < 0.95:
+        raise AssertionError("the per-voxel grid's fit failed")
+    # (a) Same spectra: the plain polish on the kernel path's own spectra.
+    same_spec = dataclasses.replace(K.PLAIN, spectrum=dft_cuda.spectrum)
+    ref = spectral_pipeline_planar_raw(re, im, w_d, f_d, cfg_all,
+                                       kernels=same_spec)
+    (q0, q1, qpiv) = ref[2]
+    if not torch.equal(qpiv, pivs):
+        raise AssertionError("per-voxel pivots differ on the same spectra")
+    dp = torch.stack([_wrapped(p0s - q0), p1s - q1], 1)
+    _share_within("per-voxel phases vs the plain polish, same spectra", dp,
+                  torch.zeros_like(dp), 0.0, 0.01, 0.99)
+    del ref
+    # (b) The plain path end to end (torch.fft spectra, plain polish).
+    plain = spectral_pipeline_planar_raw(re, im, w_d, f_d, cfg_all,
+                                         kernels=K.PLAIN)
+    sr_p, si_p, (r0, r1, rpiv) = plain
+    un_re, un_im = dft_cuda.spectrum(re, im, bi.ZERO_FILL, window=win)
+    s_k = _acme_scores(acme_score_raw, _phased_real_planar, un_re, un_im, f_d,
+                       p0s, p1s, pivs, x_range)
+    s_p = _acme_scores(acme_score_raw, _phased_real_planar, un_re, un_im, f_d,
+                       r0, r1, rpiv, x_range)
+    _scores_both_ways("per-voxel ACME scores vs the plain path", s_k, s_p)
+    share = float(((_wrapped(p0s - r0).abs() <= 0.01)
+                   & ((p1s - r1).abs() <= 0.01)).double().mean())
+    print(f"   per-voxel phases vs the plain path (torch.fft spectra): "
+          f"{share:.5f} of voxels within 0.01 deg (reported; the flat ACME "
+          f"valleys turn the spectra's last-bit differences into phase "
+          f"differences at equal score)")
+
+    def phi_v(a0, a1, pv):
+        return (torch.deg2rad(a0)[:, None] + torch.deg2rad(a1)[:, None]
+                * ((f_d[None, :] - pv[:, None]) / x_range_t))
+
+    _rotated_close("per-voxel spectra", sr, si, sr_p, si_p,
+                   phi_v(p0s, p1s, pivs) - phi_v(r0, r1, rpiv))
+    del out, plain, sr_p, si_p, un_re, un_im, sr, si
+    torch.cuda.empty_cache()
+
+    # ---- 4c. fit_amares on the labeled bench grid (K2 + K3 + K6b) ----
+    _phase("4c fit_amares on the bench grid as an (x, y, z, time) array")
+    da = XmrArray(fids.reshape(bi.GRID + (bi.N_TIME,)),
+                  dims=("x", "y", "z", "time"),
+                  coords={"time": Coord("time", t_np.astype(np.float64))},
+                  attrs={"MHz": bi.MHZ})
+    K.reset_counters()
+    t0 = time.perf_counter()
+    ds = fit_amares(da, pk)
+    _sync()
+    fit_s = time.perf_counter() - t0
+    counts = K.counters()
+    print(f"   fit_amares in {fit_s:.3f} s; counters {counts}")
+    _check_path(K, counts, "fit_amares")
+    launches["spd_inverse_diag_dense"] = counts["launches"]["spd_inverse_diag_dense"]
+    amp = ds["amplitude"].values
+    if amp.shape != bi.GRID + (pk.n_peaks,) or ds["raw_data"].dims != da.dims:
+        raise AssertionError("unexpected fit_amares dataset layout")
+    conv_share = float(ds["fit_converged"].values.mean())
+    amp_pcr = amp.reshape(b, -1)[:, 0]
+    pcr_err = float(np.median(np.abs(amp_pcr - bi.pcr_amplitudes())
+                              / bi.pcr_amplitudes()))
+    print(f"   converged share {conv_share:.4f} (limit >= 0.95); PCr median "
+          f"rel err {pcr_err:.5f} (limit <= 0.05)")
+    if conv_share < 0.95 or not pcr_err <= 0.05:
+        raise AssertionError("fit_amares quality check failed")
+    ds_p = fit_amares(da, pk, kernels=K.PLAIN)
+    # Per family (amplitude, shift, linewidth, phase): (B, n_peaks) maps of
+    # both paths and the Jacobian CRLB of each parameter at the kernel
+    # path's solution (the reference's crlb_batched on the same data).
+    fams = ("amplitude", "chem_shift", "linewidth", "phase")
+    got = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    ref = np.stack([ds_p[n].values.reshape(b, -1) for n in fams])
+    x_k = np.zeros((b, n_free), np.float32)
+    slots = np.asarray(pk.pmap.idx).reshape(-1, 5)[:, :4].T  # (4, n_peaks)
+    for c in range(4):
+        for k in range(pk.n_peaks):
+            j, s = 5 * k + c, slots[c, k]
+            if s >= 0 and pk.pmap.scale[j] == 1.0:
+                x_k[:, s] = got[c, :, k] - pk.pmap.offset[j]
+    sds_k, _ = crlb_batched_planar(re, im, t_d, torch.as_tensor(x_k, device=dev),
+                                   ps, bi.MHZ)
+    sds_k = sds_k.cpu().numpy()
+    sd = np.where(slots[:, None, :] >= 0, sds_k[:, np.maximum(slots, 0)]
+                  .transpose(1, 0, 2), 0.0)
+    # The LM's float32 stopping rules and the refinement pass's keep-the-
+    # lower-cost choice between float32-equal costs move a few voxels
+    # along flat valleys: every parameter within a tenth of its CRLB, and
+    # amplitudes, shifts and linewidths to the CPU tests' 2e-3 for >= 99 %
+    # of voxels; the phases' share at 2e-3 degrees is reported.
+    _within_crlb("fit_amares parameters", torch.as_tensor(got),
+                 torch.as_tensor(ref), torch.as_tensor(sd))
+    for c, n in enumerate(fams):
+        ok = (np.abs(got[c] - ref[c]) <= 2e-3 + 2e-3 * np.abs(ref[c])).all(1)
+        print(f"   fit_amares {n}: {ok.mean():.5f} of voxels within rtol 2e-3 "
+              f"/ atol 2e-3" + (" (limit >= 0.99)" if n != "phase" else
+                                " (reported)"))
+        if n != "phase" and ok.mean() < 0.99:
+            raise AssertionError(f"fit_amares {n}: too few voxels within 2e-3")
+    _share_within("fit_amares CRLB %", torch.as_tensor(ds["crlb"].values).reshape(b, -1),
+                  torch.as_tensor(ds_p["crlb"].values).reshape(b, -1), 2e-2, 1e-4,
+                  0.99)
+    del ds_p, got, ref
     torch.cuda.empty_cache()
 
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
-    for _ in range(7):
+    for _ in range(5):
         _sync()
         t0 = time.perf_counter()
         process_grid_planar_raw(*args, **fit_kw)
@@ -371,6 +630,8 @@ def main(argv) -> int:
         "seeded fit + CRLB": lambda: seeded_fit_grid_raw(
             re, im, t_d, xt_d, lower, upper, kind,
             **{k: v for k, v in fit_kw.items() if k != "cfg"}),
+        "per-voxel spectral stage": lambda: spectral_pipeline_planar_raw(
+            re, im, w_d, f_d, cfg_all),
     }
     for name, fn in stages.items():
         st = []
@@ -381,8 +642,32 @@ def main(argv) -> int:
             _sync()
             st.append(time.perf_counter() - t0)
         print(f"   {name}: median {1e3 * float(np.median(st)):.3f} ms")
+    times_all = []
+    for _ in range(5):
+        _sync()
+        t0 = time.perf_counter()
+        process_grid_planar_raw(*args, **fit_kw_all)
+        _sync()
+        times_all.append(time.perf_counter() - t0)
+    ms_all = 1e3 * float(np.median(times_all))
+    print(f"   per-voxel autophase grid times ms: "
+          f"{[round(1e3 * x, 3) for x in times_all]}; median {ms_all:.3f} "
+          f"ms/grid = {b / (ms_all / 1e3):.1f} voxels/s")
+    fit_times = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        fit_amares(da, pk, return_curves=True)
+        _sync()
+        fit_times.append(time.perf_counter() - t0)
+    fit_med = float(np.median(fit_times))
+    print(f"   fit_amares times s: {[round(x, 3) for x in fit_times]}; "
+          f"median {fit_med:.3f} s = {b / fit_med:.1f} voxels/s")
     if profile_dir:
-        _profile(process_grid_planar_raw, args, fit_kw, ms, profile_dir)
+        _profile(process_grid_planar_raw, args, fit_kw, ms, profile_dir,
+                 "single-pivot grid", "profile.txt")
+        _profile(process_grid_planar_raw, args, fit_kw_all, ms_all,
+                 profile_dir, "per-voxel grid", "profile_per_voxel.txt")
 
     replaces = {
         "spectrum": ("xmris_tpu_torch/ops/kernels/csrc/spectrum.cu",
@@ -393,17 +678,24 @@ def main(argv) -> int:
                              "xmris_tpu/ops/kernels/spd.py:312"),
         "spd_inverse_diag": ("xmris_tpu_torch/ops/kernels/csrc/spd.cu",
                              "xmris_tpu/ops/kernels/spd.py:377"),
+        "acme_polish": ("xmris_tpu_torch/ops/kernels/csrc/acme.cu",
+                        "xmris_tpu/ops/kernels/acme_pallas.py:193"),
+        "spd_inverse_diag_dense": ("xmris_tpu_torch/ops/kernels/csrc/spd.cu",
+                                   "xmris_tpu/ops/kernels/spd.py:421"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1],
-         "launches": counts["launches"][name],
+         "replaces": replaces[name][1], "launches": launches[name],
          "max_abs_err": report[name]["err"], "ms": report[name]["ms"],
-         "plain_ms": report[name]["plain_ms"]}
+         "plain_ms": report[name]["plain_ms"],
+         "bound_ms": report[name]["bound"][0],
+         "bound_by": report[name]["bound"][1],
+         "library_ms": report[name]["library_ms"]}
         for name in K.LAUNCHES
     ]
     print(json.dumps({"ms_per_grid": ms, "voxels_per_s": b / (ms / 1e3),
-                      "voxels": b}))
+                      "ms_per_grid_per_voxel_autophase": ms_all,
+                      "fit_amares_s": fit_med, "voxels": b}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -412,10 +704,75 @@ def main(argv) -> int:
     return 0
 
 
-def _profile(fn, args, kw, grid_ms, out_dir):
+def _check_path(K, counts, path):
+    """Every kernel of ``path`` launched, no plain version ran, and no other
+    kernel launched."""
+    for name in K.LAUNCHES:
+        n = counts["launches"][name]
+        if name in K.PATHS[path] and n <= 0:
+            raise AssertionError(f"{path}: kernel {name} was not launched")
+        if name not in K.PATHS[path] and n != 0:
+            raise AssertionError(f"{path}: kernel {name} launched {n} times")
+        if counts["plain_calls"][name] != 0:
+            raise AssertionError(f"{path}: plain {name} ran on the main path")
+    print(f"   {path}: launched {[n for n in K.PATHS[path]]}, 0 plain calls")
+
+
+def _scores_both_ways(name, a, b):
+    """Every finite score within x1.02 + 1e-9 of the other's, both ways
+    (tests/test_acme_pallas.py:163), and the same +inf voxels."""
+    import torch
+
+    fin = torch.isfinite(b)
+    if not torch.equal(fin, torch.isfinite(a)):
+        raise AssertionError(f"{name}: the +inf voxels differ")
+    a, b = a[fin].double(), b[fin].double()
+    worst = max(float((a / (b * 1.02 + 1e-9)).max()),
+                float((b / (a * 1.02 + 1e-9)).max()))
+    print(f"   {name}: max score ratio / limit {worst:.5f} (x1.02 + 1e-9 both "
+          f"ways, {int(fin.sum())} voxels)", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"{name}: a score is above the other's x1.02")
+
+
+def _within_crlb(name, x, x_ref, sds):
+    """Every entry within 2e-3 + 0.1 CRLB of the reference (tensors or
+    arrays of one shape)."""
+    worst = float(((x - x_ref).abs() / (2e-3 + 0.1 * sds)).max())
+    print(f"   {name}: max |dx| / (2e-3 + 0.1*CRLB) = {worst:.3f} (limit 1)")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name} differs by more than 0.1 CRLB")
+
+
+def _rotated_close(name, sr, si, sr_p, si_p, dphi):
+    """Spectra within 1e-6 max|S| after rotating the plain path's onto the
+    kernel path's phases."""
+    import torch
+
+    c, s = torch.cos(dphi), torch.sin(dphi)
+    rot_re, rot_im = sr_p * c - si_p * s, sr_p * s + si_p * c
+    sc = float(torch.maximum(sr_p.abs().max(), si_p.abs().max()))
+    _assert_close(f"{name} re", sr, rot_re, 0.0, 1e-6 * sc)
+    _assert_close(f"{name} im", si, rot_im, 0.0, 1e-6 * sc)
+
+
+def _acme_scores(score_fn, phased_fn, sr, si, f, p0, p1, piv, x_range,
+                 chunk=2048):
+    """ACME score of every voxel's row at its phases (chunked rows)."""
+    import torch
+
+    out = []
+    for i in range(0, sr.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        out.append(score_fn(phased_fn(sr[sl], si[sl], f, p0[sl], p1[sl],
+                                      piv[sl][:, None], x_range)))
+    return torch.cat(out)
+
+
+def _profile(fn, args, kw, grid_ms, out_dir, label, filename):
     """One grid under torch.profiler: device busy time as a share of the
     unprofiled median grid time ``grid_ms``, and kernel tables by device
-    and by host time to ``out_dir/profile.txt``."""
+    and by host time to ``out_dir/filename``."""
     from pathlib import Path
 
     from torch.autograd import DeviceType
@@ -434,9 +791,9 @@ def _profile(fn, args, kw, grid_ms, out_dir):
     by_dev = avg.table(sort_by="self_cuda_time_total", row_limit=30)
     by_cpu = avg.table(sort_by="cpu_time_total", row_limit=30)
     out = Path(out_dir)
-    out.mkdir(exist_ok=True)
-    (out / "profile.txt").write_text(by_dev + "\n\n" + by_cpu)
-    print(f"   profile: {kernels} device kernels per grid, device busy "
+    out.mkdir(parents=True, exist_ok=True)
+    (out / filename).write_text(by_dev + "\n\n" + by_cpu)
+    print(f"   profile, {label}: {kernels} device kernels, device busy "
           f"{busy_us / 1e3:.3f} ms = {100 * busy_us / 1e3 / grid_ms:.1f} % "
           f"of the unprofiled median {grid_ms:.3f} ms/grid")
     print("\n".join(by_dev.splitlines()[:16]))

@@ -1,0 +1,346 @@
+"""The port's public ``fit_amares``, its CRLB pieces and the K6b plain twin
+against the JAX package.
+
+``fit_amares`` runs on the CPU (``device="cpu"``) on both engines, against
+the reference's same engine (Pallas in interpret mode), on the bench phantom
+cut to a 4x4x2 grid: parameters within rtol/atol 2e-3 and CRLB % within
+2e-2 (``tests/test_process.py:78-84``), the dataset's variables, dims,
+coords and attrs the reference's.  On the 5-voxel 31P oracle phantom it is
+held to ``tests/test_oracle_parity.py``'s tolerances against the recorded
+independent fits.  K6b's plain twin is held to
+``spd_inverse_diag_pallas(interpret=True)`` at ``tests/test_spd.py``'s rtol
+2e-4, with NaN rows exactly where a pivot is not positive.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import xmris_tpu as xmt
+from xmris_tpu.core.array import Coord as JCoord
+from xmris_tpu.fitting import lm as jlm
+from xmris_tpu.fitting.amares import fit_amares as ref_fit_amares
+from xmris_tpu.ops.kernels.spd import spd_inverse_diag_pallas
+
+from xmris_tpu_torch import bench_inputs as bi
+from xmris_tpu_torch.core.array import Coord, XmrArray
+from xmris_tpu_torch.fitting import lm as tlm
+from xmris_tpu_torch.fitting.amares import fit_amares, template_seeded_x0
+from xmris_tpu_torch.fitting.prior import prior_from_csv_text
+from xmris_tpu_torch.ops import kernels as K
+from xmris_tpu_torch.ops.kernels import spd
+
+from _phantom31p import MHZ as ORACLE_MHZ
+from _phantom31p import PRIOR as ORACLE_PRIOR
+from _phantom31p import make_phantom
+from _torch_parity import TEST_PK_CSV, load_priors
+
+GRID = (4, 4, 2)
+DIMS = ("x", "y", "z", "time")
+PARAMS = ("amplitude", "chem_shift", "linewidth", "phase")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, order="C", copy=True))
+
+
+def _grid_arrays():
+    """The phantom in double precision (the parity mode of the reference's
+    CPU tests: the "xla" engines fit in float64, the kernel engines cast to
+    float32 as on the card)."""
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    data = fids.reshape(GRID + (bi.N_TIME,)).astype(np.complex128)
+    ref = xmt.XmrArray(data, dims=DIMS, coords={"time": JCoord("time", t)},
+                       attrs={"MHz": bi.MHZ})
+    port = XmrArray(data, dims=DIMS, coords={"time": Coord("time", t)},
+                    attrs={"MHz": bi.MHZ})
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def bench_fits(tmp_path_factory):
+    path = tmp_path_factory.mktemp("pk") / "pk.csv"
+    path.write_text(bi.PK_CSV)
+    ref_da, port_da = _grid_arrays()
+    out = {}
+    for engine in ("xla", "pallas"):
+        out[engine] = (ref_fit_amares(ref_da, path, engine=engine),
+                       fit_amares(port_da, path, engine=engine, device="cpu"))
+    return out, path
+
+
+def _phase_sds(ds):
+    """The Jacobian CRLB (degrees) of every peak's phase at ``ds``'s
+    solution, (x, y, z, Metabolite) like the maps."""
+    pk = prior_from_csv_text(bi.PK_CSV)
+    n_peaks = pk.n_peaks
+    x = np.zeros((int(np.prod(GRID)), pk.n_free))
+    for c, name in enumerate(PARAMS):
+        vals = ds[name].values.reshape(-1, n_peaks)
+        for k in range(n_peaks):
+            slot = pk.pmap.idx[5 * k + c]
+            if slot >= 0:
+                x[:, slot] = vals[:, k]
+    fids, _, _ = bi.make_inputs(GRID)
+    sds, _ = tlm.crlb_batched_planar(
+        _t(fids.real.astype(np.float64)), _t(fids.imag.astype(np.float64)),
+        _t(np.arange(bi.N_TIME) / bi.SW), _t(x), tlm.hashable_pmap(pk.pmap),
+        bi.MHZ)
+    slots = [pk.pmap.idx[5 * k + 3] for k in range(n_peaks)]
+    return sds.numpy()[:, slots].reshape(GRID + (n_peaks,))
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_fit_amares_matches_reference(bench_fits, engine):
+    """Maps within 2e-3 of the reference's.  On the float32 kernel engine
+    the refinement pass keeps the lower of two costs that are equal to
+    float32 resolution, and the two packages may keep different ones:
+    phases then move along flat valleys by a few thousandths of a degree,
+    so they are held to 2e-3 + 0.1 CRLB there (as chip_smoke.py holds the
+    kernel path against the plain one)."""
+    ref, got = bench_fits[0][engine]
+    assert got["fit_converged"].values.all() and ref["fit_converged"].values.all()
+    for name in PARAMS + ("snr",):
+        if engine == "pallas" and name == "phase":
+            continue
+        np.testing.assert_allclose(got[name].values, ref[name].values,
+                                   rtol=2e-3, atol=2e-3, err_msg=name)
+    if engine == "pallas":
+        dp = np.abs(got["phase"].values - ref["phase"].values)
+        assert np.all(dp <= 2e-3 + 0.1 * _phase_sds(got))
+    np.testing.assert_allclose(got["crlb"].values, ref["crlb"].values,
+                               rtol=2e-2, atol=1e-4)
+    scale = float(np.abs(ref["raw_data"].values).max())
+    np.testing.assert_array_equal(got["raw_data"].values, ref["raw_data"].values)
+    for name in ("fit_data", "residuals"):
+        np.testing.assert_allclose(got[name].values, ref[name].values,
+                                   rtol=0, atol=2e-3 * scale, err_msg=name)
+    amp = got["amplitude"].values.reshape(-1, 5)[:, 0]
+    truth = bi.pcr_amplitudes(GRID)
+    assert np.median(np.abs(amp - truth) / truth) <= 0.05
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_fit_amares_dataset_layout_matches_reference(bench_fits, engine):
+    ref, got = bench_fits[0][engine]
+    assert sorted(got.keys()) == sorted(ref.keys())
+    for name in ref.keys():
+        r, g = ref[name], got[name]
+        assert g.dims == r.dims, name
+        assert g.shape == r.shape, name
+        assert g.dtype == r.dtype, name
+        assert sorted(g.coords) == sorted(r.coords), name
+        for c in r.coords:
+            np.testing.assert_array_equal(g.coords[c].values, r.coords[c].values)
+            assert g.coords[c].dim == r.coords[c].dim
+    assert sorted(got.attrs) == sorted(ref.attrs)
+    for key in ("MHz", "fit_method", "prior_knowledge_file"):
+        assert got.attrs[key] == ref.attrs[key]
+    assert got.attrs["amares_version"].startswith("xmris_tpu_torch-")
+
+
+def test_fit_amares_options_match_reference(bench_fits):
+    """No refinement pass, no amplitude rescale, chunks and no curves: the
+    same maps as the reference's with the same options."""
+    _, path = bench_fits
+    ref_da, port_da = _grid_arrays()
+    kw = dict(engine="xla", initialize_with_lm=False, max_iter=40,
+              scale_init_amplitudes=False, chunk_size=7, return_curves=False)
+    ref = ref_fit_amares(ref_da, path, **kw)
+    got = fit_amares(port_da, path, device="cpu", **kw)
+    assert "fit_data" not in got and "fit_data" not in ref
+    np.testing.assert_array_equal(got["fit_converged"].values,
+                                  ref["fit_converged"].values)
+    for name in PARAMS:
+        np.testing.assert_allclose(got[name].values, ref[name].values,
+                                   rtol=2e-3, atol=2e-3, err_msg=name)
+
+
+def test_fit_amares_takes_a_tensor_payload_and_a_prior_object(bench_fits):
+    ref, got = bench_fits[0]["xla"]
+    _, port_da = _grid_arrays()
+    again = fit_amares(port_da.to("cpu"), prior_from_csv_text(bi.PK_CSV),
+                       device="cpu", engine="xla")
+    for name in PARAMS:
+        np.testing.assert_allclose(again[name].values, got[name].values,
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_fit_amares_kernel_counts_on_the_cpu(bench_fits):
+    """On the CPU the "pallas" engine runs the plain versions of K2, K3 and
+    K6b (and launches nothing)."""
+    _, path = bench_fits
+    _, port_da = _grid_arrays()
+    K.reset_counters()
+    fit_amares(port_da, path, engine="pallas", device="cpu")
+    counts = K.counters()
+    assert not any(counts["launches"].values())
+    for name in K.PATHS["fit_amares"]:
+        assert counts["plain_calls"][name] > 0, name
+
+
+@pytest.fixture(scope="module")
+def oracle_fit(tmp_path_factory):
+    path = tmp_path_factory.mktemp("oracle") / "prior_31p.csv"
+    path.write_text(ORACLE_PRIOR)
+    fids, t = make_phantom()
+    da = XmrArray(fids, dims=("voxel", "time"),
+                  coords={"time": Coord("time", t)}, attrs={"MHz": ORACLE_MHZ})
+    oracle = json.loads(
+        (Path(__file__).parent / "data" / "oracle_31p_scipy.json").read_text())
+    return fit_amares(da, path, device="cpu"), oracle
+
+
+@pytest.mark.parametrize("field,var,tol", [
+    ("amplitude", "amplitude", dict(rtol=0.01)),
+    ("chem_shift", "chem_shift", dict(atol=0.01)),
+    ("linewidth", "linewidth", dict(rtol=0.02)),
+    ("phase", "phase", dict(atol=1.0)),
+    ("amplitude_sd", "crlb", dict(rtol=0.25)),
+])
+def test_fit_amares_matches_the_oracle(oracle_fit, field, var, tol):
+    """``tests/test_oracle_parity.py``'s tolerances against the recorded
+    independent scipy fits of the 5-voxel 31P phantom."""
+    ds, oracle = oracle_fit
+    metabs = [str(m) for m in ds[var].coords["Metabolite"].values]
+    vals = np.asarray(ds[var].values)
+    if var == "crlb":  # percent of the amplitude -> absolute SD
+        vals = np.asarray(ds["amplitude"].values) * vals / 100.0
+    for i, m in enumerate(metabs):
+        want = np.array([row[m][field] for row in oracle["voxels"]])
+        np.testing.assert_allclose(vals[:, i], want, err_msg=m, **tol)
+
+
+def test_fit_amares_unported_options_raise(bench_fits, tmp_path):
+    _, path = bench_fits
+    _, da = _grid_arrays()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fit_amares(da, path, device="cpu", mesh=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        fit_amares(da, path, device="cpu", device_fids=(None, None))
+    free_g = tmp_path / "free_g.csv"
+    free_g.write_text(TEST_PK_CSV)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        fit_amares(da, free_g, device="cpu")
+    with pytest.raises(NotImplementedError, match="kernel_version=9"):
+        fit_amares(da, path, device="cpu", engine="pallas", kernel_version=6)
+    with pytest.raises(ValueError, match="mhz"):
+        fit_amares(XmrArray(da.data, dims=da.dims, coords=da.coords), path,
+                   device="cpu")
+    with pytest.raises(ValueError, match="missing"):
+        fit_amares(da, path, dim="t", device="cpu")
+
+
+def test_template_seeded_x0_matches_reference(tmp_path):
+    from xmris_tpu.fitting.amares import template_seeded_x0 as ref_seed
+
+    pk, pkt = load_priors(bi.PK_CSV, tmp_path)
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    want = ref_seed(fids, pk, jnp.asarray(t), bi.MHZ)
+    got = template_seeded_x0(fids, pkt, _t(t), bi.MHZ)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# CRLB pieces and K6b
+# ---------------------------------------------------------------------------
+
+
+def _hessians(b=21, f=20, seed=0):
+    """SPD (B, F, F) float32 Hessians with a wide spread of scales, and the
+    voxels 3 and b-1 made non-SPD."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(b, 2 * f, f)) * np.logspace(-2, 2, f)[None, None, :]
+    h = np.einsum("bki,bkj->bij", a, a).astype(np.float32)
+    h[[3, b - 1], 0, 0] = -1.0
+    return h
+
+
+def test_spd_inverse_diag_dense_plain_matches_reference():
+    h = _hessians()
+    want = np.asarray(spd_inverse_diag_pallas(jnp.asarray(h), interpret=True))
+    got = spd.spd_inverse_diag_dense_plain(_t(h)).numpy()
+    bad = np.zeros(len(h), bool)
+    bad[[3, len(h) - 1]] = True
+    np.testing.assert_array_equal(np.isnan(got).all(1), bad)
+    np.testing.assert_array_equal(np.isnan(want).all(1), bad)
+    assert not np.isnan(got[~bad]).any()
+    np.testing.assert_allclose(got[~bad], want[~bad], rtol=2e-4)
+    # The wrapper takes the plain version on the CPU.
+    np.testing.assert_array_equal(spd.spd_inverse_diag_dense(_t(h)).numpy(), got)
+
+
+def test_slab_to_bff_and_the_slab_inverse_agree():
+    h = _hessians(seed=1)
+    slab = _t(h).permute(1, 2, 0).reshape(20 * 20, -1).contiguous()
+    assert torch.equal(tlm.slab_to_bff(slab, 20), _t(h))
+    a = spd.spd_inverse_diag_dense_plain(_t(h))
+    b = spd.spd_inverse_diag_plain(slab)
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    ok = ~torch.isnan(a)
+    assert torch.equal(a[ok], b[ok])
+
+
+def test_crlb_from_hessian_matches_reference():
+    h = _hessians(seed=2)
+    h[5, 7, :] = 0.0  # an unidentifiable parameter: zero Fisher row
+    h[5, :, 7] = 0.0
+    h[[3, len(h) - 1], 0, 0] = 1.0  # SPD again
+    cost = np.random.default_rng(3).uniform(1.0, 5.0, len(h)).astype(np.float32)
+    sds_ref, s2_ref = jlm.crlb_from_hessian(jnp.asarray(h), jnp.asarray(cost),
+                                            512, interpret=True)
+    sds, s2 = tlm.crlb_from_hessian(_t(h), _t(cost), 512, kernels=K.DISPATCH)
+    assert np.isinf(sds.numpy()[5, 7]) and np.isinf(np.asarray(sds_ref)[5, 7])
+    np.testing.assert_allclose(s2.numpy(), np.asarray(s2_ref), rtol=1e-6)
+    np.testing.assert_allclose(sds.numpy(), np.asarray(sds_ref), rtol=2e-4)
+
+
+def test_crlb_batched_planar_matches_reference(tmp_path):
+    pk, _ = load_priors(bi.PK_CSV, tmp_path)
+    fids, _, _ = bi.make_inputs((3, 2, 1))
+    t = np.arange(bi.N_TIME) / bi.SW
+    rng = np.random.default_rng(4)
+    x = np.clip(pk.init_free[None] * rng.uniform(0.9, 1.1, (6, pk.n_free)),
+                pk.lower, pk.upper)
+    ps = jlm.hashable_pmap(pk.pmap)
+    re, im = np.ascontiguousarray(fids.real), np.ascontiguousarray(fids.imag)
+    want = jlm.crlb_batched_planar(jnp.asarray(re), jnp.asarray(im),
+                                   jnp.asarray(t), jnp.asarray(x), ps, bi.MHZ)
+    got = tlm.crlb_batched_planar(_t(re), _t(im), _t(t), _t(x), ps, bi.MHZ)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4)
+
+
+def test_lm_fit_batched_pallas_returns_the_reference_hessian(tmp_path):
+    """The public kernel LM with ``return_hessian=True``: the dense external
+    Hessian at the optimum, as the reference's (slab path, interpret)."""
+    pk, _ = load_priors(bi.PK_CSV, tmp_path)
+    fids, _, _ = bi.make_inputs((3, 2, 1))
+    t = np.arange(bi.N_TIME) / bi.SW
+    ps = jlm.hashable_pmap(pk.pmap)
+    u0 = jlm.external_to_internal(pk.init_free[None].repeat(6, 0), pk.lower,
+                                  pk.upper, pk.kind)
+    re, im = np.ascontiguousarray(fids.real), np.ascontiguousarray(fids.imag)
+    args = (re, im, t, u0, pk.lower, pk.upper, pk.kind)
+    res_r, h_r = jlm.lm_fit_batched_pallas(*(jnp.asarray(a) for a in args), ps,
+                                           bi.MHZ, max_iter=30, interpret=True,
+                                           return_hessian=True)
+    res, h = tlm.lm_fit_batched_pallas(*(_t(a) for a in args), ps, bi.MHZ,
+                                       max_iter=30, kernels=K.DISPATCH)
+    assert h.shape == (6, pk.n_free, pk.n_free)
+    np.testing.assert_allclose(res.x_free.numpy(), np.asarray(res_r.x_free),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(res.cost.numpy(), np.asarray(res_r.cost), rtol=1e-4)
+    h_r = np.asarray(h_r)
+    np.testing.assert_allclose(h.numpy(), h_r, rtol=2e-3,
+                               atol=1e-4 * float(np.abs(h_r).max()))
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        tlm.lm_fit_batched_pallas(*(_t(a) for a in args), ps, bi.MHZ,
+                                  kernel_version=6, kernels=K.DISPATCH)

@@ -25,7 +25,7 @@ import torch
 
 import xmris_tpu_torch
 from xmris_tpu_torch import bench_inputs
-from xmris_tpu_torch.ops.kernels import _build, lm_cuda, spd
+from xmris_tpu_torch.ops.kernels import _build, acme_cuda, lm_cuda, spd
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "xmris_tpu_torch"
@@ -43,6 +43,32 @@ def test_import_pulls_in_neither_jax_nor_triton():
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'triton', 'xmris_tpu')\n"
+        "       if m in sys.modules]\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "xmris_tpu_torch.core.array", "xmris_tpu_torch.core.config",
+    "xmris_tpu_torch.core.utils", "xmris_tpu_torch.core.validation",
+    "xmris_tpu_torch.runtime.config", "xmris_tpu_torch.ops.fourier",
+    "xmris_tpu_torch.ops.fid", "xmris_tpu_torch.ops.phasing",
+    "xmris_tpu_torch.ops.kernels.acme_cuda", "xmris_tpu_torch.fitting.amares",
+])
+def test_new_module_import_pulls_in_neither_jax_nor_triton(module):
+    """Each module of the per-voxel autophase and fit_amares paths, alone in
+    a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
         "bad = [m for m in ('jax', 'jaxlib', 'triton', 'xmris_tpu')\n"
         "       if m in sys.modules]\n"
         "print('LOADED', bad)\n"
@@ -77,7 +103,7 @@ def test_packaging_names_the_port():
     assert "xmris_tpu_torch*" in tool["packages"]["find"]["include"]
     globs = tool["package-data"]["xmris_tpu_torch"]
     csrc = sorted(p.name for p in (PKG / "ops/kernels/csrc").iterdir())
-    assert csrc == ["lm_v9.cu", "spd.cu", "spectrum.cu"]
+    assert csrc == ["acme.cu", "lm_v9.cu", "spd.cu", "spectrum.cu"]
     assert "ops/kernels/csrc/*.cu" in globs
     assert any(
         "cuda" in m for m in cfg["tool"]["pytest"]["ini_options"]["markers"]
@@ -101,6 +127,13 @@ def test_wrappers_refuse_devices_without_a_kernel():
                              torch.zeros(3, **meta))
     with pytest.raises(ValueError, match="unsupported device"):
         spd.spd_inverse_diag(torch.zeros(4, 3, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        spd.spd_inverse_diag_dense(torch.zeros(3, 2, 2, **meta))
+    z1 = torch.zeros(3, 8, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        acme_cuda.acme_polish(z1, z1, torch.zeros(8, **meta),
+                              torch.zeros(3, **meta), torch.zeros(3, 2, **meta),
+                              1.0)
     plan = lm_cuda.NormalEqPlan(
         n_peaks=1, n_free=2, mhz=120.0, active=(0, 1), g_zero=(True,),
         fold_slots=(0, 1), fold_scales=(1.0, 1.0), factored=False,

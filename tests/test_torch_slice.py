@@ -214,7 +214,8 @@ def test_unported_options_raise(phantom):
     args = (_t(fids.real), _t(fids.imag), _t(WEIGHT), _t(FREQS))
     with pytest.raises(NotImplementedError, match="item 7"):
         spectral_pipeline_planar_raw(
-            *args, PipelineConfig(zero_fill_to=ZF, autophase="all"))
+            *args, PipelineConfig(zero_fill_to=ZF, autophase="all",
+                                  ap_optimizer="de"))
     with pytest.raises(NotImplementedError, match="item 7"):
         spectral_pipeline_planar_raw(
             *args, PipelineConfig(zero_fill_to=ZF, ap_optimizer="de"))

@@ -1,0 +1,49 @@
+"""Small core helpers: dimension bouncer and metadata-rich coordinates.
+
+Port of ``xmris_tpu.core.utils``, with the same error text (missing dims,
+available dims, a copy-pasteable ``rename`` fix).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from xmris_tpu_torch.core.array import Coord, XmrArray
+from xmris_tpu_torch.core.config import XmrTerm
+
+
+def _dim_error(method_name: str, missing: list[str], available) -> str:
+    """The actionable dim-mismatch message (reference ``core/utils.py:14-20``)."""
+    fix = f"    >>> obj = obj.rename({{{missing[0]!r}: 'correct_name'}})"
+    return (
+        f"Method '{method_name}' attempted to operate on missing "
+        f"dimension(s): {missing}.\n"
+        f"Available dimensions are: {list(available)}.\n\n"
+        f"To fix this, either pass the correct `dim` string argument to the "
+        f"function, or rename your data's axes:\n" + fix
+    )
+
+
+def check_dims(da: XmrArray, dims: str | list[str], method_name: str) -> None:
+    """Validate that required dimensions exist, with an actionable error."""
+    wanted = (dims,) if isinstance(dims, str) else tuple(dims)
+    present = set(da.dims)
+    missing = [d for d in wanted if d not in present]
+    if missing:
+        raise ValueError(_dim_error(method_name, missing, da.dims))
+
+
+# Private alias kept for parity with reference call sites (`_check_dims`).
+_check_dims = check_dims
+
+
+def as_coord(term: XmrTerm, dim: str, data: np.ndarray) -> Coord:
+    """Build a :class:`Coord` carrying unit/long_name metadata from a term.
+
+    Equivalent of the reference's ``as_variable`` (``core/utils.py:24-33``)
+    for the native carrier.
+    """
+    meta = {"long_name": term.long_name}
+    if term.unit:
+        meta["units"] = term.unit
+    return Coord(dim, np.asarray(data), meta)

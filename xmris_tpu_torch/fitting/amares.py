@@ -1,32 +1,42 @@
-"""AMARES grid seeding and the seeded whole-grid fit (PyTorch port).
+"""AMARES batch fitting: grid seeding, the seeded whole-grid fit and the
+public :func:`fit_amares` (PyTorch port).
 
-Port of the grid path of :mod:`xmris_tpu.fitting.amares`: the highest-SNR
-template voxel (:func:`select_template_fid`, :func:`template_optimum`), the
-static seeding plan (:func:`seed_plan`), the shared-basis linear LS
-amplitude/phase seed, and :func:`seeded_fit_grid_raw`, which chains
-amplitude rescaling, the LS seed, the bound transform, the kernel LM and
-the CRLBs for every voxel of a grid.
+Port of :mod:`xmris_tpu.fitting.amares`: the highest-SNR template voxel
+(:func:`select_template_fid`, :func:`template_optimum`), the static seeding
+plan (:func:`seed_plan`), the shared-basis linear LS amplitude/phase seed,
+:func:`seeded_fit_grid_raw` (amplitude rescaling, the LS seed, the bound
+transform, the kernel LM and the CRLBs for every voxel of a grid, as one
+call), and :func:`fit_amares`, the labeled entry point that returns an
+:class:`~xmris_tpu_torch.core.array.XmrDataset` with the reference's
+variables, dims, coords and attrs.
 """
 
 from __future__ import annotations
 
 import math
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from xmris_tpu_torch import __version__ as _version
+from xmris_tpu_torch.core.array import Coord, XmrArray, XmrDataset
 from xmris_tpu_torch.fitting.lm import (
+    crlb_batched_planar,
+    crlb_from_hessian,
     crlb_from_hessian_slab,
     eq6_basis_planar,
     expand_params,
     external_to_internal,
     external_to_internal_torch,
     hashable_pmap,
+    lm_fit_batched_pallas,
     lm_fit_batched_planar,
     lm_fit_batched_slab,
     uses_slab_hessian,
 )
-from xmris_tpu_torch.fitting.prior import PriorKnowledge
+from xmris_tpu_torch.fitting.prior import PriorKnowledge, load_prior_knowledge
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
 
 
@@ -55,12 +65,13 @@ def template_optimum(
     mhz: float,
     template_fid: np.ndarray | None = None,
     max_iter: int = 60,
+    verbose: bool = False,
 ) -> np.ndarray:
     """Fit the (auto-selected) highest-SNR voxel once with the pure-tensor
     LM and return its free-parameter optimum, the template every voxel's
     seed starts from.  Falls back to the prior's initial values when the
     template fit fails.  ``t`` is the (n_t,) time axis tensor; the fit runs
-    on its device."""
+    on its device, in the template FID's precision."""
     if template_fid is None:
         template_fid = fid_arrs[select_template_fid(fid_arrs, announce=False)]
     dev = t.device
@@ -81,6 +92,9 @@ def template_optimum(
     )
     x_t = res.x_free[0].cpu().numpy()
     if bool(res.converged[0]) and np.isfinite(x_t).all():
+        if verbose:
+            print(f"Template fit converged (cost {float(res.cost[0]):.3e}); "
+                  "seeding grid.")
         return x_t
     return pk.init_free
 
@@ -269,3 +283,425 @@ def seeded_fit_grid_raw(
         kernels=kernels,
     )
     return res.x_free, res.cost, res.converged, sds
+
+
+# ---------------------------------------------------------------------------
+# The public fit
+# ---------------------------------------------------------------------------
+
+
+def g_seed_plan(pk: PriorKnowledge):
+    """``(slot, offset, lo, hi)`` per distinct free untied (scale == 1) g
+    slot; empty when the prior fixes every g."""
+    plan = []
+    seen: set[int] = set()
+    for k in range(pk.n_peaks):
+        j = k * 5 + 4
+        slot = int(pk.pmap.idx[j])
+        if slot < 0 or slot in seen or pk.pmap.scale[j] != 1.0:
+            continue
+        seen.add(slot)
+        plan.append((slot, float(pk.pmap.offset[j]), float(pk.lower[slot]),
+                     float(pk.upper[slot])))
+    return tuple(plan)
+
+
+def _flatten_to_spectra(da: XmrArray, dim: str):
+    """Time-last transpose + row-major flatten to ``(n_spectra, n_time)``
+    host numpy, with the voxel shape and the other dims."""
+    if dim not in da.dims:
+        raise ValueError(f"Dimension '{dim}' missing in DataArray.")
+    other_dims = [d for d in da.dims if d != dim]
+    da_t = da.transpose(*(other_dims + [dim]))
+    n_time = da.sizes[dim]
+    fid_arrs = np.asarray(da_t.values).reshape(-1, n_time)
+    return fid_arrs, tuple(da_t.shape[:-1]), other_dims
+
+
+def _device_fid_planes(fid_arrs: np.ndarray, device):
+    """The grid's (re, im) planes on ``device`` from ONE host->device copy
+    of the complex array (float32 planes for complex64, float64 for
+    complex128)."""
+    z = torch.as_tensor(np.ascontiguousarray(fid_arrs), device=device)
+    if not z.is_complex():
+        return z.contiguous(), torch.zeros_like(z)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def template_seeded_x0(
+    fid_arrs: np.ndarray,
+    pk: PriorKnowledge,
+    t,
+    mhz: float,
+    template_fid: np.ndarray | None = None,
+    fit_template: bool = True,
+    scale_amplitudes: bool = True,
+    max_iter: int = 60,
+    verbose: bool = False,
+    device_fids: tuple | None = None,
+) -> np.ndarray:
+    """Per-voxel initial values (B, n_free) seeded from a template-voxel fit
+    (reference ``template_seeded_x0`` for a prior with every g fixed).
+
+    Fits ``template_fid`` (default: the highest-SNR voxel) once, starts every
+    voxel from its optimum, rescales free amplitudes by the voxel's
+    first-point magnitude over the template total (clipped to [0.1, 100]),
+    and writes the shared-basis LS amplitudes/phases at the template's
+    shifts/linewidths into the ``seed_plan`` slots (wrapped into the phase
+    window, nudged inside the bounds; non-finite entries keep the scaled
+    template).  ``t`` is the time-axis tensor (the device of the work);
+    ``device_fids`` the grid's planes already on it.
+    """
+    n_spectra = fid_arrs.shape[0]
+    x_template = pk.init_free
+    if fit_template:
+        x_template = template_optimum(
+            fid_arrs, pk, t, mhz, template_fid=template_fid,
+            max_iter=max_iter, verbose=verbose,
+        )
+    x0 = np.broadcast_to(x_template[None, :], (n_spectra, pk.n_free)).copy()
+    amp_slots, ls_plan = seed_plan(pk)
+    if scale_amplitudes:
+        slots = list(amp_slots)
+        template_total = float(np.sum(np.abs(x_template[slots])) if slots else 0.0)
+        if slots and template_total > 0:
+            factor = np.clip(np.abs(fid_arrs[:, 0]) / template_total, 0.1, 100.0)
+            x0[:, slots] *= factor[:, None]
+
+    if ls_plan:
+        if device_fids is None:
+            device_fids = _device_fid_planes(fid_arrs, t.device)
+        re, im = (p.to(torch.float32) for p in device_fids[:2])
+        amp, ph = _linear_seed_solve(
+            re, im, torch.as_tensor(x_template, dtype=torch.float32,
+                                    device=t.device),
+            t.to(torch.float32), hashable_pmap(pk.pmap), float(mhz),
+        )
+        for slot, k, col, offset, lo, hi in ls_plan:
+            vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
+            if col == 3:
+                vals = _wrap_phase_window_torch(vals, lo, hi)
+            vals = _nudge_into_bounds_torch(vals, lo, hi).cpu().numpy()
+            ok = np.isfinite(vals)
+            x0[ok, slot] = vals[ok]
+    return x0
+
+
+def _reconstruct_planar(xs, t, pmap_static, mhz):
+    """The Eq.6 model (m_re, m_im), each (B, n_t), of free vectors ``xs``."""
+    m_re, m_im, _, _ = eq6_basis_planar(t, expand_params(xs, pmap_static), mhz)
+    return m_re, m_im
+
+
+def _reconstruct_batch(x_free, t, pk: PriorKnowledge, mhz: float):
+    """Time-domain model of a batch of solutions, complex numpy (B, n_t)."""
+    m_re, m_im = _reconstruct_planar(
+        torch.as_tensor(x_free, device=t.device), t, hashable_pmap(pk.pmap),
+        float(mhz),
+    )
+    return m_re.cpu().numpy() + 1j * m_im.cpu().numpy()
+
+
+def fit_amares(
+    da: XmrArray,
+    prior_knowledge_file: str | Path | PriorKnowledge,
+    dim: str = "time",
+    mhz: float | None = None,
+    sw: float | None = None,
+    deadtime: float | None = None,
+    method: str = "leastsq",
+    initialize_with_lm: bool = True,
+    num_workers: int = 4,
+    init_fid: np.ndarray | None = None,
+    verbose: bool = False,
+    max_iter: int = 60,
+    chunk_size: int | None = None,
+    engine: str = "auto",
+    scale_init_amplitudes: bool = True,
+    kernel_version: int = 9,
+    g_scan: tuple | str | None = "auto",
+    return_curves: bool = True,
+    device_fids: tuple | None = None,
+    mesh=None,
+    device="cuda",
+    kernels: KernelSet = DISPATCH,
+) -> XmrDataset:
+    """Fit the AMARES Eq.6 model to every voxel of an N-D FID array.
+
+    Parameters mirror the reference's ``fit_amares``; ``num_workers`` is
+    accepted and ignored (the device batch is the parallelism).  The fit
+    infers ``mhz`` (``attrs["MHz"]``), ``sw`` and ``deadtime`` from the
+    time coordinate, flattens the grid, fits the template FID (``init_fid``
+    or the highest-SNR voxel) with the pure-tensor LM, seeds every voxel
+    from it (:func:`template_seeded_x0`), runs the batched LM and, with
+    ``initialize_with_lm``, a refinement pass from each voxel's own
+    solution, keeping the lower cost per voxel.  CRLBs, CRLB % of the
+    amplitude, SNR and the failure masking (non-converged voxels keep
+    zeros) follow the reference, and so does the returned dataset:
+    ``raw_data``/``fit_data``/``residuals`` over the original dims (unless
+    ``return_curves=False``), ``amplitude``/``chem_shift``/``linewidth``/
+    ``phase``/``crlb``/``snr`` over the voxel dims x ``Metabolite``, and
+    ``fit_converged``.
+
+    It runs on ``device``: the card unless the caller passes ``"cpu"``.
+    ``engine`` maps one to one onto the reference's: ``"pallas"`` runs the
+    hand-written kernels (K2 normal equations and K3 damped SPD solve per
+    LM iteration, the CRLB diagonal through K6b), ``"xla"`` the pure-tensor
+    planar LM with CRLBs from the analytic Jacobian, ``"auto"`` the kernels
+    on a CUDA device and the pure-tensor LM on the CPU.  ``chunk_size=None``
+    fits the whole grid in one batch on the kernel engine and in chunks of
+    4096 on the tensor engine.  ``kernels`` selects the kernel wrappers
+    (default) or their plain versions.
+
+    Not ported (``NotImplementedError``): ``mesh`` (ROADMAP.md queue 1,
+    item 11), ``device_fids``/staged planes and priors with a free g (the
+    g scan and the VARPRO override; item 6), and kernel versions other than
+    9 (queue 2).  ``g_scan`` is a no-op for fixed-g priors, as in the
+    reference.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "fit_amares(mesh=...) is not ported yet; see ROADMAP.md queue 1, "
+            "item 11")
+    if device_fids is not None:
+        raise NotImplementedError(
+            "fit_amares(device_fids=...) (staged planes) is not ported; see "
+            "ROADMAP.md queue 1, item 6")
+    if dim not in da.dims:
+        raise ValueError(f"Dimension '{dim}' missing in DataArray.")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fit_amares runs on the card: no CUDA device is available (pass "
+            "device='cpu' to fit on the host)")
+
+    # 1. Physical parameter inference.
+    if mhz is None:
+        mhz = da.attrs.get("MHz")
+        if mhz is None:
+            raise ValueError("mhz must be provided or present in da.attrs['MHz']")
+    mhz = float(mhz)
+    t_coords = da.coords[dim].values.astype(np.float64)
+    if sw is None:
+        sw = 1.0 / float(t_coords[1] - t_coords[0])
+    if deadtime is None:
+        deadtime = float(t_coords[0])
+
+    # 2. Flatten N-D -> (n_spectra, n_time).
+    fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
+    n_spectra, n_time = fid_arrs.shape
+
+    # 3. The template FID: the caller's or the highest-SNR voxel.
+    if init_fid is not None:
+        template_fid = np.asarray(init_fid).reshape(-1)
+        if template_fid.shape[0] != n_time:
+            raise ValueError(
+                f"init_fid has {template_fid.shape[0]} points, expected {n_time}."
+            )
+    else:
+        template_fid = fid_arrs[select_template_fid(fid_arrs)]
+
+    # 4. Prior knowledge.
+    pk = (
+        prior_knowledge_file
+        if isinstance(prior_knowledge_file, PriorKnowledge)
+        else load_prior_knowledge(prior_knowledge_file)
+    )
+    if g_seed_plan(pk):
+        raise NotImplementedError(
+            "priors with a free g (the g scan and the VARPRO override) are "
+            "not ported yet; see ROADMAP.md queue 1, item 6")
+    pmap_static = hashable_pmap(pk.pmap)
+    if engine == "auto":
+        engine = "pallas" if dev.type == "cuda" else "xla"
+    if engine not in ("pallas", "xla"):
+        raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
+
+    timeaxis = np.arange(n_time, dtype=np.float64) * (1.0 / sw) + deadtime
+    t = torch.as_tensor(timeaxis, device=dev)
+    lower = torch.as_tensor(pk.lower, device=dev)
+    upper = torch.as_tensor(pk.upper, device=dev)
+    kind = torch.as_tensor(pk.kind, device=dev)
+
+    # ONE upload of the planes, shared by the seed and the fit.
+    re_all, im_all = _device_fid_planes(fid_arrs, dev)
+    x0 = template_seeded_x0(
+        fid_arrs, pk, t, mhz, template_fid=template_fid,
+        fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
+        max_iter=max_iter, verbose=verbose, device_fids=(re_all, im_all),
+    )
+    u0 = torch.as_tensor(external_to_internal(x0, pk.lower, pk.upper, pk.kind),
+                         device=dev)
+
+    # 5. Batched bounded LM over voxel chunks.
+    if chunk_size is None:
+        chunk_size = n_spectra if engine == "pallas" else 4096
+
+    def run_lm(re_c, im_c, u_init):
+        """(LMResult, dense external Hessian or None)."""
+        if engine == "pallas":
+            return lm_fit_batched_pallas(
+                re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,
+                max_iter=max_iter, kernel_version=kernel_version,
+                kernels=kernels,
+            )
+        return lm_fit_batched_planar(
+            re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,
+            max_iter=max_iter,
+        ), None
+
+    t_before = time.perf_counter()
+    x_parts, conv_parts, h_parts, cost_parts = [], [], [], []
+    for start in range(0, n_spectra, chunk_size):
+        rows = slice(start, start + chunk_size)
+        re_c, im_c = re_all[rows], im_all[rows]
+        res, h_pick = run_lm(re_c, im_c, u0[rows])
+        x, cost_pick, conv = res.x_free, res.cost, res.converged
+        if initialize_with_lm:
+            # Refinement pass from each voxel's own optimum with a fresh
+            # damping schedule; keep the better solution per voxel.
+            u_refined = torch.as_tensor(
+                external_to_internal(x.cpu().numpy(), pk.lower, pk.upper,
+                                     pk.kind), device=dev)
+            res2, h2 = run_lm(re_c, im_c, u_refined)
+            better = res2.cost < res.cost
+            x = torch.where(better[:, None], res2.x_free, x)
+            cost_pick = torch.where(better, res2.cost, res.cost)
+            if h_pick is not None:
+                h_pick = torch.where(better[:, None, None], h2, h_pick)
+            conv = res.converged | res2.converged
+        x_parts.append(x.cpu().numpy())
+        conv_parts.append(conv.cpu().numpy())
+        cost_parts.append(cost_pick)
+        if h_pick is not None:
+            h_parts.append(h_pick)
+
+    x_free = np.concatenate(x_parts, axis=0)
+    converged = np.concatenate(conv_parts, axis=0)
+    print(f"Fitting {n_spectra} spectra with batched device LM took "
+          f"{time.perf_counter() - t_before:.2f} seconds.")
+
+    # 6. Physical parameters, CRLBs, reconstructed fits.
+    metabolites = np.asarray(pk.metabolites, dtype=object)
+    n_metab = pk.n_peaks
+    pm = pk.pmap
+    safe_idx = np.maximum(pm.idx, 0)
+    full_flat = pm.offset[None, :] + np.where(
+        pm.idx[None, :] >= 0, pm.scale[None, :] * x_free[:, safe_idx], 0.0
+    )
+    grids = full_flat.reshape(n_spectra, n_metab, 5)
+
+    sds_parts, sigma_parts, fit_parts = [], [], []
+    for ci, start in enumerate(range(0, n_spectra, chunk_size)):
+        rows = slice(start, start + chunk_size)
+        xs = torch.as_tensor(x_free[rows], device=dev)
+        if h_parts:
+            # The LM returned the GN Hessian (the Fisher information) at
+            # each voxel's chosen optimum: no extra model evaluation.
+            sds, sigma2 = crlb_from_hessian(h_parts[ci], cost_parts[ci],
+                                            n_time, kernels=kernels)
+        else:
+            sds, sigma2 = crlb_batched_planar(re_all[rows], im_all[rows], t,
+                                              xs, pmap_static, mhz)
+        sds_parts.append(sds.cpu().numpy())
+        sigma_parts.append(sigma2.cpu().numpy())
+        if return_curves:
+            fit_parts.append(_reconstruct_batch(xs, t, pk, mhz))
+
+    sds_free = np.concatenate(sds_parts, axis=0)  # (B, F)
+    sigma2 = np.concatenate(sigma_parts, axis=0)  # (B,)
+    fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
+
+    amplitudes = grids[:, :, 0]
+    chem_shifts = grids[:, :, 1]
+    linewidths = grids[:, :, 2]
+    phases = grids[:, :, 3]
+
+    # CRLB(%) of each amplitude; a tied amplitude scales its slot's bound.
+    crlbs = np.zeros((n_spectra, n_metab))
+    for k in range(n_metab):
+        j = k * 5
+        slot = int(pk.pmap.idx[j])
+        if slot >= 0:
+            sd_amp = np.abs(pk.pmap.scale[j]) * sds_free[:, slot]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                crlbs[:, k] = np.where(
+                    amplitudes[:, k] != 0,
+                    100.0 * sd_amp / np.abs(amplitudes[:, k]),
+                    0.0,
+                )
+
+    # SNR per metabolite: amplitude over the per-real-channel noise std.
+    noise_std = np.sqrt(np.maximum(sigma2, 0.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        snrs = np.where(
+            noise_std[:, None] > 0, np.abs(amplitudes) / noise_std[:, None], 0.0
+        )
+
+    # Failed voxels keep zeros.
+    failed = ~converged | ~np.isfinite(grids).all(axis=(1, 2))
+    for arr in (amplitudes, chem_shifts, linewidths, phases, crlbs, snrs):
+        arr[failed] = 0.0
+    if return_curves:
+        fit_data[failed] = 0.0
+
+    # 7. Pack the dataset in the original layout.
+    def to_voxel_shape(arr, extra=()):
+        return arr.reshape(voxel_shape + extra)
+
+    ds = XmrDataset()
+    param_dims = tuple(other_dims) + ("Metabolite",)
+    metab_coord = {"Metabolite": Coord("Metabolite", metabolites)}
+
+    def voxel_coords(dims):
+        return {cname: Coord(c.dim, c.values, c.attrs)
+                for cname, c in da.coords.items() if c.dim in dims}
+
+    time_dims = tuple(other_dims) + (dim,)
+
+    def back(arr, dims):
+        x = XmrArray(arr, dims=dims)
+        x.coords = voxel_coords(dims)
+        if set(dims) == set(da.dims):
+            return x.transpose(*(d for d in da.dims if d in dims))
+        return x
+
+    if return_curves:
+        raw_nd = to_voxel_shape(fid_arrs, (n_time,))
+        fit_nd = to_voxel_shape(fit_data, (n_time,))
+        ds["raw_data"] = back(raw_nd, time_dims)
+        ds["fit_data"] = back(fit_nd, time_dims)
+        ds["residuals"] = back(raw_nd - fit_nd, time_dims)
+
+    for name, arr in (
+        ("amplitude", amplitudes),
+        ("chem_shift", chem_shifts),
+        ("linewidth", linewidths),
+        ("phase", phases),
+        ("crlb", crlbs),
+        ("snr", snrs),
+    ):
+        var = XmrArray(to_voxel_shape(arr, (n_metab,)), dims=param_dims)
+        var.coords = {**voxel_coords(other_dims),
+                      **{k: c.copy() for k, c in metab_coord.items()}}
+        ds[name] = var
+
+    if other_dims:
+        conv_var = XmrArray(to_voxel_shape(converged.astype(bool)),
+                            dims=tuple(other_dims))
+        conv_var.coords = voxel_coords(other_dims)
+    else:
+        conv_var = XmrArray(np.asarray(converged[:1]), dims=("spectrum",))
+    ds["fit_converged"] = conv_var
+
+    # 8. Lineage.
+    ds.attrs = da.attrs.copy()
+    ds.attrs.update({
+        "fit_method": method,
+        "prior_knowledge_file": str(
+            pk.source if isinstance(prior_knowledge_file, PriorKnowledge)
+            else prior_knowledge_file
+        ),
+        "amares_version": f"xmris_tpu_torch-{_version}",
+    })
+    return ds

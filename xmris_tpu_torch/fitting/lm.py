@@ -10,7 +10,12 @@ PyTorch around the port's hand-written CUDA kernels:
   ``_lm_fit_batched_pallas_impl`` on its v9 + slab branch: one normal-
   equations kernel launch (K2) and one damped SPD solve (K3) per iteration,
   the Hessian kept in the voxel-minor slab layout throughout;
-* :func:`crlb_from_hessian_slab` — CRLBs from the carried Hessian (K4).
+* :func:`crlb_from_hessian_slab` — CRLBs from the carried Hessian (K4);
+* :func:`lm_fit_batched_pallas` — the public kernel LM of ``fit_amares``
+  (the slab loop, with the Hessian returned dense through
+  :func:`slab_to_bff`), and :func:`crlb_from_hessian`, its CRLBs (K6b);
+* :func:`crlb_batched_planar` — CRLBs from the analytic Jacobian, the
+  pure-tensor engine's.
 
 Bounds use the MINPACK/lmfit transform (``x = lo + (sin u + 1)/2 (hi - lo)``
 for two-sided bounds, shifted hyperbola for one-sided), as in the
@@ -579,4 +584,109 @@ def crlb_from_hessian_slab(h_slab, cost, n_t: int, *, f: int, kernels):
     diag_h = h_slab.view(f, f, -1).diagonal(dim1=0, dim2=1)  # (B, f)
     sds = torch.sqrt(torch.clamp(sigma2[:, None] * diag_inv, min=0.0))
     sds = torch.where(diag_h <= 0.0, torch.full_like(sds, math.inf), sds)
+    return sds, sigma2
+
+
+def slab_to_bff(h_slab, f: int):
+    """(F*F, B) voxel-minor slab -> dense (B, F, F) row-major matrices."""
+    return h_slab.view(f, f, -1).permute(2, 0, 1).contiguous()
+
+
+def _t_is_uniform(t) -> bool:
+    """True when ``t`` is uniformly sampled to within 16 ulp of its dtype
+    at the largest |t| (the reference's test, same tolerance)."""
+    t_np = torch.as_tensor(t).detach().cpu().numpy()
+    eps = float(np.finfo(t_np.dtype).eps)
+    t_np = t_np.astype(np.float64)
+    if t_np.size < 3:
+        return True
+    dt = np.diff(t_np)
+    tol = 16.0 * eps * max(float(np.max(np.abs(t_np))), 1e-30)
+    return float(np.max(np.abs(dt - dt[0]))) <= tol
+
+
+def lm_fit_batched_pallas(
+    fids_re,
+    fids_im,
+    t,
+    u0,
+    lower,
+    upper,
+    kind,
+    pmap_static,
+    mhz: float,
+    max_iter: int = 50,
+    kernel_version: int = 9,
+    *,
+    kernels,
+):
+    """Bounded LM on the hand-written kernels (reference
+    ``lm_fit_batched_pallas`` with ``return_hessian=True``), on its v9 +
+    slab path.
+
+    Runs :func:`lm_fit_batched_slab` (K2 + K3 per iteration), with the
+    block-factored basis when ``t`` is uniform.  Returns ``(LMResult,
+    h_ext)`` with ``h_ext`` the dense (B, F, F) external-space
+    Gauss-Newton Hessian at the optimum (rows of parameters pinned at a
+    bound zeroed), the Fisher information :func:`crlb_from_hessian` takes.
+
+    Not ported: the other kernel versions and the dense SPD solve (K6a,
+    K7-K14, ROADMAP.md queue 2) and the VARPRO override (free-g priors,
+    queue 1 item 6, which :func:`lm_fit_batched_slab` refuses).
+    """
+    if kernel_version != 9:
+        raise NotImplementedError(
+            "only kernel_version=9 with spd_pallas=True (the slab path) is "
+            "ported; the other LM kernels are ROADMAP.md queue 2, K6a-K14"
+        )
+    res, h_slab = lm_fit_batched_slab(
+        fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
+        kernels=kernels, max_iter=max_iter, uniform_t_ok=_t_is_uniform(t),
+    )
+    return res, slab_to_bff(h_slab, res.x_free.shape[-1])
+
+
+def crlb_from_hessian(h_ext, cost, n_t: int, *, kernels):
+    """CRLB standard deviations from a dense (B, F, F) GN Hessian (reference
+    ``crlb_from_hessian``): sigma^2 = cost / max(2 n_t - F, 1) per real
+    channel, diag(H^-1) of ``h_ext + 1e-12 I`` from
+    ``kernels.spd_inverse_diag_dense`` (K6b on the card), and ``inf`` for a
+    parameter whose Fisher diagonal is <= 0 (unidentifiable).  Returns
+    ``(sds (B, F), sigma2 (B,))``."""
+    n_free = h_ext.shape[-1]
+    eye = torch.eye(n_free, dtype=h_ext.dtype, device=h_ext.device)
+    h = (h_ext + 1e-12 * eye[None]).contiguous()
+    dof = max(2.0 * n_t - n_free, 1.0)
+    sigma2 = cost / dof
+    diag_inv = kernels.spd_inverse_diag_dense(h)
+    sds = torch.sqrt(torch.clamp(sigma2[:, None] * diag_inv, min=0.0))
+    unident = torch.diagonal(h_ext, dim1=1, dim2=2) <= 0.0
+    sds = torch.where(unident, torch.full_like(sds, math.inf), sds)
+    return sds, sigma2
+
+
+def crlb_batched_planar(fids_re, fids_im, t, x_free, pmap_static, mhz: float):
+    """CRLB standard deviations of the free parameters from the analytic
+    Jacobian at ``x_free`` (reference ``crlb_batched_planar``): sigma^2 from
+    the final residuals per real channel, covariance ``sigma^2 (J_re^T J_re
+    + J_im^T J_im + 1e-12 I)^-1`` in external parameter space.  Returns
+    ``(sds (B, F), sigma2 (B,))`` in the planes' dtype."""
+    dtype = fids_re.dtype
+    t = t.to(dtype)
+    x_free = x_free.to(dtype)
+    n_free = x_free.shape[-1]
+    smat = torch.as_tensor(
+        _scatter_matrix(pmap_static, n_free), dtype=dtype, device=x_free.device
+    )
+    grid = expand_params(x_free, pmap_static)
+    m_re, m_im, b_re, b_im = eq6_basis_planar(t, grid, mhz)
+    j_re_p, j_im_p = eq6_jacobian_planar(t, grid, b_re, b_im, mhz)
+    j_re = j_re_p.flatten(-2) @ smat
+    j_im = j_im_p.flatten(-2) @ smat
+    r2 = ((fids_re - m_re) ** 2 + (fids_im - m_im) ** 2).sum(-1)
+    sigma2 = r2 / max(2.0 * t.shape[0] - n_free, 1.0)
+    h = j_re.transpose(1, 2) @ j_re + j_im.transpose(1, 2) @ j_im
+    eye = torch.eye(n_free, dtype=dtype, device=x_free.device)
+    cov = sigma2[:, None, None] * torch.linalg.inv(h + 1e-12 * eye)
+    sds = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=1, dim2=2), min=0.0))
     return sds, sigma2

@@ -1,17 +1,23 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch twins.
 
-=====  ==============================  =====================================
-K1     ``dft_cuda.spectrum``           ``dft_pallas.spectrum_pallas``
-K2     ``lm_cuda.eq6_normal_equations``  ``lm_pallas.eq6_normal_equations_pallas_v9``
-K3     ``spd.spd_solve_damped``        ``spd.spd_solve_damped_pallas_slab``
-K4     ``spd.spd_inverse_diag``        ``spd.spd_inverse_diag_pallas_slab``
-=====  ==============================  =====================================
+=====  ==================================  ===============================================
+K1     ``dft_cuda.spectrum``               ``dft_pallas.spectrum_pallas``
+K2     ``lm_cuda.eq6_normal_equations``    ``lm_pallas.eq6_normal_equations_pallas_v9``
+K3     ``spd.spd_solve_damped``            ``spd.spd_solve_damped_pallas_slab``
+K4     ``spd.spd_inverse_diag``            ``spd.spd_inverse_diag_pallas_slab``
+K5     ``acme_cuda.acme_polish``           ``acme_pallas.acme_polish_pallas``
+K6b    ``spd.spd_inverse_diag_dense``      ``spd.spd_inverse_diag_pallas``
+=====  ==================================  ===============================================
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
-for CUDA tensors.  Code on the main path takes its kernels from a
+for CUDA tensors.  Code on the main paths takes its kernels from a
 :class:`KernelSet`: :data:`DISPATCH` (the wrappers, the default) or
 :data:`PLAIN` (the plain versions on any device, which is how the card
 checks the kernel path against the plain one).
+
+:data:`PATHS` names the kernels each entry point launches on the card, by
+counter name: a run of that path launches every one of them (and only the
+plain versions that the caller asked for).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from xmris_tpu_torch.ops.kernels import dft_cuda, lm_cuda, spd
+from xmris_tpu_torch.ops.kernels import acme_cuda, dft_cuda, lm_cuda, spd
 from xmris_tpu_torch.ops.kernels._counters import (
     LAUNCHES,
     PLAIN_CALLS,
@@ -34,6 +40,8 @@ class KernelSet:
     normal_equations: Callable
     spd_solve_damped: Callable
     spd_inverse_diag: Callable
+    acme_polish: Callable
+    spd_inverse_diag_dense: Callable
 
 
 DISPATCH = KernelSet(
@@ -41,6 +49,8 @@ DISPATCH = KernelSet(
     normal_equations=lm_cuda.eq6_normal_equations,
     spd_solve_damped=spd.spd_solve_damped,
     spd_inverse_diag=spd.spd_inverse_diag,
+    acme_polish=acme_cuda.acme_polish,
+    spd_inverse_diag_dense=spd.spd_inverse_diag_dense,
 )
 
 PLAIN = KernelSet(
@@ -48,9 +58,24 @@ PLAIN = KernelSet(
     normal_equations=lm_cuda.eq6_normal_equations_plain,
     spd_solve_damped=spd.spd_solve_damped_plain,
     spd_inverse_diag=spd.spd_inverse_diag_plain,
+    acme_polish=acme_cuda.acme_polish_plain,
+    spd_inverse_diag_dense=spd.spd_inverse_diag_dense_plain,
 )
 
+_FIT = ("eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag")
+
+# Entry point on the card -> the kernels it launches (counter names).
+PATHS = {
+    # process_grid_planar_raw, autophase="single" (the gd polish on one row)
+    "grid_single_pivot": ("spectrum",) + _FIT,
+    # process_grid_planar_raw, autophase="all" with the grid search
+    "grid_per_voxel": ("spectrum", "acme_polish") + _FIT,
+    # fitting.amares.fit_amares, engine="pallas"
+    "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
+                   "spd_inverse_diag_dense"),
+}
+
 __all__ = [
-    "DISPATCH", "KernelSet", "LAUNCHES", "PLAIN", "PLAIN_CALLS", "counters",
-    "reset_counters",
+    "DISPATCH", "KernelSet", "LAUNCHES", "PATHS", "PLAIN", "PLAIN_CALLS",
+    "counters", "reset_counters",
 ]

@@ -1,17 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-All kernels live in ``csrc/*.cu`` and compile, on first use, into ONE shared
-library with a plain C interface::
+Each kernel source ``csrc/<name>.cu`` compiles, on first use, into its own
+shared library with a plain C interface; the nvcc processes of all sources
+start together and run in parallel::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/xmris_tpu_torch/libxmt_kernels-<hash>.so \\
-         csrc/*.cu
+         -Xcompiler -fPIC -o build/xmris_tpu_torch/libxmt_<name>-<hash>.so \\
+         csrc/<name>.cu
 
-The file name carries a hash of the sources, so an edited source builds
-anew.  The library is loaded with ``ctypes``; every pointer and the stream
-travel as ``c_void_p`` and every C entry returns ``cudaGetLastError()``,
-which :func:`check` turns into an exception.  Nothing here runs at import
-time: the CPU-only test suite imports every module.
+The file name carries a hash of the source and of every ``csrc/*.cuh``, so
+an edited source builds anew.  The libraries are loaded with ``ctypes``;
+every pointer and the stream travel as ``c_void_p`` and every C entry
+returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
+Nothing here runs at import time: the CPU-only test suite imports every
+module.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,6 +47,11 @@ _SIGNATURES = {
     "xmt_spd_solve_damped": [_P] * 4 + [_I] * 2 + [_P],
     # h, out, b, f, tikhonov, stream
     "xmt_spd_inverse_diag": [_P] * 2 + [_I] * 2 + [_F, _P],
+    # h (B, F, F), out, b, f, stream
+    "xmt_spd_inverse_diag_dense": [_P] * 2 + [_I] * 2 + [_P],
+    # re, im, coords, pivots, p_init, p_out, f_out, g_out, b, n, x_range,
+    # n_iter, p0_only, half_cell, span0, span1, stream
+    "xmt_acme_polish": [_P] * 8 + [_I] * 2 + [_F] + [_I] * 2 + [_F] * 3 + [_P],
 }
 
 _lib = None
@@ -60,44 +68,66 @@ def _nvcc() -> str:
     return path
 
 
-def _sources() -> list[Path]:
-    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+def _headers() -> list[Path]:
+    return sorted(_CSRC.glob("*.cuh"))
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256()
+    for path in [src] + _headers():
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libxmt_{src.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def library() -> types.SimpleNamespace:
+    """The C entries of every kernel library, building them first if needed
+    (one nvcc per source, all in parallel)."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256()
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libxmt_kernels-{digest.hexdigest()[:12]}.so"
-    if not out.exists():
+    sources = sorted(_CSRC.glob("*.cu"))
+    todo = [(src, _target(src)) for src in sources if not _target(src).exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(tmp),
-        ] + [str(s) for s in _sources() if s.suffix == ".cu"]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}"
-            )
+        procs = []
+        for src, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                "-o", str(tmp), str(src),
+            ]
+            procs.append((src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for src, out, tmp, proc in procs:
+            _, err = proc.communicate()
+            logs.append(f"== {src.name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err[-6000:]}")
+            else:
+                os.replace(tmp, out)
         build_seconds = time.perf_counter() - t0
-        (BUILD_DIR / "ptxas.log").write_text(proc.stderr)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+        (BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    entries = {}
+    for src in sources:
+        lib = ctypes.CDLL(str(_target(src)))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                entries[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(entries))
+    if missing:
+        raise RuntimeError(f"kernel libraries lack the entries {missing}")
+    _lib = types.SimpleNamespace(**entries)
+    return _lib
 
 
 def check(name: str, err: int) -> None:

@@ -1,0 +1,195 @@
+"""K5: the fused backtracking-GD ACME phase polish.
+
+Replaces ``xmris_tpu/ops/kernels/acme_pallas.py::acme_polish_pallas``: the
+whole gradient-descent polish of every voxel's (p0, p1) on the ACME
+objective, with the closed-form gradient, in one launch.  The CUDA source
+is ``csrc/acme.cu``; its header comment gives the bound on the H100 and the
+design.
+
+:func:`acme_polish_plain` is the same loop in plain PyTorch with the same
+analytic gradient (not autograd) and the same arithmetic order: every sum
+accumulates in float64 and is rounded to the working dtype once, as the
+kernel does, so kernel and twin agree to the last bits up to the rounding
+of sin/cos/log.  It is what the CPU runs and what the card checks the
+kernel against.  The wrapper :func:`acme_polish` runs it for CPU tensors and
+the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from xmris_tpu_torch.ops.kernels import _build, _counters
+
+D2R = math.pi / 180.0
+SPAN = (360.0, 8000.0)
+HALF_CELL = 0.5 / 36.0
+MAX_POINTS = 4096  # kPer * kMaxThreads of the kernel
+
+
+def _sum(x):
+    """Row sums accumulated in float64, rounded to ``x``'s dtype once."""
+    return x.sum(-1, dtype=torch.float64).to(x.dtype)
+
+
+def _finite(g):
+    return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+
+def _div(a, b):
+    """``a / b`` as one correctly rounded division: on the card PyTorch
+    divides by a Python scalar (and divides a Python scalar by a tensor)
+    through a reciprocal, two roundings where the kernel has one."""
+    def as_tensor(x, like):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.full((), x, dtype=like.dtype, device=like.device)
+    like = a if isinstance(a, torch.Tensor) else b
+    return torch.div(as_tensor(a, like), as_tensor(b, like))
+
+
+def _value_grad(re, im, u, p0, p1, p0_only: bool):
+    """ACME score (B,) and its gradient (B,), (B,) in degrees at (p0, p1);
+    ``re``/``im``/``u`` are (B, n) rows.  The reference's
+    ``_acme_value_grad``, term by term."""
+    n = re.shape[-1]
+    zero = torch.zeros((), dtype=re.dtype, device=re.device)
+    phi = (p0[:, None] + p1[:, None] * u) * D2R
+    s, c = torch.sin(phi), torch.cos(phi)
+    d = re * c - im * s
+    q = -(re * s + im * c)
+
+    # First-difference magnitude distribution (guarded entropy).
+    delta = torch.cat([d[:, 1:] - d[:, :-1], torch.zeros_like(d[:, :1])], 1)
+    ds1 = delta.abs() * 0.5
+    mind = torch.where(d >= 0, zero, d)  # min(d, 0), NaN kept
+    s1 = _sum(ds1)
+    neg = _sum(2.0 * mind) < 0
+    pen = torch.where(neg, _sum(mind * mind), zero)
+    m = torch.amax(d, dim=1)
+    pos = ds1 > 0
+    logp = torch.where(
+        pos, torch.log(torch.where(pos, ds1, torch.ones_like(ds1)))
+        - torch.log(s1)[:, None], zero,
+    )
+    h = -_sum(torch.where(pos, (ds1 / s1[:, None]) * logp, zero))
+    is_max = (d == m[:, None]).to(d.dtype)
+    ties = _sum(is_max)
+    num = h + 1000.0 * pen
+    denom = n * m
+    score = torch.where(m > 0, num / denom, torch.full_like(m, math.inf))
+
+    # d(score)/d(d_i): entropy through the first difference, the penalty's
+    # taken branch, and the tie-averaged max normalization.
+    dh = (torch.where(pos, -(logp + 1.0), zero) + (1.0 - h)[:, None]) / s1[:, None]
+    ck = (dh * torch.sign(delta)) * 0.5
+    ck[:, -1] = 0.0
+    gh = torch.cat([torch.zeros_like(ck[:, :1]), ck[:, :-1]], 1) - ck
+    gp = torch.where(neg[:, None], 2.0 * mind, zero)
+    gm = is_max / ties[:, None]
+    gd = (gh + 1000.0 * gp) / denom[:, None] - (num / (denom * m))[:, None] * gm
+    t0 = gd * q
+    live = m > 0
+    g0 = torch.where(live, _sum(t0) * D2R, zero)
+    g1 = zero.expand_as(g0) if p0_only else torch.where(
+        live, _sum(t0 * u) * D2R, zero)
+    return score, g0, g1
+
+
+def acme_polish_plain(rows_re, rows_im, coords, pivots, p_init, x_range, *,
+                      n_iter: int = 40, p0_only: bool = False,
+                      half_cell: float = HALF_CELL, span=SPAN,
+                      with_grad: bool = False):
+    """Plain K5: ``(p (B, 2), score (B,))`` after ``n_iter`` polish steps
+    from ``p_init`` (B, 2) degrees; with ``with_grad`` also the gradient at
+    ``p_init`` (B, 2).  ``pivots`` are per-voxel pivot coordinate values."""
+    _counters.PLAIN_CALLS["acme_polish"] += 1
+    _check(rows_re, rows_im, coords, pivots, p_init)
+    span0, span1 = float(span[0]), float(span[1])
+    u = _div(coords[None, :] - pivots[:, None], float(x_range))
+    p0 = p_init[:, 0].clone()
+    p1 = p_init[:, 1].clone()
+
+    def vg(a0, a1):
+        return _value_grad(rows_re, rows_im, u, a0,
+                           torch.zeros_like(a1) if p0_only else a1, p0_only)
+
+    f, gc0, gc1 = vg(p0, p1)
+    grad0 = torch.stack([gc0, gc1], 1)
+    gmax = torch.maximum((_finite(gc0) * span0).abs(),
+                         (_finite(gc1) * span1).abs())
+    tiny = torch.finfo(rows_re.dtype).tiny
+    lr = torch.where(gmax > 0, _div(half_cell, torch.clamp(gmax, min=tiny)),
+                     torch.full_like(gmax, 1e-2))
+    for _ in range(n_iter):
+        q0 = p0 - (lr * (_finite(gc0) * span0)) * span0
+        q1 = p1 - (lr * (_finite(gc1) * span1)) * span1
+        q0 = q0 - 360.0 * torch.floor(_div(q0 + 180.0, 360.0))
+        if not p0_only:
+            q1 = torch.clamp(q1, -4000.0, 4000.0)
+        fn, gn0, gn1 = vg(q0, q1)
+        better = fn < f
+        p0 = torch.where(better, q0, p0)
+        p1 = torch.where(better, q1, p1)
+        f = torch.where(better, fn, f)
+        gc0 = torch.where(better, gn0, gc0)
+        gc1 = torch.where(better, gn1, gc1)
+        lr = torch.where(better, lr * 1.2, lr * 0.5)
+    p = torch.stack([p0, p1], 1)
+    return (p, f, grad0) if with_grad else (p, f)
+
+
+def _check(rows_re, rows_im, coords, pivots, p_init):
+    if rows_re.dim() != 2 or rows_im.shape != rows_re.shape:
+        raise ValueError(
+            f"rows must be matching (B, n_f) planes, got {tuple(rows_re.shape)} "
+            f"and {tuple(rows_im.shape)}"
+        )
+    b, n = rows_re.shape
+    if coords.shape != (n,) or pivots.shape != (b,) or p_init.shape != (b, 2):
+        raise ValueError("coords must be (n_f,), pivots (B,) and p_init (B, 2)")
+    for x in (rows_im, coords, pivots, p_init):
+        if x.device != rows_re.device or x.dtype != rows_re.dtype:
+            raise ValueError("acme_polish inputs must share one device and dtype")
+
+
+def acme_polish(rows_re, rows_im, coords, pivots, p_init, x_range, *,
+                n_iter: int = 40, p0_only: bool = False,
+                half_cell: float = HALF_CELL, span=SPAN,
+                with_grad: bool = False):
+    """K5: the plain version for CPU tensors, the CUDA kernel for CUDA ones.
+
+    Same contract as :func:`acme_polish_plain`; the kernel takes float32
+    contiguous rows of 2 <= n_f <= 4096 points.
+    """
+    if rows_re.device.type == "cpu":
+        return acme_polish_plain(
+            rows_re, rows_im, coords, pivots, p_init, x_range, n_iter=n_iter,
+            p0_only=p0_only, half_cell=half_cell, span=span,
+            with_grad=with_grad,
+        )
+    if rows_re.device.type != "cuda":
+        raise ValueError(f"acme_polish: unsupported device {rows_re.device}")
+    _check(rows_re, rows_im, coords, pivots, p_init)
+    if rows_re.dtype != torch.float32:
+        raise TypeError("the ACME polish kernel takes float32")
+    b, n = rows_re.shape
+    if not 2 <= n <= MAX_POINTS:
+        raise ValueError(f"n_f={n} outside the kernel's 2..{MAX_POINTS}")
+    args = (rows_re, rows_im, coords, pivots, p_init)
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("acme_polish inputs must be contiguous")
+    p_out = torch.empty((b, 2), dtype=torch.float32, device=rows_re.device)
+    f_out = torch.empty((b,), dtype=torch.float32, device=rows_re.device)
+    g_out = torch.empty_like(p_out) if with_grad else None
+    err = _build.library().xmt_acme_polish(
+        *(a.data_ptr() for a in args), p_out.data_ptr(), f_out.data_ptr(),
+        g_out.data_ptr() if with_grad else None, b, n, float(x_range),
+        int(n_iter), int(bool(p0_only)), float(half_cell), float(span[0]),
+        float(span[1]), _build.stream_ptr(rows_re.device),
+    )
+    _build.check("xmt_acme_polish", err)
+    _counters.LAUNCHES["acme_polish"] += 1
+    return (p_out, f_out, g_out) if with_grad else (p_out, f_out)

@@ -1,17 +1,17 @@
-"""K3/K4: per-voxel damped SPD solve and inverse diagonal on the H slab.
+"""K3/K4/K6b: per-voxel damped SPD solve and inverse diagonal.
 
-K3 replaces ``xmris_tpu/ops/kernels/spd.py::spd_solve_damped_pallas_slab``
-and K4 replaces ``spd_inverse_diag_pallas_slab``.  The CUDA source is
-``csrc/spd.cu``; its header comment gives the bound on the H100 and the
-design.  The plain versions beside them run the same arithmetic in the same
-order with plain PyTorch ops (every product and sum rounded on its own,
-1/sqrt from a correctly rounded sqrt and division), so the two agree to the
-last bits on the card.
+K3 replaces ``xmris_tpu/ops/kernels/spd.py::spd_solve_damped_pallas_slab``,
+K4 replaces ``spd_inverse_diag_pallas_slab`` and K6b replaces
+``spd_inverse_diag_pallas``.  The CUDA source is ``csrc/spd.cu``; its header
+comment gives the bound on the H100 and the design.  The plain versions
+beside them run the same arithmetic in the same order with plain PyTorch
+ops (every product and sum rounded on its own, 1/sqrt from a correctly
+rounded sqrt and division), so the two agree to the last bits on the card.
 
-Layout: H is the voxel-minor slab (F*F, B) of
-:func:`xmris_tpu_torch.ops.kernels.lm_cuda.eq6_normal_equations`; ``g`` is
-(B, F), ``lam`` (B,), outputs (B, F).  A non-positive pivot gives a NaN
-row.
+Layouts: K3/K4 take H as the voxel-minor slab (F*F, B) of
+:func:`xmris_tpu_torch.ops.kernels.lm_cuda.eq6_normal_equations`, with ``g``
+(B, F), ``lam`` (B,) and outputs (B, F); K6b takes dense row-major
+(B, F, F) matrices.  A non-positive pivot gives a NaN row.
 """
 
 from __future__ import annotations
@@ -92,6 +92,29 @@ def spd_inverse_diag_plain(h, tikhonov: float = 0.0):
     f = _check_slab(h)
     a = _as_bff(h, f).clone()
     torch.diagonal(a, dim1=1, dim2=2).add_(tikhonov)
+    return _inverse_diag_bff(a)
+
+
+def _check_dense(h):
+    if h.dim() != 3 or h.shape[1] != h.shape[2]:
+        raise ValueError(f"h must be (B, F, F), got {tuple(h.shape)}")
+    if h.dtype != torch.float32:
+        raise TypeError("the SPD kernels take float32")
+    return h.shape[2]
+
+
+def spd_inverse_diag_dense_plain(h):
+    """Plain K6b: diag(A^-1) of dense (B, F, F) ``h`` (no ridge: the CRLB
+    caller adds its own)."""
+    _counters.PLAIN_CALLS["spd_inverse_diag_dense"] += 1
+    _check_dense(h)
+    return _inverse_diag_bff(h)
+
+
+def _inverse_diag_bff(a):
+    """diag(A^-1) of (B, F, F) ``a`` through the Cholesky factor: column c
+    of L^-1 by forward substitution, then the sum of its squares."""
+    f = a.shape[-1]
     l = _cholesky_cols(a)
     b = a.shape[0]
     eye = torch.eye(f, dtype=a.dtype, device=a.device)
@@ -154,4 +177,22 @@ def spd_inverse_diag(h, tikhonov: float = 0.0):
     )
     _build.check("xmt_spd_inverse_diag", err)
     _counters.LAUNCHES["spd_inverse_diag"] += 1
+    return out
+
+
+def spd_inverse_diag_dense(h):
+    """K6b: the plain version for CPU tensors, the CUDA kernel for CUDA ones."""
+    if h.device.type == "cpu":
+        return spd_inverse_diag_dense_plain(h)
+    if h.device.type != "cuda":
+        raise ValueError(f"spd_inverse_diag_dense: unsupported device {h.device}")
+    f = _check_dense(h)
+    _launch_checks(h, f)
+    b = h.shape[0]
+    out = torch.empty((b, f), dtype=torch.float32, device=h.device)
+    err = _build.library().xmt_spd_inverse_diag_dense(
+        h.data_ptr(), out.data_ptr(), b, f, _build.stream_ptr(h.device),
+    )
+    _build.check("xmt_spd_inverse_diag_dense", err)
+    _counters.LAUNCHES["spd_inverse_diag_dense"] += 1
     return out

@@ -1,20 +1,62 @@
-"""ACME phase search on a spectrum row (PyTorch port).
+"""Spectral phasing: manual phase application and the ACME grid phase search
+(PyTorch port).
 
-Port of the single-row path of :mod:`xmris_tpu.ops.phasing`: the ACME
-objective (:func:`acme_score_raw`), the planar phased real part
-(:func:`_phased_real_planar`) and :func:`_grid_phase_search` — the
-deterministic candidate scan plus backtracking gradient-descent polish that
-``ap_optimizer="grid"`` runs on the pivot row.  The gradients come from
-autograd, as the reference takes them from ``jax.value_and_grad``.
+Port of :mod:`xmris_tpu.ops.phasing` on its grid path:
+
+* :func:`phase` applies a zero/first-order correction in degrees,
+  ``exp(+1j (p0 + p1 (coord - pivot) / range))``, with lineage attrs;
+* :func:`acme_score_raw` is the ACME objective (entropy of the first
+  derivative plus the negative-area penalty);
+* :func:`_grid_phase_search` scores a deterministic candidate mesh on
+  decimated rows, chunked over candidates, and polishes each row's winner:
+  ``"gd"`` is backtracking gradient descent with autograd gradients (as the
+  reference takes them from ``jax.value_and_grad``), ``"fused"`` the whole
+  polish in one launch of kernel K5 (:mod:`.kernels.acme_cuda`);
+* :func:`autophase` runs it on the loudest row (``mode="single"``) or on
+  every voxel (``mode="all"``, :func:`_autophase_all`).
+
+Only the ACME objective with ``optimizer="grid"`` is ported; differential
+evolution, the scipy reproduction, the ROI objectives and the
+``"newton"``/``"bfgs"`` polishes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 
 import numpy as np
 import torch
+
+from xmris_tpu_torch.core.array import XmrArray
+from xmris_tpu_torch.core.config import ATTRS, DIMS
+from xmris_tpu_torch.core.utils import _check_dims
+from xmris_tpu_torch.ops.fid import apodize_exp, to_fid, to_spectrum
+from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
+from xmris_tpu_torch.runtime.config import matching_dtypes
+
+_UNPORTED = "not ported yet; see ROADMAP.md queue 1, item 7"
+
+
+def phase_factor_raw(coords, p0_deg, p1_deg, pivot, x_range):
+    """Complex phase factor ``exp(1j * (p0 + p1*(x-pivot)/range))`` (radians
+    from degrees), on numpy or on tensors."""
+    xp = torch if any(
+        isinstance(v, torch.Tensor) for v in (coords, p0_deg, p1_deg, pivot)
+    ) else np
+    if xp is torch:
+        like = next(v for v in (coords, p0_deg, p1_deg, pivot)
+                    if isinstance(v, torch.Tensor))
+        p0_deg, p1_deg = (torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                          for v in (p0_deg, p1_deg))
+    p0_rad = xp.deg2rad(p0_deg)
+    p1_rad = xp.deg2rad(p1_deg)
+    if isinstance(x_range, (int, float)) and x_range == 0:
+        phi = p0_rad
+    else:
+        phi = p0_rad + p1_rad * ((coords - pivot) / x_range)
+    return xp.exp(1.0j * phi)
 
 
 def _phased_real_planar(re, im, coords, p0, p1, pivot, x_range):
@@ -29,26 +71,34 @@ def _phased_real_planar(re, im, coords, p0, p1, pivot, x_range):
     return re * torch.cos(phi) - im * torch.sin(phi)
 
 
+def _abs(x):
+    """|x| with ``jnp.abs``'s derivative at 0 (1, where torch.abs has 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def acme_score_raw(real_data):
     """ACME objective over the last axis: entropy of |first derivative|
     plus the negative-area penalty, normalized by length and the maximum of
-    the real part; ``+inf`` where that maximum is not positive."""
-    ds1 = torch.abs((real_data[..., 1:] - real_data[..., :-1]) / 2.0)
+    the real part; ``+inf`` where that maximum is not positive.  Its
+    autograd gradient is ``jax.grad``'s: the maximum is ``amax``, whose
+    gradient splits evenly among tied maxima as ``jnp.max``'s does, and
+    ``|x|`` has derivative 1 at 0 as ``jnp.abs``."""
+    ds1 = _abs((real_data[..., 1:] - real_data[..., :-1]) / 2.0)
     p1_prob = ds1 / ds1.sum(-1, keepdim=True)
     p1_prob = torch.where(p1_prob == 0, torch.ones_like(p1_prob), p1_prob)
     h1s = (-p1_prob * torch.log(p1_prob)).sum(-1)
 
-    as_ = real_data - torch.abs(real_data)
+    as_ = real_data - _abs(real_data)
     sumas = as_.sum(-1)
     pfun = torch.where(
         sumas < 0, ((as_ / 2.0) ** 2).sum(-1), torch.zeros_like(sumas)
     )
-    denom = real_data.max(-1).values
+    denom = torch.amax(real_data, dim=-1)
     score = (h1s + 1000.0 * pfun) / real_data.shape[-1] / denom
     return torch.where(denom > 0, score, torch.full_like(score, math.inf))
 
 
-# The reference's single-row settings: candidate meshes and polish length.
+# The reference's settings: candidate meshes and polish length.
 N_P0 = 36
 N_P1 = 41
 POLISH_ITERS = 40
@@ -69,22 +119,48 @@ def _search_constants(dtype, device: str):
                  for m in meshes)
 
 
+def resolve_polish(polish_optimizer: str, rows_re) -> str:
+    """The reference's ``"auto"`` rule on this card: the fused kernel for a
+    float32 batch of more than one row on a CUDA device, else ``"gd"`` (the
+    single-pivot row keeps gd, as in the reference)."""
+    if polish_optimizer != "auto":
+        return polish_optimizer
+    fused = (rows_re.is_cuda and rows_re.shape[0] > 1
+             and rows_re.dtype == torch.float32)
+    return "fused" if fused else "gd"
+
+
 def _grid_phase_search(rows_re, rows_im, coords, x_range, pivots,
-                       p0_only: bool):
+                       p0_only: bool, *, polish_optimizer: str = "gd",
+                       cand_chunk: int = 4, kernels: KernelSet = DISPATCH):
     """Phase search on (V, n_f) rows: candidate scan + gradient polish.
 
-    The reference's ``_grid_phase_search`` for the ACME objective with the
-    ``"gd"`` polish and its single-row settings (:data:`N_P0`, :data:`N_P1`,
-    :data:`POLISH_ITERS`).  The scan scores candidates on the rows decimated to
-    ~512 points (stride ``n_f // 512``): p0 on a 36-point mesh; for p0 + p1
-    a coordinate descent (marginal p0, then p1 given p0 on a 41-point mesh,
-    then a 7-point p0 refinement).  Ties go to the first candidate and a
-    voxel whose every candidate scores ``inf`` keeps 0, as the reference's
-    chunked scan does.  The polish is the reference's backtracking gradient
-    descent in unit space (span 360 / 8000), with p0 wrapped into
-    [-180, 180) and p1 clipped to [-4000, 4000]; for p0 only, the first
-    iterations run on the decimated rows.  Returns (V, 2) degrees.
+    The reference's ``_grid_phase_search`` for the ACME objective.  The
+    scan scores candidates on the rows decimated to ~512 points (stride
+    ``n_f // 512``): p0 on a 36-point mesh; for p0 + p1 a coordinate
+    descent (marginal p0, then p1 given p0 on a 41-point mesh, then a
+    7-point p0 refinement).  Candidates are scored ``cand_chunk`` at a time
+    (the reference's ``lax.scan`` over chunks, which bounds the (V, chunk,
+    n) temporaries at grid scale); a chunk's winner replaces the running
+    best only when strictly better, so ties go to the first candidate, and
+    a voxel whose every candidate scores ``inf`` keeps 0.
+
+    The polish (``polish_optimizer``: ``"gd"``, ``"fused"`` or ``"auto"``,
+    see :func:`resolve_polish`) is the reference's backtracking gradient
+    descent in unit space (span 360 / 8000), with p0 wrapped into [-180,
+    180) and p1 clipped to [-4000, 4000]; for p0 only, the first iterations
+    run on the decimated rows.  ``"fused"`` runs it as ``kernels.acme_polish``
+    (K5 on CUDA tensors).  Returns (V, 2) degrees.
     """
+    polish_optimizer = resolve_polish(polish_optimizer, rows_re)
+    if polish_optimizer in ("newton", "bfgs"):
+        raise NotImplementedError(
+            f"polish_optimizer={polish_optimizer!r} is {_UNPORTED}")
+    if polish_optimizer not in ("gd", "fused"):
+        raise ValueError(
+            f"polish_optimizer must be 'gd', 'newton', 'bfgs', or 'fused', "
+            f"got {polish_optimizer!r}."
+        )
     dtype = rows_re.dtype
     dev = rows_re.device
     v, n_f = rows_re.shape
@@ -95,22 +171,30 @@ def _grid_phase_search(rows_re, rows_im, coords, x_range, pivots,
     piv = pivots[:, None]  # (V, 1) broadcasts against candidates
     p0_c, p1_c, dp0, span = _search_constants(dtype, str(dev))
 
-    def scan_axis(c, p0_base, p1_base, axis):
+    def scan_axis(values, p0_base, p1_base, axis):
         """Score ``base + c`` for every candidate ``c`` along one axis,
         holding the other at its per-voxel base; per-voxel winner."""
-        p0v = p0_base[:, None] + (c if axis == 0 else torch.zeros_like(c))
-        p1v = p1_base[:, None] + (c if axis == 1 else torch.zeros_like(c))
-        d = _phased_real_planar(
-            rows_re_d[:, None, :], rows_im_d[:, None, :], coords_d, p0v, p1v,
-            piv[:, :, None], x_range,
-        )
-        e = acme_score_raw(d)  # (V, C)
-        e = torch.where(torch.isnan(e), torch.full_like(e, math.inf), e)
-        i = torch.argmin(e, dim=1)
-        e_min = e.gather(1, i[:, None])[:, 0]
+        pad = (-values.shape[0]) % cand_chunk
+        if pad:
+            values = torch.cat([values, values[-1:].expand(pad)])
         base = p0_base if axis == 0 else p1_base
-        return torch.where(e_min < math.inf, base + c[i],
-                           torch.zeros_like(base))
+        best_e = torch.full((v,), math.inf, dtype=dtype, device=dev)
+        best_v = torch.zeros((v,), dtype=dtype, device=dev)
+        for chunk in values.view(-1, cand_chunk):
+            zero = torch.zeros_like(chunk)
+            p0v = p0_base[:, None] + (chunk if axis == 0 else zero)
+            p1v = p1_base[:, None] + (chunk if axis == 1 else zero)
+            d = _phased_real_planar(
+                rows_re_d[:, None, :], rows_im_d[:, None, :], coords_d, p0v,
+                p1v, piv[:, :, None], x_range,
+            )
+            e = acme_score_raw(d)  # (V, C)
+            i = torch.argmin(e, dim=1)  # a NaN wins, as in jnp.argmin
+            e_min = e.gather(1, i[:, None])[:, 0]
+            better = e_min < best_e
+            best_e = torch.where(better, e_min, best_e)
+            best_v = torch.where(better, base + chunk[i], best_v)
+        return best_v
 
     zero_v = torch.zeros((v,), dtype=dtype, device=dev)
     if p0_only:
@@ -120,6 +204,28 @@ def _grid_phase_search(rows_re, rows_im, coords, x_range, pivots,
         p1_b = scan_axis(p1_c, p0_a, zero_v, 1)
         p0_r = scan_axis(dp0, p0_a, p1_b, 0)
         best_p = torch.stack([p0_r, p1_b], dim=1)
+
+    # The two-phase polish (decimated first) is quality-neutral only for
+    # the 1-D p0 search; p0 + p1 polishes on the exact objective.
+    two_phase = p0_only and dec > 1
+    fine_iters = max(POLISH_ITERS // 3, 8) if two_phase else POLISH_ITERS
+
+    if polish_optimizer == "fused":
+        xr = float(x_range)
+        half_cell = 0.5 / max(N_P0, 2)
+        if two_phase:
+            best_p, _ = kernels.acme_polish(
+                rows_re_d.contiguous(), rows_im_d.contiguous(),
+                coords_d.contiguous(), pivots, best_p, xr,
+                n_iter=POLISH_ITERS - fine_iters, p0_only=True,
+                half_cell=half_cell,
+            )
+        best_p, _ = kernels.acme_polish(
+            rows_re.contiguous(), rows_im.contiguous(), coords.contiguous(),
+            pivots, best_p, xr, n_iter=fine_iters, p0_only=p0_only,
+            half_cell=half_cell,
+        )
+        return best_p
 
     def wrap_params(p):
         p0 = torch.remainder(p[:, 0] + 180.0, 360.0) - 180.0
@@ -160,14 +266,9 @@ def _grid_phase_search(rows_re, rows_im, coords, x_range, pivots,
             lr = torch.where(better, lr * 1.2, lr * 0.5)
         return p
 
-    # The two-phase polish (decimated first) is quality-neutral only for
-    # the 1-D p0 search; p0 + p1 polishes on the exact objective.
-    if p0_only and dec > 1:
-        fine_iters = max(POLISH_ITERS // 3, 8)
+    if two_phase:
         best_p = polish(best_p, rows_re_d, rows_im_d, coords_d,
                         POLISH_ITERS - fine_iters)
-    else:
-        fine_iters = POLISH_ITERS
     return polish(best_p, rows_re, rows_im, coords, fine_iters)
 
 
@@ -177,7 +278,8 @@ _GRAPHS: dict = {}
 
 def grid_phase_search_graphed(rows_re, rows_im, coords, x_range, pivots,
                               p0_only: bool):
-    """:func:`_grid_phase_search` on CUDA tensors, replayed from a CUDA graph.
+    """:func:`_grid_phase_search` with the gd polish on CUDA tensors,
+    replayed from a CUDA graph.
 
     The eager search on one row issues thousands of small kernels (the scan,
     then 40 forward + backward polish steps), which the host launches far
@@ -190,20 +292,246 @@ def grid_phase_search_graphed(rows_re, rows_im, coords, x_range, pivots,
     args = (rows_re, rows_im, coords, x_range, pivots)
     key = (rows_re.device, tuple(rows_re.shape), tuple(coords.shape),
            rows_re.dtype, bool(p0_only))
+    search = functools.partial(_grid_phase_search, p0_only=p0_only,
+                               polish_optimizer="gd", cand_chunk=16)
     if key not in _GRAPHS:
         static = [a.clone() for a in args]
         side = torch.cuda.Stream(rows_re.device)
         side.wait_stream(torch.cuda.current_stream(rows_re.device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                _grid_phase_search(*static, p0_only)
+                search(*static)
         torch.cuda.current_stream(rows_re.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = _grid_phase_search(*static, p0_only)
+            out = search(*static)
         _GRAPHS[key] = (graph, static, out)
     graph, static, out = _GRAPHS[key]
     for dst, src in zip(static, args):
         dst.copy_(src)
     graph.replay()
     return out.clone()
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def phase(
+    da: XmrArray,
+    dim: str = DIMS.frequency,
+    p0: float = 0.0,
+    p1: float = 0.0,
+    pivot: float | None = None,
+) -> XmrArray:
+    """Apply zero- and first-order phase correction (degrees) to a spectrum.
+
+    ``p1`` is the total phase twist across the full coordinate range,
+    anchored at ``pivot`` (default: the coordinate of the global maximum
+    magnitude).  The phase parameters are recorded in ``attrs``; phasing in
+    another coordinate than a previous phase operation warns.
+    """
+    _check_dims(da, dim, "phase")
+    coords = da.coords[dim].values.astype(np.float64)
+
+    if pivot is None:
+        values = da.values
+        flat_idx = int(np.argmax(np.abs(values)))
+        target_idx = np.unravel_index(flat_idx, da.shape)[da.get_axis_num(dim)]
+        pivot = float(coords[target_idx])
+
+    x_range = float(coords.max()) - float(coords.min())
+    factor = phase_factor_raw(coords, float(p0), float(p1), float(pivot), x_range)
+    _, cplx = matching_dtypes(da.dtype)
+    factor = np.asarray(factor, dtype=cplx)
+    if factor.ndim == 0:
+        # Zero coordinate range: the p1 term vanishes and the scalar p0
+        # factor broadcasts.
+        factor = np.full(coords.shape, factor, dtype=cplx)
+
+    da_phased = (da * XmrArray(factor, (dim,))).transpose(*da.dims)
+    da_phased.name = da.name
+    da_phased.attrs = da.attrs.copy()
+
+    if ATTRS.phase_pivot_coord in da_phased.attrs:
+        old_coord = da_phased.attrs[ATTRS.phase_pivot_coord]
+        if old_coord != dim:
+            warnings.warn(
+                f"Applying phase in '{dim}', but previous phase operations "
+                f"were recorded in '{old_coord}'. Ensure your pivot value "
+                f"({pivot}) matches the current dimension's units."
+            )
+
+    da_phased.attrs[ATTRS.phase_p0] = p0
+    da_phased.attrs[ATTRS.phase_p1] = p1
+    da_phased.attrs[ATTRS.phase_pivot] = pivot
+    da_phased.attrs[ATTRS.phase_pivot_coord] = dim
+    return da_phased
+
+
+def _planes(data, device):
+    """Real and imaginary float planes of a complex payload on ``device``."""
+    t = torch.as_tensor(data, device=device)
+    real_dtype = torch.float64 if t.dtype == torch.complex128 else torch.float32
+    if t.is_complex():
+        return t.real.to(real_dtype).contiguous(), t.imag.to(real_dtype).contiguous()
+    return t.to(real_dtype).contiguous(), torch.zeros_like(t, dtype=real_dtype)
+
+
+def autophase(
+    da: XmrArray,
+    dim: str = DIMS.frequency,
+    method: str = "acme",
+    mode: str = "single",
+    peak_width: float = 0.5,
+    target_coord: float | None = None,
+    p0_only: bool = False,
+    lb: float = 0.0,
+    temp_time_dim: str = DIMS.time,
+    optimizer: str = "de",
+    seed: int = 42,
+    polish_optimizer: str = "auto",
+    device="cuda",
+    kernels: KernelSet = DISPATCH,
+    **kwargs,
+) -> XmrArray:
+    """Find and apply the ACME phase correction (reference ``autophase``).
+
+    ``mode="single"`` searches the 1-D slice holding the global maximum and
+    applies the result globally; ``mode="all"`` searches every voxel
+    (:func:`_autophase_all`).  ``optimizer="grid"`` is the deterministic
+    candidate scan + polish of :func:`_grid_phase_search`; its
+    ``polish_optimizer`` is ``"auto"``, ``"gd"`` or ``"fused"``.  The search
+    runs on ``device`` (the card unless the caller passes ``"cpu"``); the
+    result's payload is numpy for a numpy input and a tensor for a tensor
+    input.  ``kernels`` selects the kernel wrappers (default) or their plain
+    versions.
+
+    Not ported (``NotImplementedError``): ``optimizer="de"``/``"scipy"``,
+    the ROI methods ``"peak_minima"``/``"positivity"``, and the
+    ``"newton"``/``"bfgs"`` polishes.  ``peak_width`` and ``seed`` serve
+    only those.  Bounds: p0 in [-180, 180] degrees; p1 in [-4000, 4000]
+    degrees unless ``p0_only`` locks p1 = 0.
+    """
+    _check_dims(da, dim, "autophase")
+    if mode not in ("single", "all"):
+        raise ValueError("Mode must be 'single' or 'all'.")
+    if method not in ("acme", "peak_minima", "positivity"):
+        raise ValueError("Method must be 'acme', 'peak_minima', or 'positivity'")
+    if method != "acme":
+        raise NotImplementedError(f"method={method!r} is {_UNPORTED}")
+    if optimizer in ("de", "scipy"):
+        raise NotImplementedError(f"optimizer={optimizer!r} is {_UNPORTED}")
+    if optimizer != "grid":
+        raise ValueError("optimizer must be 'de', 'grid', or 'scipy'.")
+    if polish_optimizer in ("newton", "bfgs"):
+        raise NotImplementedError(
+            f"polish_optimizer={polish_optimizer!r} is {_UNPORTED}")
+
+    if mode == "all":
+        return _autophase_all(
+            da, dim, target_coord, p0_only, lb, temp_time_dim,
+            polish_optimizer=polish_optimizer, device=device, kernels=kernels,
+        )
+
+    coords = da.coords[dim].values.astype(np.float64)
+    x_range = float(coords.max() - coords.min())
+    values = da.values
+    unraveled = np.unravel_index(int(np.argmax(np.abs(values))), da.shape)
+    if target_coord is not None:
+        pivot = float(target_coord)
+    else:
+        pivot = float(coords[int(unraveled[da.get_axis_num(dim)])])
+
+    opt_da = da.isel({d: int(unraveled[i]) for i, d in enumerate(da.dims)
+                      if d != dim})
+    if lb > 0:
+        opt_da = to_spectrum(
+            apodize_exp(to_fid(opt_da, dim=dim, out_dim=temp_time_dim),
+                        dim=temp_time_dim, lb=lb),
+            dim=temp_time_dim, out_dim=dim,
+        )
+    re, im = _planes(opt_da.data, device)
+    xs = _grid_phase_search(
+        re[None, :], im[None, :],
+        torch.as_tensor(coords, dtype=re.dtype, device=re.device), x_range,
+        torch.tensor([pivot], dtype=re.dtype, device=re.device), p0_only,
+        polish_optimizer=polish_optimizer, cand_chunk=16, kernels=kernels,
+    )
+    p0_opt = float(xs[0, 0])
+    p1_opt = 0.0 if p0_only else float(xs[0, 1])
+    return phase(da, dim=dim, p0=p0_opt, p1=p1_opt, pivot=pivot)
+
+
+def _autophase_all(
+    da: XmrArray,
+    dim: str,
+    target_coord: float | None,
+    p0_only: bool,
+    lb: float,
+    temp_time_dim: str,
+    polish_optimizer: str = "auto",
+    device="cuda",
+    kernels: KernelSet = DISPATCH,
+) -> XmrArray:
+    """Per-voxel ACME autophase: one grid search per 1-D spectrum, all
+    voxels in one batch on ``device``.
+
+    The search reads the lb-smoothed spectra (``lb > 0``); the phases are
+    applied to the original data.  Each voxel's pivot is its maximum-
+    magnitude coordinate (or ``target_coord``); ``phase_p0``/``phase_p1``/
+    ``phase_pivot`` in the result's attrs are numpy arrays over the voxel
+    dims.
+    """
+    src = da.to(device)
+    work = src
+    if lb > 0:
+        work = to_spectrum(
+            apodize_exp(to_fid(src, dim=dim, out_dim=temp_time_dim),
+                        dim=temp_time_dim, lb=lb),
+            dim=temp_time_dim, out_dim=dim,
+        )
+    coords = np.asarray(da.coords[dim].values, dtype=np.float64)
+    x_range = float(coords.max() - coords.min())
+    order = [d for d in da.dims if d != dim] + [dim]
+    n_points = da.sizes[dim]
+    voxel_shape = tuple(da.sizes[d] for d in order[:-1])
+
+    rows_re, rows_im = _planes(
+        work.transpose(*order).data.reshape(-1, n_points), device)
+    coords_t = torch.as_tensor(coords, dtype=rows_re.dtype, device=rows_re.device)
+    if target_coord is not None:
+        pivots = torch.full((rows_re.shape[0],), float(target_coord),
+                            dtype=rows_re.dtype, device=rows_re.device)
+    else:
+        pivots = coords_t[torch.argmax(rows_re * rows_re + rows_im * rows_im, 1)]
+
+    sol = _grid_phase_search(
+        rows_re, rows_im, coords_t, x_range, pivots, p0_only,
+        polish_optimizer=polish_optimizer, cand_chunk=4, kernels=kernels,
+    )
+    p0s = sol[:, 0]
+    p1s = torch.zeros_like(p0s) if p0_only else sol[:, 1]
+
+    if work is src:
+        orig_re, orig_im = rows_re, rows_im
+    else:
+        orig_re, orig_im = _planes(
+            src.transpose(*order).data.reshape(-1, n_points), device)
+    phi = torch.deg2rad(p0s)[:, None] + torch.deg2rad(p1s)[:, None] * (
+        (coords_t[None, :] - pivots[:, None]) / x_range
+    )
+    c, s = torch.cos(phi), torch.sin(phi)
+    phased = torch.complex(orig_re * c - orig_im * s, orig_re * s + orig_im * c)
+    phased = phased.reshape(voxel_shape + (n_points,))
+    if not isinstance(da.data, torch.Tensor):
+        _, cplx = matching_dtypes(da.dtype)
+        phased = phased.cpu().numpy().astype(cplx)
+    out = da.transpose(*order).copy(data=phased).transpose(*da.dims)
+    out.attrs = da.attrs.copy()
+    out.attrs[ATTRS.phase_p0] = p0s.cpu().numpy().reshape(voxel_shape)
+    out.attrs[ATTRS.phase_p1] = p1s.cpu().numpy().reshape(voxel_shape)
+    out.attrs[ATTRS.phase_pivot] = pivots.cpu().numpy().reshape(voxel_shape)
+    out.attrs[ATTRS.phase_pivot_coord] = dim
+    return out

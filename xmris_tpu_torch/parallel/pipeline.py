@@ -16,11 +16,14 @@ class PipelineConfig:
     """Static configuration of the spectral stage.
 
     ``autophase``: ``"single"`` (one ACME phase solved on the grid's
-    loudest row and applied to every voxel) or ``"none"``; ``"all"`` is
-    accepted and raises ``NotImplementedError`` when run.  ``ap_optimizer``
-    / ``ap_polish``: the phase search; only ``"grid"`` with the ``"gd"``
-    polish (``"auto"`` resolves to it) is ported.  ``spec_layout``:
-    ``"flat"`` (B, n_out) or ``"stacked"`` (B, n2, n1) spectra.
+    loudest row and applied to every voxel), ``"all"`` (one ACME phase per
+    voxel, flat spectra only) or ``"none"``.  ``ap_optimizer`` /
+    ``ap_polish``: the phase search; only ``"grid"`` is ported, with the
+    ``"gd"`` and ``"fused"`` polishes (``"auto"``: the fused kernel K5 for
+    a grid of voxels on the card, gd for the single pivot row or on the
+    CPU); ``"newton"``/``"bfgs"`` raise ``NotImplementedError`` when run.
+    ``spec_layout``: ``"flat"`` (B, n_out) or ``"stacked"`` (B, n2, n1)
+    spectra.
     """
 
     zero_fill_to: int = 2048

@@ -2,8 +2,10 @@
 
 Port of :func:`xmris_tpu.parallel.planar_pipeline.spectral_pipeline_planar_raw`
 on its kernel variant: window + zero-fill + ortho DFT + fftshift and the
-per-voxel peak search in ONE kernel launch (K1), then the single-pivot
-ACME autophase on the loudest row, applied to every voxel.
+per-voxel peak search in ONE kernel launch (K1), then the ACME grid
+autophase: on the grid's loudest row, applied to every voxel
+(``autophase="single"``), or on every voxel with its own pivot
+(``autophase="all"``, whose polish is kernel K5 on the card).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from xmris_tpu_torch.ops.kernels.dft_cuda import pallas_split_ok
 from xmris_tpu_torch.ops.phasing import (
     _grid_phase_search,
     grid_phase_search_graphed,
+    resolve_polish,
 )
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
 
@@ -24,33 +27,41 @@ def _apply_phase_planar(re, im, phi):
     return re * c - im * s, re * s + im * c
 
 
-def _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg: PipelineConfig):
-    """ACME (p0, p1) on one pivot spectrum row with the deterministic grid
-    search (``cfg.ap_optimizer == "grid"``)."""
+def _check_search(cfg: PipelineConfig):
     if cfg.ap_optimizer != "grid":
         raise NotImplementedError(
             "ap_optimizer='de' (differential evolution) is not ported; use "
             "'grid' (see ROADMAP.md queue 1, item 7)"
         )
-    # "auto" resolves to "gd" for one row in the reference too.
-    if cfg.ap_polish not in ("auto", "gd"):
+    if cfg.ap_polish in ("newton", "bfgs"):
         raise NotImplementedError(
-            f"ap_polish={cfg.ap_polish!r} is not ported (only 'gd'); see "
-            "ROADMAP.md queue 1, item 7"
+            f"ap_polish={cfg.ap_polish!r} is not ported (only 'gd' and "
+            "'fused'); see ROADMAP.md queue 1, item 7"
         )
+
+
+def _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg: PipelineConfig,
+                        kernels: KernelSet = DISPATCH):
+    """ACME (p0, p1) on one pivot spectrum row with the deterministic grid
+    search (``cfg.ap_optimizer == "grid"``).  On the card the gd search is
+    replayed from a CUDA graph; ``"auto"`` resolves to gd for one row, as
+    in the reference."""
+    _check_search(cfg)
     x_range = freqs[-1] - freqs[0]
-    search = (grid_phase_search_graphed if row_re.is_cuda
-              else _grid_phase_search)
-    xs = search(
-        row_re[None, :], row_im[None, :], freqs, x_range, pivot[None],
-        cfg.p0_only,
-    )
+    args = (row_re[None, :], row_im[None, :], freqs, x_range, pivot[None])
+    if row_re.is_cuda and resolve_polish(cfg.ap_polish, args[0]) == "gd":
+        xs = grid_phase_search_graphed(*args, cfg.p0_only)
+    else:
+        xs = _grid_phase_search(*args, cfg.p0_only,
+                                polish_optimizer=cfg.ap_polish, cand_chunk=16,
+                                kernels=kernels)
     p0 = xs[0, 0]
     p1 = torch.zeros_like(p0) if cfg.p0_only else xs[0, 1]
     return p0, p1
 
 
-def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak):
+def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak,
+                             kernels: KernelSet = DISPATCH):
     """Phase every voxel with the ACME solution of the grid's loudest row.
 
     Takes flat (B, n_freq) or stacked (B, n2, n1) spectra (a voxel's
@@ -65,13 +76,34 @@ def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak):
     row_re = re[voxel_idx].reshape(n_freq)
     row_im = im[voxel_idx].reshape(n_freq)
 
-    p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg)
+    p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg, kernels)
 
     phi = (torch.deg2rad(p0)
            + torch.deg2rad(p1) * ((freqs - pivot) / x_range)).to(re.dtype)
     phi = phi.reshape(re.shape[-2:])[None] if stacked else phi[None, :]
     re, im = _apply_phase_planar(re, im, phi)
     return re, im, p0, p1, pivot
+
+
+def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
+                          kernels: KernelSet = DISPATCH):
+    """Per-voxel ACME autophase of flat (B, n_freq) spectra: each voxel's
+    pivot is its own peak ``freqs[t_idx]`` (the in-kernel peak search, the
+    first maximum of |S|^2 as the reference's ``argmax``), then the batched
+    grid search (:func:`_grid_phase_search`) and a per-voxel rotation."""
+    _check_search(cfg)
+    x_range = freqs[-1] - freqs[0]
+    pivots = freqs[t_idx]
+    xs = _grid_phase_search(re, im, freqs, x_range, pivots, cfg.p0_only,
+                            polish_optimizer=cfg.ap_polish, kernels=kernels)
+    p0s = xs[:, 0]
+    p1s = torch.zeros_like(p0s) if cfg.p0_only else xs[:, 1]
+    phi = (
+        torch.deg2rad(p0s)[:, None]
+        + torch.deg2rad(p1s)[:, None] * ((freqs[None, :] - pivots[:, None]) / x_range)
+    ).to(re.dtype)
+    re, im = _apply_phase_planar(re, im, phi)
+    return re, im, p0s, p1s, pivots
 
 
 def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
@@ -83,21 +115,17 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
     filled axis (its first n_time entries are applied), ``freqs`` the
     (zero_fill_to,) centred frequency axis.  Returns ``(spec_re, spec_im,
     (p0, p1, pivot))`` — spectra (B, n_out), or (B, n2, n1) with
-    ``spec_layout="stacked"`` (flat k = k1 + n1*k2) — and 0-dim phase
-    tensors (zeros for ``autophase="none"``).
+    ``spec_layout="stacked"`` (flat k = k1 + n1*k2) — with 0-dim phase
+    tensors (zeros for ``autophase="none"``), or (B,) per-voxel phases and
+    pivots for ``autophase="all"``.
     """
-    if cfg.autophase == "all":
-        raise NotImplementedError(
-            "per-voxel autophase (autophase='all') is not ported; see "
-            "ROADMAP.md queue 1, item 7"
-        )
     b, n_time = fids_re.shape
     if not pallas_split_ok(n_time, cfg.zero_fill_to):
         raise ValueError(
             f"n_time={n_time} -> zero_fill_to={cfg.zero_fill_to} has no "
             "Cooley-Tukey split for the spectrum kernel"
         )
-    want_peak = cfg.autophase == "single"
+    want_peak = cfg.autophase in ("single", "all")
     out = kernels.spectrum(
         fids_re, fids_im, cfg.zero_fill_to,
         window=weight[:n_time].to(fids_re.dtype).contiguous(),
@@ -108,9 +136,14 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
         zero = torch.zeros((), dtype=fids_re.dtype, device=fids_re.device)
         return out[0], out[1], (zero, zero, zero)
     spec_re, spec_im, mv, mi = out
+    if cfg.autophase == "all":
+        spec_re, spec_im, p0, p1, pivot = _autophase_all_planar(
+            spec_re, spec_im, freqs, cfg, mi.long(), kernels
+        )
+        return spec_re, spec_im, (p0, p1, pivot)
     voxel_idx = torch.argmax(mv)  # first occurrence, like jnp.argmax
     peak = (voxel_idx, mi[voxel_idx].long())
     spec_re, spec_im, p0, p1, pivot = _autophase_single_planar(
-        spec_re, spec_im, freqs, cfg, peak
+        spec_re, spec_im, freqs, cfg, peak, kernels
     )
     return spec_re, spec_im, (p0, p1, pivot)

@@ -2,9 +2,9 @@
 
 Port of :func:`xmris_tpu.parallel.process.process_grid_planar_raw`.  The
 reference compiles the whole per-grid workload into one XLA program; here
-it is one eager PyTorch call whose device work is the four hand-written
-kernels (K1 spectrum, K2 normal equations, K3 damped SPD solve, K4 inverse
-diagonal) plus tensor glue.  The spectral stage and the fit both read the
+it is one eager PyTorch call whose device work is the hand-written kernels
+(K1 spectrum, K5 fused ACME polish with ``autophase="all"``, K2 normal
+equations, K3 damped SPD solve, K4 inverse diagonal) plus tensor glue.  The spectral stage and the fit both read the
 raw FIDs and do not depend on each other.
 
 Everything is planar float32: complex FIDs travel as (real, imag) planes.
@@ -78,7 +78,8 @@ def process_grid_planar_raw(
     (default) or their plain versions.
 
     Returns ``(spec_re, spec_im, (p0, p1, pivot), x_free, cost, converged,
-    crlb_sds)``.
+    crlb_sds)``; the phases are 0-dim for ``cfg.autophase="single"`` and
+    per voxel (B,) for ``"all"``.
     """
     spec_re, spec_im, phases = spectral_pipeline_planar_raw(
         fids_re, fids_im, weight, freqs, cfg, kernels=kernels
