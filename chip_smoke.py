@@ -9,13 +9,14 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failed check raises
 and the script exits non-zero):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build the six CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
+2. build the ten CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
    (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
    version's, a single PyTorch call's where one computes the same function,
-   and its bound on the card;
+   and its bound on the card (K6a bit for bit against its twin and K3; K8
+   by the share of voxels within the reference's tolerances);
 4. the slice: ``process_grid_planar_raw`` (single-pivot autophase) on the
    full bench grid for three grids in a row with the launch counters
    checked, the fit checked against the phantom's ground truth, and the
@@ -24,13 +25,18 @@ and the script exits non-zero):
    against the plain path;
    4c. ``fit_amares`` on the bench grid as a labeled (x, y, z, time) array
    (K2, K3 and K6b) against the phantom's truth and the plain path;
+   4d-4f. ``process_grid_planar_raw`` at ``kernel_version`` 10 (K8), 3 (K7
+   + K6a) and 5 (K12 + K6a), each against the phantom's truth and, by the
+   share of voxels within the reference's tolerances, the v9 grid of 4;
+   4g. ``fit_amares(kernel_version=10)`` against the truth and 4c's maps;
 5. timing: median ms per single-pivot grid over synchronized grids, and
-   voxels/s; median ms of a per-voxel-autophased grid; median s of one
-   ``fit_amares`` call.
+   voxels/s; the grid and its fit stage at versions 9, 10, 3 and 5 in
+   turns; median ms of a per-voxel-autophased grid; median s of one
+   ``fit_amares`` call at versions 9 and 10.
 
 ``--profile-dir DIR`` adds a ``torch.profiler`` look at one grid of each
-autophase mode: the device-busy share on stdout and kernel tables in
-``DIR/profile.txt`` and ``DIR/profile_per_voxel.txt``.  The
+autophase mode and of the v10 and v3 fits: the device-busy share on stdout
+and kernel tables in ``DIR/profile*.txt``.  The
 line before the card's name lists every kernel as JSON; the last line of
 standard output is one JSON object with ``"ok": true`` and the device.
 Without a CUDA device, or outside a checkout of the repo, it exits non-zero
@@ -174,6 +180,8 @@ def main(argv) -> int:
         acme_cuda,
         dft_cuda,
         lm_cuda,
+        lm_jac_cuda,
+        lm_loop_cuda,
         spd,
     )
     from xmris_tpu_torch.ops.phasing import (
@@ -293,6 +301,11 @@ def main(argv) -> int:
     e2g = _assert_close("K2 g", g_k, g_p, 1e-4, 1e-3 * float(g_p.abs().max()))
     e2h = _assert_close("K2 H", h_k, h_p, 1e-4, 1e-3 * float(h_p.abs().max()))
     kp_, qn = pk.n_peaks, plan.q_n
+    # Per (voxel, t): the model (~10 per peak), residual and cost (6),
+    # one complex product per peak pair with 2*q_n+1 t-power moments
+    # (6 + 4 each) and the gradient moments per peak (6 + 4 (q_n+1)).
+    k2_ops = n_in * (10 * kp_ + 6 + kp_ * (kp_ + 1) / 2 * (6 + 4 * (2 * qn + 1))
+                     + kp_ * (6 + 4 * (qn + 1)))
     report["eq6_normal_eq_v9"] = dict(
         err=max(e2g, e2h),
         ms=_time_ms(lambda: lm_cuda.eq6_normal_equations(
@@ -300,14 +313,10 @@ def main(argv) -> int:
         plain_ms=_time_ms(lambda: lm_cuda.eq6_normal_equations_plain(
             grids, re, im, t_d, dxdu, plan), 3),
         library_ms=None,
-        # Per (voxel, t): the model (~10 per peak), residual and cost (6),
-        # one complex product per peak pair with 2*q_n+1 t-power moments
-        # (6 + 4 each) and the gradient moments per peak (6 + 4 (q_n+1)).
         bound=_bound(
             b * 4 * (kp_ * 5 + 2 * n_in + n_free + 1 + n_free + n_free ** 2)
             + 4 * n_in,
-            b * n_in * (10 * kp_ + 6 + kp_ * (kp_ + 1) / 2 * (6 + 4 * (2 * qn + 1))
-                        + kp_ * (6 + 4 * (qn + 1))),
+            b * k2_ops,
         ),
     )
 
@@ -324,12 +333,19 @@ def main(argv) -> int:
     i_p = spd.spd_inverse_diag_plain(h_sp, 1e-12)
     j_k = spd.spd_inverse_diag_dense(h_dense)
     j_p = spd.spd_inverse_diag_dense_plain(h_dense)
+    a_k = spd.spd_solve_damped_dense(h_dense, g_k, lam)
+    a_p = spd.spd_solve_damped_dense_plain(h_dense, g_k, lam)
     _sync()
-    for name, out in (("K3", d_k), ("K4", i_k), ("K6b", j_k)):
+    for name, out in (("K3", d_k), ("K4", i_k), ("K6a", a_k), ("K6b", j_k)):
         rows_nan = torch.isnan(out).all(1)
         if not torch.equal(rows_nan, bad) or torch.isnan(out[~bad]).any():
             raise AssertionError(f"{name}: NaN rows are not the planted ones")
-    print("   K3/K4/K6b NaN rows exactly at the planted non-SPD voxels")
+    print("   K3/K4/K6a/K6b NaN rows exactly at the planted non-SPD voxels")
+    if not (torch.equal(a_k[~bad], a_p[~bad])
+            and torch.equal(a_k[~bad], d_k[~bad])):
+        raise AssertionError("K6a differs from its plain version or from K3")
+    print("   K6a equals its plain version, and K3 on the slab form, bit for bit")
+    e6a = _assert_close("K6a solve (dense)", a_k, a_p, 2e-6, 1e-7, mask=~bad)
     e3 = _assert_close("K3 solve", d_k, d_p, 2e-6, 1e-7, mask=~bad)
     e4 = _assert_close("K4 inverse diag", i_k, i_p, 2e-4, 0.0, mask=~bad)
     e6 = _assert_close("K6b inverse diag (dense)", j_k, j_p, 2e-4, 0.0,
@@ -358,7 +374,108 @@ def main(argv) -> int:
         library_ms=None,
         bound=_bound(b * 4 * (n_free ** 2 + n_free), 2 * spd_flops),
     )
+    report["spd_solve_damped_dense"] = dict(
+        err=e6a,
+        ms=_time_ms(lambda: spd.spd_solve_damped_dense(h_bff, g_k, lam), 10),
+        plain_ms=_time_ms(
+            lambda: spd.spd_solve_damped_dense_plain(h_bff, g_k, lam), 3),
+        library_ms=None,
+        bound=_bound(b * 4 * (n_free ** 2 + 2 * n_free + 1),
+                     spd_flops + b * 2 * n_free ** 2),
+    )
     del c_p, g_p, h_p, h_sp, h_dense, d_k, d_p, i_k, i_p, j_k, j_p, h_bff
+    del a_k, a_p
+
+    # K7 (every physical row) and K12 (the prior's active rows) at the
+    # seeded bench grid, in physical space.
+    active = tuple(plan.active)
+    jac = {
+        "eq6_normal_eq_v3": (
+            "K7", tuple(range(5 * kp_)),
+            lambda: lm_jac_cuda.eq6_normal_equations_v3(
+                grids, re, im, t_d, kp_, bi.MHZ),
+            lambda: lm_jac_cuda.eq6_normal_equations_v3_plain(
+                grids, re, im, t_d, kp_, bi.MHZ)),
+        "eq6_normal_eq_v5": (
+            "K12", active,
+            lambda: lm_jac_cuda.eq6_normal_equations_v5(
+                grids, re, im, t_d, kp_, bi.MHZ, active),
+            lambda: lm_jac_cuda.eq6_normal_equations_v5_plain(
+                grids, re, im, t_d, kp_, bi.MHZ, active)),
+    }
+    jac_out = {}
+    for name, (tag, rows, kern, plain) in jac.items():
+        ck, gk, hk = kern()
+        cp, gp, hp = plain()
+        _sync()
+        _assert_close(f"{tag} cost", ck, cp, 1e-5, 0.0)
+        err = max(
+            _assert_close(f"{tag} g", gk, gp, 1e-4, 1e-3 * float(gp.abs().max())),
+            _assert_close(f"{tag} H", hk, hp, 1e-4, 1e-3 * float(hp.abs().max())))
+        del cp, gp, hp
+        n_r = len(rows)
+        jac_out[name] = (ck, gk, hk)
+        report[name] = dict(
+            err=err,
+            ms=_time_ms(kern, 10),
+            plain_ms=_time_ms(plain, 1, warmup=1),
+            library_ms=None,
+            # Per (voxel, t): the bases (~10 per peak), model and residual
+            # (6), a Jacobian row (4 each) and 2 multiply-adds for each
+            # upper-triangle H entry and g entry.
+            bound=_bound(
+                b * 4 * (5 * kp_ + 2 * n_in + 1 + n_r + n_r * n_r) + 4 * n_in,
+                b * n_in * (10 * kp_ + 6 + 4 * n_r
+                            + 4 * (n_r * (n_r + 1) / 2 + n_r))),
+        )
+    (c3, g3, h3), (c5, g5, h5) = jac_out.values()
+    sel = list(active)
+    same = (torch.equal(c5, c3) and torch.equal(g5, g3[:, sel])
+            and torch.equal(h5, h3[:, sel][:, :, sel]))
+    print(f"   K12 on K7's active rows: bit for bit {same}")
+    _assert_close("K12 vs K7 cost", c5, c3, 1e-6, 0.0)
+    _assert_close("K12 vs K7 g", g5, g3[:, sel], 1e-5, 1e-4)
+    _assert_close("K12 vs K7 H", h5, h3[:, sel][:, :, sel], 1e-5,
+                  1e-3 * float(h3.abs().max()))
+    del jac_out, c3, g3, h3, c5, g5, h5
+
+    # K8: the whole LM of the seeded bench grid, against its plain twin.
+    loop_args = (u0, re, im, t_d, lower, upper, kind, plan, ps)
+    k8 = lm_loop_cuda.lm_loop_v10(*loop_args, max_iter=24, with_trips=True)
+    p8 = lm_loop_cuda.lm_loop_v10_plain(*loop_args, max_iter=24,
+                                        with_trips=True)
+    _sync()
+    x_k8 = internal_to_external_torch(k8[0], lower, upper, kind)[0]
+    x_p8 = internal_to_external_torch(p8[0], lower, upper, kind)[0]
+    if not (bool(k8[3].all()) and bool(p8[3].all())):
+        raise AssertionError("K8: voxels left undone")
+    bits = float(((k8[0] == p8[0]).all(1) & (k8[1] == p8[1])).double().mean())
+    same_acc = float((k8[2] == p8[2]).double().mean())
+    print(f"   K8 vs plain: {bits:.5f} of voxels bit identical (u and cost), "
+          f"{same_acc:.5f} with equal accepted steps; evaluations "
+          f"{int(k8[5].sum())} (kernel) / {int(p8[5].sum())} (plain)")
+    # An accept test turns the evaluation's last-bit differences into other
+    # stopping points on a few voxels: held per voxel, by share.
+    _share_within("K8 x", x_k8, x_p8, 1e-4, 1e-4, 0.99)
+    _share_within("K8 cost", k8[1][:, None], p8[1][:, None], 1e-5, 0.0, 0.99)
+    _share_within("K8 H", k8[4].reshape(b, -1), p8[4].reshape(b, -1), 1e-3,
+                  1e-4 * float(p8[4].abs().max()), 0.99)
+    n_eval = int(k8[5].sum())
+    report["lm_loop_v10"] = dict(
+        err=float((x_k8 - x_p8).abs().max()),
+        ms=_time_ms(lambda: lm_loop_cuda.lm_loop_v10(*loop_args, max_iter=24),
+                    3),
+        plain_ms=_time_ms(lambda: lm_loop_cuda.lm_loop_v10_plain(
+            *loop_args, max_iter=24), 1, warmup=1),
+        library_ms=None,
+        # FIDs and seed read once, u, cost, counts and H written once; per
+        # evaluation this run made, K2's work and one F^3/3 factorization
+        # with its two substitutions.
+        bound=_bound(
+            b * (8 * n_in + 4 * n_free * 2 + 9 + 4 * n_free ** 2) + 4 * n_in,
+            n_eval * (k2_ops + n_free ** 3 / 3 + 2 * n_free ** 2)),
+    )
+    del k8, p8, x_k8, x_p8
 
     # K5 on the unphased flat bench spectra, each voxel's own pivot.
     sr, si, _, mi = dft_cuda.spectrum(re, im, bi.ZERO_FILL, window=win,
@@ -486,6 +603,7 @@ def main(argv) -> int:
     if not torch.equal(conv, conv_p):
         print(f"   note: converged flags differ on "
               f"{int((conv != conv_p).sum())} voxels")
+    x9, cost9, sds9 = x_free, cost, sds  # the v9 grid, for 4d-4f
     del plain, sr_p, si_p, outs
     torch.cuda.empty_cache()
 
@@ -608,6 +726,82 @@ def main(argv) -> int:
     del ds_p, got, ref
     torch.cuda.empty_cache()
 
+    # ---- 4d-4f. the grid at kernel_version 10 (K8), 3 (K7) and 5 (K12) ----
+    # Each against the v9 grid of phase 4 on the same inputs, by the share of
+    # voxels within the reference's own tolerances between these versions:
+    # test_lm_pallas_v10.py:99-111 for 10 (x rtol/atol 1e-4, cost rtol
+    # 1e-5), test_lm_pallas.py:1363 for 3 and 5 (x rtol/atol 0.02), CRLB
+    # rtol 1e-3 (10) and 0.05 (3, 5); and every voxel within 0.1 CRLB.
+    tols = {10: (1e-4, 1e-5, 1e-3), 3: (0.02, 1e-4, 0.05), 5: (0.02, 1e-4, 0.05)}
+    for tag, v in (("4d", 10), ("4e", 3), ("4f", 5)):
+        _phase(f"{tag} process_grid_planar_raw, kernel_version={v}")
+        K.reset_counters()
+        out = process_grid_planar_raw(*args, **fit_kw, kernel_version=v)
+        _sync()
+        counts = K.counters()
+        print(f"   counters {counts}")
+        path = f"grid_single_pivot_v{v}"
+        _check_path(K, counts, path)
+        for name in K.PATHS[path]:  # the new kernels' counts, first path
+            if not launches[name]:
+                launches[name] = counts["launches"][name]
+        x_v, cost_v, conv_v, sds_v = out[3:]
+        for name, val in (("x_free", x_v), ("cost", cost_v)):
+            if not torch.isfinite(val).all():
+                raise AssertionError(f"v{v}: non-finite {name}")
+        conv_share = float(conv_v.float().mean())
+        pcr_err = float(((x_v[:, slot].double() - truth).abs() / truth).median())
+        print(f"   converged share {conv_share:.4f} (limit >= 0.95); PCr median "
+              f"rel err {pcr_err:.5f} (limit <= 0.05)")
+        if conv_share < 0.95 or not pcr_err <= 0.05:
+            raise AssertionError(f"v{v} grid: fit quality check failed")
+        bits = float(((x_v == x9).all(1) & (cost_v == cost9)).double().mean())
+        print(f"   v{v} vs v9: {bits:.5f} of voxels bit identical (x, cost)")
+        x_tol, c_tol, s_tol = tols[v]
+        _share_within(f"v{v} x_free vs v9", x_v, x9, x_tol, x_tol, 0.99)
+        _share_within(f"v{v} cost vs v9", cost_v[:, None], cost9[:, None],
+                      c_tol, 0.0, 0.99)
+        _share_within(f"v{v} CRLB vs v9", sds_v, sds9, s_tol, 1e-4, 0.99)
+        _within_crlb(f"v{v} x_free vs v9", x_v, x9, sds9)
+        del out, x_v, cost_v, conv_v, sds_v
+        torch.cuda.empty_cache()
+
+    # ---- 4g. fit_amares(kernel_version=10) (K8 + K6b) ----
+    _phase("4g fit_amares(kernel_version=10) on the bench grid")
+    K.reset_counters()
+    ds10 = fit_amares(da, pk, kernel_version=10)
+    _sync()
+    counts = K.counters()
+    print(f"   counters {counts}")
+    _check_path(K, counts, "fit_amares_v10")
+    amp10 = ds10["amplitude"].values.reshape(b, -1)
+    conv_share = float(ds10["fit_converged"].values.mean())
+    pcr_err = float(np.median(np.abs(amp10[:, 0] - bi.pcr_amplitudes())
+                              / bi.pcr_amplitudes()))
+    print(f"   converged share {conv_share:.4f} (limit >= 0.95); PCr median "
+          f"rel err {pcr_err:.5f} (limit <= 0.05)")
+    if conv_share < 0.95 or not pcr_err <= 0.05:
+        raise AssertionError("fit_amares v10 quality check failed")
+    got = np.stack([ds10[n].values.reshape(b, -1) for n in fams])
+    ref = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    bits = float((got == ref).all(axis=(0, 2)).mean())
+    print(f"   v10 vs v9 maps: {bits:.5f} of voxels bit identical")
+    _within_crlb("fit_amares v10 parameters", torch.as_tensor(got),
+                 torch.as_tensor(ref), torch.as_tensor(sd))
+    for c, n in enumerate(fams):
+        ok = (np.abs(got[c] - ref[c]) <= 1e-4 + 1e-4 * np.abs(ref[c])).all(1)
+        print(f"   fit_amares v10 {n}: {ok.mean():.5f} of voxels within rtol "
+              f"1e-4 / atol 1e-4 of v9" + (" (limit >= 0.99)" if n != "phase"
+                                           else " (reported)"))
+        if n != "phase" and ok.mean() < 0.99:
+            raise AssertionError(f"fit_amares v10 {n}: too few voxels within 1e-4")
+    _share_within("fit_amares v10 CRLB %",
+                  torch.as_tensor(ds10["crlb"].values).reshape(b, -1),
+                  torch.as_tensor(ds["crlb"].values).reshape(b, -1), 2e-2, 1e-4,
+                  0.99)
+    del ds10, got, ref
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -621,6 +815,40 @@ def main(argv) -> int:
     print(f"   grid times ms: {[round(1e3 * x, 3) for x in times]}")
     print(f"   median {ms:.3f} ms/grid = {b / (ms / 1e3):.1f} voxels/s "
           f"({b} voxels)")
+    # The grid and its fit stage at each kernel_version in turns, 10 rounds
+    # with the order reversed every other round, so that the versions share
+    # the state of the card and of the host: medians with their quartiles,
+    # and the rounds in which each version beat v9.
+    fit_only = {k: v for k, v in fit_kw.items() if k != "cfg"}
+    versions = (9, 10, 3, 5)
+    turns = {(what, v): [] for what in ("grid", "fit") for v in versions}
+    for rnd in range(10):
+        for v in (versions if rnd % 2 == 0 else versions[::-1]):
+            for what, fn in (
+                ("grid", lambda: process_grid_planar_raw(
+                    *args, **fit_kw, kernel_version=v)),
+                ("fit", lambda: seeded_fit_grid_raw(
+                    re, im, t_d, xt_d, lower, upper, kind, **fit_only,
+                    kernel_version=v)),
+            ):
+                _sync()
+                t0 = time.perf_counter()
+                fn()
+                _sync()
+                turns[(what, v)].append(1e3 * (time.perf_counter() - t0))
+    grid_ms = {}
+    for (what, v), xs in turns.items():
+        q1, med, q3 = np.percentile(xs, [25, 50, 75])
+        wins = sum(a < c for a, c in zip(xs, turns[(what, 9)]))
+        label = "grid" if what == "grid" else "seeded fit + CRLB"
+        print(f"   in turns, kernel_version={v} {label}: median {med:.3f} ms "
+              f"(quartiles {q1:.3f}-{q3:.3f})"
+              + ("" if v == 9 else f", faster than v9 in {wins}/10 rounds"))
+        if what == "grid":
+            grid_ms[v] = float(med)
+    for v in (10, 3, 5):
+        print(f"   kernel_version={v}: {grid_ms[v]:.3f} ms/grid = "
+              f"{b / (grid_ms[v] / 1e3):.1f} voxels/s")
     stages = {
         "spectral stage": lambda: spectral_pipeline_planar_raw(
             re, im, w_d, f_d, cfg),
@@ -628,8 +856,7 @@ def main(argv) -> int:
             re, im, t_d, xt_d, lower, upper, kind, pmap_static=ps,
             mhz=bi.MHZ, amp_slots=amp_slots, ls_plan=ls_plan),
         "seeded fit + CRLB": lambda: seeded_fit_grid_raw(
-            re, im, t_d, xt_d, lower, upper, kind,
-            **{k: v for k, v in fit_kw.items() if k != "cfg"}),
+            re, im, t_d, xt_d, lower, upper, kind, **fit_only),
         "per-voxel spectral stage": lambda: spectral_pipeline_planar_raw(
             re, im, w_d, f_d, cfg_all),
     }
@@ -663,11 +890,26 @@ def main(argv) -> int:
     fit_med = float(np.median(fit_times))
     print(f"   fit_amares times s: {[round(x, 3) for x in fit_times]}; "
           f"median {fit_med:.3f} s = {b / fit_med:.1f} voxels/s")
+    fit_times = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        fit_amares(da, pk, return_curves=True, kernel_version=10)
+        _sync()
+        fit_times.append(time.perf_counter() - t0)
+    fit_med10 = float(np.median(fit_times))
+    print(f"   fit_amares(kernel_version=10) times s: "
+          f"{[round(x, 3) for x in fit_times]}; median {fit_med10:.3f} s = "
+          f"{b / fit_med10:.1f} voxels/s")
     if profile_dir:
         _profile(process_grid_planar_raw, args, fit_kw, ms, profile_dir,
                  "single-pivot grid", "profile.txt")
         _profile(process_grid_planar_raw, args, fit_kw_all, ms_all,
                  profile_dir, "per-voxel grid", "profile_per_voxel.txt")
+        for v in (10, 3):
+            _profile(process_grid_planar_raw, args,
+                     dict(fit_kw, kernel_version=v), grid_ms[v], profile_dir,
+                     f"kernel_version={v} grid", f"profile_v{v}.txt")
 
     replaces = {
         "spectrum": ("xmris_tpu_torch/ops/kernels/csrc/spectrum.cu",
@@ -682,6 +924,14 @@ def main(argv) -> int:
                         "xmris_tpu/ops/kernels/acme_pallas.py:193"),
         "spd_inverse_diag_dense": ("xmris_tpu_torch/ops/kernels/csrc/spd.cu",
                                    "xmris_tpu/ops/kernels/spd.py:421"),
+        "spd_solve_damped_dense": ("xmris_tpu_torch/ops/kernels/csrc/spd.cu",
+                                   "xmris_tpu/ops/kernels/spd.py:254"),
+        "eq6_normal_eq_v3": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:442"),
+        "eq6_normal_eq_v5": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:631"),
+        "lm_loop_v10": ("xmris_tpu_torch/ops/kernels/csrc/lm_v10.cu",
+                        "xmris_tpu/ops/kernels/lm_pallas.py:2382"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -694,8 +944,11 @@ def main(argv) -> int:
         for name in K.LAUNCHES
     ]
     print(json.dumps({"ms_per_grid": ms, "voxels_per_s": b / (ms / 1e3),
+                      "ms_per_grid_v10": grid_ms[10],
+                      "ms_per_grid_v3": grid_ms[3], "ms_per_grid_v5": grid_ms[5],
                       "ms_per_grid_per_voxel_autophase": ms_all,
-                      "fit_amares_s": fit_med, "voxels": b}))
+                      "fit_amares_s": fit_med, "fit_amares_v10_s": fit_med10,
+                      "voxels": b}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,18 +20,28 @@ from xmris_tpu_torch import bench_inputs as bi
 from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.fitting.amares import (
     fit_amares,
+    seed_grid,
     seed_plan,
     seeded_fit_grid_raw,
 )
 from xmris_tpu_torch.fitting.lm import (
     _expand_params_batched,
+    crlb_batched_pallas,
     hashable_pmap,
+    internal_to_external_torch,
     normal_eq_plan,
     slab_to_bff,
 )
 from xmris_tpu_torch.fitting.prior import prior_from_csv_text
 from xmris_tpu_torch.ops import kernels as K
-from xmris_tpu_torch.ops.kernels import acme_cuda, dft_cuda, lm_cuda, spd
+from xmris_tpu_torch.ops.kernels import (
+    acme_cuda,
+    dft_cuda,
+    lm_cuda,
+    lm_jac_cuda,
+    lm_loop_cuda,
+    spd,
+)
 from xmris_tpu_torch.ops.phasing import (
     _grid_phase_search,
     grid_phase_search_graphed,
@@ -356,3 +366,201 @@ def test_fit_amares_runs_on_the_kernels(dev):
                                rtol=0, atol=0.05)
     np.testing.assert_allclose(ds["crlb"].values, ds2["crlb"].values,
                                rtol=2e-2, atol=1e-4)
+
+
+def test_spd_solve_damped_dense_kernel_matches_plain(dev):
+    """K6a against its plain twin and against K3 on the same matrices in
+    slab form: bit for bit, with NaN rows exactly at non-SPD voxels."""
+    ps, nf, ins = _normal_eq_inputs(dev, bi.PK_CSV)
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
+    _, g, h = lm_cuda.eq6_normal_equations(*ins, plan)
+    b = g.shape[0]
+    h[0, [3, b - 1]] = -1.0
+    bad = torch.zeros(b, dtype=torch.bool, device=dev)
+    bad[[3, b - 1]] = True
+    lam = torch.logspace(-5, -1, b, device=dev)
+    dense = slab_to_bff(h, nf)
+    x = spd.spd_solve_damped_dense(dense, g, lam)
+    assert torch.equal(torch.isnan(x).all(1), bad)
+    assert not torch.isnan(x[~bad]).any()
+    assert torch.equal(x[~bad], spd.spd_solve_damped_dense_plain(dense, g, lam)[~bad])
+    assert torch.equal(x[~bad], spd.spd_solve_damped(h, g, lam)[~bad])
+
+
+@pytest.mark.parametrize("b", [37, 64])
+def test_jac_normal_equations_kernels_match_plain(dev, b):
+    """K7 and K12 against their plain twins (``test_lm_pallas.py:53-86``
+    tolerances), and K12 equal to K7's active rows."""
+    pk = prior_from_csv_text(FREE_G_CSV)
+    ps, nf, ins = _normal_eq_inputs(dev, FREE_G_CSV)
+    grids, re, im, t = (a[:b].contiguous() if a.dim() == 2 and a.shape[0] > b
+                        else a for a in ins[:4])
+    k = pk.n_peaks
+    active = tuple(j for j in range(5 * k) if j % 5 != 3)  # phases fixed
+    c3, g3, h3 = lm_jac_cuda.eq6_normal_equations_v3(grids, re, im, t, k, bi.MHZ)
+    c5, g5, h5 = lm_jac_cuda.eq6_normal_equations_v5(grids, re, im, t, k,
+                                                     bi.MHZ, active)
+    for (c, g, h), plain in (
+        ((c3, g3, h3), lm_jac_cuda.eq6_normal_equations_v3_plain(
+            grids, re, im, t, k, bi.MHZ)),
+        ((c5, g5, h5), lm_jac_cuda.eq6_normal_equations_v5_plain(
+            grids, re, im, t, k, bi.MHZ, active)),
+    ):
+        c2, g2, h2 = plain
+        torch.testing.assert_close(c, c2, rtol=1e-5, atol=0)
+        torch.testing.assert_close(g, g2, rtol=1e-4,
+                                   atol=1e-3 * float(g2.abs().max()))
+        torch.testing.assert_close(h, h2, rtol=1e-4,
+                                   atol=1e-3 * float(h2.abs().max()))
+    sel = list(active)
+    torch.testing.assert_close(c5, c3, rtol=1e-6, atol=0)
+    torch.testing.assert_close(g5, g3[:, sel], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(h5, h3[:, sel][:, :, sel], rtol=1e-5,
+                               atol=1e-3 * float(h3.abs().max()))
+
+
+def test_lm_loop_v10_kernel_matches_plain(dev):
+    """K8 against its plain twin on the seeded bench voxels: per voxel, x
+    within rtol/atol 1e-4 and cost within rtol 1e-5
+    (``test_lm_pallas_v10.py:99-111``) for >= 95 % of the voxels (an accept
+    test turns last-bit differences of the evaluation into other stopping
+    points), and every voxel done."""
+    pk = prior_from_csv_text(bi.PK_CSV)
+    ps = hashable_pmap(pk.pmap)
+    re, im, _, _ = _planes(dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    lo, hi = (torch.as_tensor(a.astype(np.float32), device=dev)
+              for a in (pk.lower, pk.upper))
+    kind = torch.as_tensor(pk.kind, device=dev)
+    x_t = torch.as_tensor(pk.init_free, dtype=torch.float32, device=dev)
+    amp_slots, ls_plan = seed_plan(pk)
+    u0 = seed_grid(re, im, t, x_t, lo, hi, kind, pmap_static=ps, mhz=bi.MHZ,
+                   amp_slots=amp_slots, ls_plan=ls_plan)
+    plan = normal_eq_plan(ps, pk.n_free, bi.MHZ, True)
+    args = (u0, re, im, t, lo, hi, kind, plan, ps)
+    u, cost, n_acc, done, h, trips = lm_loop_cuda.lm_loop_v10(
+        *args, max_iter=24, with_trips=True)
+    u2, cost2, n_acc2, done2, h2, trips2 = lm_loop_cuda.lm_loop_v10_plain(
+        *args, max_iter=24, with_trips=True)
+    assert done.all() and done2.all() and (trips > 0).all()
+    x, _ = internal_to_external_torch(u, lo, hi, kind)
+    x2, _ = internal_to_external_torch(u2, lo, hi, kind)
+    ok = ((x - x2).abs() <= 1e-4 + 1e-4 * x2.abs()).all(1)
+    ok &= (cost - cost2).abs() <= 1e-5 * cost2.abs()
+    assert float(ok.float().mean()) >= 0.95
+    assert torch.isfinite(h).all()
+
+
+@pytest.mark.parametrize("version", [10, 3, 5])
+def test_grid_versions_run_on_the_kernels(dev, version):
+    """process_grid_planar_raw at kernel_version 10, 3 and 5 launches every
+    kernel of its path (no plain version), recovers the phantom and lands
+    within the reference's tolerances of the v9 grid
+    (``test_lm_pallas_v10.py`` for 10, ``test_lm_pallas.py:1363`` for 3/5)."""
+    fids, weight, freqs = bi.make_inputs(GRID)
+    pk = prior_from_csv_text(bi.PK_CSV)
+    amp_slots, ls_plan = seed_plan(pk)
+    t = np.arange(bi.N_TIME) / bi.SW
+    args = grid_inputs_from_numpy(fids, weight, freqs, t, pk.init_free, pk,
+                                  dev)
+    cfg = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="single",
+                         ap_optimizer="grid", spec_layout="stacked")
+    kw = dict(cfg=cfg, pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    K.reset_counters()
+    out = process_grid_planar_raw(*args, **kw, kernel_version=version)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    path = K.PATHS[f"grid_single_pivot_v{version}"]
+    for name in K.LAUNCHES:
+        assert (counts["launches"][name] > 0) == (name in path), name
+    assert not any(counts["plain_calls"].values())
+    *_, x, cost, conv, sds = out
+    *_, x9, cost9, _, _ = process_grid_planar_raw(*args, **kw)
+    assert conv.all()
+    truth = torch.as_tensor(bi.pcr_amplitudes(GRID), device=dev,
+                            dtype=torch.float32)
+    slot = int(pk.pmap.idx[0])
+    assert float(((x[:, slot] - truth).abs() / truth).median()) <= 0.05
+    tol = 1e-4 if version == 10 else 0.02
+    ok = ((x - x9).abs() <= tol + tol * x9.abs()).all(1)
+    assert float(ok.float().mean()) >= 0.95
+
+
+def test_fit_amares_v10_runs_on_the_kernels(dev):
+    """fit_amares(kernel_version=10) launches K8 and K6b only and matches
+    the v9 engine's maps."""
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    da = XmrArray(fids.reshape(GRID + (bi.N_TIME,)), dims=("x", "y", "z", "time"),
+                  coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+    pk = prior_from_csv_text(bi.PK_CSV)
+    K.reset_counters()
+    ds = fit_amares(da, pk, kernel_version=10, return_curves=False)
+    counts = K.counters()
+    path = K.PATHS["fit_amares_v10"]
+    for name in K.LAUNCHES:
+        assert (counts["launches"][name] > 0) == (name in path), name
+    assert not any(counts["plain_calls"].values())
+    assert ds["fit_converged"].values.all()
+    ds9 = fit_amares(da, pk, return_curves=False)
+    for name in ("amplitude", "chem_shift", "linewidth"):
+        np.testing.assert_allclose(ds[name].values, ds9[name].values,
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_dense_v9_path_runs_on_the_kernels(dev):
+    """v9 without the kernel SPD solve (the dense path: K2's slab made
+    dense, the plain ``spd_solve_small`` step, the plain inverse diagonal)
+    launches K2 only and lands on the slab path's fit."""
+    pk = prior_from_csv_text(bi.PK_CSV)
+    re, im, _, _ = _planes(dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    x_t = torch.as_tensor(pk.init_free, dtype=torch.float32, device=dev)
+    bounds = [torch.as_tensor(a, device=dev) for a in
+              (pk.lower.astype(np.float32), pk.upper.astype(np.float32),
+               pk.kind)]
+    amp_slots, ls_plan = seed_plan(pk)
+    kw = dict(pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    K.reset_counters()
+    x, cost, conv, sds = seeded_fit_grid_raw(re, im, t, x_t, *bounds, **kw,
+                                             spd_pallas=False)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    for name in K.LAUNCHES:
+        assert (counts["launches"][name] > 0) == (name == "eq6_normal_eq_v9"), name
+    assert not any(counts["plain_calls"].values())
+    x2, cost2, _, sds2 = seeded_fit_grid_raw(re, im, t, x_t, *bounds, **kw)
+    assert conv.all()
+    torch.testing.assert_close(cost, cost2, rtol=1e-4, atol=0)
+    torch.testing.assert_close(x, x2, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(sds, sds2, rtol=2e-2, atol=1e-4)
+
+
+@pytest.mark.parametrize("version", [3, 5, 9, 10])
+def test_crlb_batched_pallas_runs_on_the_kernels(dev, version):
+    """crlb_batched_pallas on the card (K7, K12 or K2, then K6b) against the
+    same function on the plain versions."""
+    pk = prior_from_csv_text(bi.PK_CSV)
+    re, im, _, _ = _planes(dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    x = torch.as_tensor(np.clip(pk.init_free[None] * np.random.default_rng(1)
+                                .uniform(0.9, 1.1, (re.shape[0], pk.n_free)),
+                                pk.lower, pk.upper).astype(np.float32),
+                        device=dev)
+    ps = hashable_pmap(pk.pmap)
+    K.reset_counters()
+    sds, s2 = crlb_batched_pallas(re, im, t, x, ps, bi.MHZ,
+                                  kernel_version=version)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    evals = {3: "eq6_normal_eq_v3", 5: "eq6_normal_eq_v5"}.get(
+        version, "eq6_normal_eq_v9")
+    for name in K.LAUNCHES:
+        assert (counts["launches"][name] > 0) == (
+            name in (evals, "spd_inverse_diag_dense")), name
+    sds_p, s2_p = crlb_batched_pallas(re, im, t, x, ps, bi.MHZ,
+                                      kernel_version=version, kernels=K.PLAIN)
+    torch.testing.assert_close(s2, s2_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sds, sds_p, rtol=1e-3, atol=0)

@@ -228,7 +228,7 @@ def test_fit_amares_unported_options_raise(bench_fits, tmp_path):
     free_g.write_text(TEST_PK_CSV)
     with pytest.raises(NotImplementedError, match="item 6"):
         fit_amares(da, free_g, device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel_version=9"):
+    with pytest.raises(NotImplementedError, match="queue 2"):
         fit_amares(da, path, device="cpu", engine="pallas", kernel_version=6)
     with pytest.raises(ValueError, match="mhz"):
         fit_amares(XmrArray(da.data, dims=da.dims, coords=da.coords), path,
@@ -333,7 +333,8 @@ def test_lm_fit_batched_pallas_returns_the_reference_hessian(tmp_path):
                                            bi.MHZ, max_iter=30, interpret=True,
                                            return_hessian=True)
     res, h = tlm.lm_fit_batched_pallas(*(_t(a) for a in args), ps, bi.MHZ,
-                                       max_iter=30, kernels=K.DISPATCH)
+                                       max_iter=30, return_hessian=True,
+                                       kernels=K.DISPATCH)
     assert h.shape == (6, pk.n_free, pk.n_free)
     np.testing.assert_allclose(res.x_free.numpy(), np.asarray(res_r.x_free),
                                rtol=2e-3, atol=2e-3)

@@ -62,6 +62,8 @@ def test_import_pulls_in_neither_jax_nor_triton():
     "xmris_tpu_torch.runtime.config", "xmris_tpu_torch.ops.fourier",
     "xmris_tpu_torch.ops.fid", "xmris_tpu_torch.ops.phasing",
     "xmris_tpu_torch.ops.kernels.acme_cuda", "xmris_tpu_torch.fitting.amares",
+    "xmris_tpu_torch.ops.kernels.lm_jac_cuda",
+    "xmris_tpu_torch.ops.kernels.lm_loop_cuda", "xmris_tpu_torch.fitting.lm",
 ])
 def test_new_module_import_pulls_in_neither_jax_nor_triton(module):
     """Each module of the per-voxel autophase and fit_amares paths, alone in
@@ -103,7 +105,8 @@ def test_packaging_names_the_port():
     assert "xmris_tpu_torch*" in tool["packages"]["find"]["include"]
     globs = tool["package-data"]["xmris_tpu_torch"]
     csrc = sorted(p.name for p in (PKG / "ops/kernels/csrc").iterdir())
-    assert csrc == ["acme.cu", "lm_v9.cu", "spd.cu", "spectrum.cu"]
+    assert csrc == ["acme.cu", "lm_jac.cu", "lm_v10.cu", "lm_v9.cu",
+                    "lm_v9_eval.cuh", "spd.cu", "spd_factor.cuh", "spectrum.cu"]
     assert "ops/kernels/csrc/*.cu" in globs
     assert any(
         "cuda" in m for m in cfg["tool"]["pytest"]["ini_options"]["markers"]
@@ -142,6 +145,27 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         lm_cuda.eq6_normal_equations(z(2, 5), z(2, 8), z(2, 8), z(8), z(2, 2),
                                      plan)
+
+
+def test_lm_family_wrappers_refuse_devices_without_a_kernel():
+    from xmris_tpu_torch.fitting.lm import normal_eq_plan
+    from xmris_tpu_torch.ops.kernels import lm_jac_cuda, lm_loop_cuda
+
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        spd.spd_solve_damped_dense(z(3, 2, 2), z(3, 2), z(3))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lm_jac_cuda.eq6_normal_equations_v3(z(2, 5), z(2, 8), z(2, 8), z(8),
+                                            1, 120.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lm_jac_cuda.eq6_normal_equations_v5(z(2, 5), z(2, 8), z(2, 8), z(8),
+                                            1, 120.0, (0, 1))
+    ps = ((0, 1, -1, -1, -1), (1.0, 1.0, 1.0, 1.0, 1.0),
+          (0.0, 0.0, 10.0, 0.0, 0.0), 1)
+    plan = normal_eq_plan(ps, 2, 120.0, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lm_loop_cuda.lm_loop_v10(z(2, 2), z(2, 8), z(2, 8), z(8), z(2), z(2),
+                                 z(2), plan, ps, max_iter=3)
 
 
 @pytest.mark.parametrize("alone", [False, True])

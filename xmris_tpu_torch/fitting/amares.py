@@ -23,6 +23,9 @@ import torch
 from xmris_tpu_torch import __version__ as _version
 from xmris_tpu_torch.core.array import Coord, XmrArray, XmrDataset
 from xmris_tpu_torch.fitting.lm import (
+    _lm_fit_batched_pallas_impl,
+    auto_varpro,
+    check_kernel_version,
     crlb_batched_planar,
     crlb_from_hessian,
     crlb_from_hessian_slab,
@@ -33,7 +36,6 @@ from xmris_tpu_torch.fitting.lm import (
     hashable_pmap,
     lm_fit_batched_pallas,
     lm_fit_batched_planar,
-    lm_fit_batched_slab,
     uses_slab_hessian,
 )
 from xmris_tpu_torch.fitting.prior import PriorKnowledge, load_prior_knowledge
@@ -254,17 +256,17 @@ def seeded_fit_grid_raw(
     kernels: KernelSet = DISPATCH,
 ):
     """Whole-grid seeding + batched LM + CRLB (reference
-    ``seeded_fit_grid_raw``, ``engine="pallas"`` slab path).
+    ``seeded_fit_grid_raw``, ``engine="pallas"``).
 
-    :func:`seed_grid`, then the K2/K3 LM loop
-    (:func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_slab`) and the K4
-    CRLBs.  Returns ``(x_free, cost, converged, crlb_sds)``.
+    :func:`seed_grid`, then the kernel LM that ``kernel_version`` and
+    ``spd_pallas`` select (the driver of
+    :func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_pallas`) and the CRLBs
+    from its Hessian: on the slab path (v9 with ``spd_pallas``) K4 on the
+    slab, otherwise :func:`crlb_from_hessian` on the dense Hessian (K6b, or
+    the plain inverse diagonal without ``spd_pallas``).  Returns
+    ``(x_free, cost, converged, crlb_sds)``.
     """
-    if not uses_slab_hessian(spd_pallas, kernel_version):
-        raise NotImplementedError(
-            "only kernel_version=9 with spd_pallas=True (the slab path) is "
-            "ported; the other LM kernels are ROADMAP.md queue 2, K6-K14"
-        )
+    check_kernel_version(kernel_version)
     re = re.to(torch.float32)
     im = im.to(torch.float32)
     t = t.to(torch.float32)
@@ -273,15 +275,23 @@ def seeded_fit_grid_raw(
         re, im, t, x_template, lower, upper, kind, pmap_static=pmap_static,
         mhz=mhz, amp_slots=amp_slots, ls_plan=ls_plan,
     )
-    res, h_slab = lm_fit_batched_slab(
-        re, im, t, u0, lower, upper, kind, pmap_static, mhz,
-        kernels=kernels, max_iter=max_iter, lam0=lam0,
-        plateau_streak=plateau_streak, uniform_t_ok=uniform_t_ok,
+    slab = uses_slab_hessian(spd_pallas, kernel_version)
+    res, h = _lm_fit_batched_pallas_impl(
+        re, im, t, u0, lower, upper, kind, pmap_static, mhz, kernels=kernels,
+        max_iter=max_iter, lam0=lam0, ftol=1e-10,
+        kernel_version=kernel_version,
+        return_hessian="slab" if slab else True, uniform_t_ok=uniform_t_ok,
+        plateau_streak=plateau_streak, varpro=auto_varpro(pmap_static),
+        spd_pallas=spd_pallas,
     )
-    sds, _ = crlb_from_hessian_slab(
-        h_slab, res.cost, re.shape[-1], f=x_template.shape[-1],
-        kernels=kernels,
-    )
+    if slab:
+        sds, _ = crlb_from_hessian_slab(
+            h, res.cost, re.shape[-1], f=x_template.shape[-1],
+            kernels=kernels,
+        )
+    else:
+        sds, _ = crlb_from_hessian(h, res.cost, re.shape[-1],
+                                   use_pallas=spd_pallas, kernels=kernels)
     return res.x_free, res.cost, res.converged, sds
 
 
@@ -445,9 +455,11 @@ def fit_amares(
 
     It runs on ``device``: the card unless the caller passes ``"cpu"``.
     ``engine`` maps one to one onto the reference's: ``"pallas"`` runs the
-    hand-written kernels (K2 normal equations and K3 damped SPD solve per
-    LM iteration, the CRLB diagonal through K6b), ``"xla"`` the pure-tensor
-    planar LM with CRLBs from the analytic Jacobian, ``"auto"`` the kernels
+    hand-written kernels (``kernel_version`` 9: K2 normal equations and K3
+    damped SPD solve per LM iteration; 3 or 5: K7 or K12 and K6a; 10: the
+    whole fit in one K8 launch; the CRLB diagonal through K6b), ``"xla"``
+    the pure-tensor planar LM with CRLBs from the analytic Jacobian,
+    ``"auto"`` the kernels
     on a CUDA device and the pure-tensor LM on the CPU.  ``chunk_size=None``
     fits the whole grid in one batch on the kernel engine and in chunks of
     4096 on the tensor engine.  ``kernels`` selects the kernel wrappers
@@ -455,8 +467,8 @@ def fit_amares(
 
     Not ported (``NotImplementedError``): ``mesh`` (ROADMAP.md queue 1,
     item 11), ``device_fids``/staged planes and priors with a free g (the
-    g scan and the VARPRO override; item 6), and kernel versions other than
-    9 (queue 2).  ``g_scan`` is a no-op for fixed-g priors, as in the
+    g scan and the VARPRO override; item 6), and kernel versions 1, 2, 6, 7
+    and 8 (queue 2).  ``g_scan`` is a no-op for fixed-g priors, as in the
     reference.
     """
     if mesh is not None:
@@ -543,7 +555,7 @@ def fit_amares(
             return lm_fit_batched_pallas(
                 re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,
                 max_iter=max_iter, kernel_version=kernel_version,
-                kernels=kernels,
+                return_hessian=True, kernels=kernels,
             )
         return lm_fit_batched_planar(
             re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,

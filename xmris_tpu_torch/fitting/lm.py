@@ -11,9 +11,13 @@ PyTorch around the port's hand-written CUDA kernels:
   equations kernel launch (K2) and one damped SPD solve (K3) per iteration,
   the Hessian kept in the voxel-minor slab layout throughout;
 * :func:`crlb_from_hessian_slab` — CRLBs from the carried Hessian (K4);
-* :func:`lm_fit_batched_pallas` — the public kernel LM of ``fit_amares``
-  (the slab loop, with the Hessian returned dense through
-  :func:`slab_to_bff`), and :func:`crlb_from_hessian`, its CRLBs (K6b);
+* :func:`lm_fit_batched_pallas` — the public kernel LM (``fit_amares``'s),
+  with every branch of the reference driver that ``kernel_version`` and
+  ``spd_pallas`` select: the slab loop (v9, K2 + K3), the dense per-
+  iteration loop (v3 K7, v5 K12 or v9 K2, with the damped solve K6a or the
+  plain ``spd_solve_small``) and the whole-loop kernel (v10, K8);
+* :func:`crlb_from_hessian` (K6b) and :func:`crlb_batched_pallas` — CRLBs
+  from a dense Hessian, the latter from one normal-equations evaluation;
 * :func:`crlb_batched_planar` — CRLBs from the analytic Jacobian, the
   pure-tensor engine's.
 
@@ -32,7 +36,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from xmris_tpu_torch.ops.kernels import DISPATCH
 from xmris_tpu_torch.ops.kernels.lm_cuda import NormalEqPlan
+from xmris_tpu_torch.ops.kernels.spd import (
+    spd_inverse_diag_small,
+    spd_solve_small,
+)
 
 _BOTH, _LOWER, _UPPER, _FREE = 0, 1, 2, 3
 
@@ -464,7 +473,7 @@ def lm_fit_batched_slab(
     """Bounded LM over the grid on the normal-equations and SPD kernels.
 
     Port of the reference's ``_lm_fit_batched_pallas_impl`` on its v9 +
-    slab branch (no VARPRO, no accept gate, no whole-loop v10): one K2
+    slab branch without the VARPRO override and the accept gate: one K2
     evaluation per iteration returns (cost, g, H) at the trial point,
     rejected steps keep the carried accepted-state H/g and only re-damp.
 
@@ -478,28 +487,12 @@ def lm_fit_batched_slab(
     space Hessian in the voxel-minor slab layout (see
     :func:`_slab_result_tail`).
     """
-    if auto_varpro(pmap_static):
-        raise NotImplementedError(
-            "the VARPRO override (priors with a free g) is not ported yet; "
-            "see ROADMAP.md queue 1, item 6"
-        )
-    dtype = torch.float32  # the kernels are float32
-    fids_re = fids_re.to(dtype).contiguous()
-    fids_im = fids_im.to(dtype).contiguous()
-    t = t.to(dtype).contiguous()
-    lower = lower.to(dtype)
-    upper = upper.to(dtype)
-    u = u0.to(dtype)
-    b = fids_re.shape[0]
-    if u.ndim == 1:
-        u = u[None, :].expand(b, -1)
-    u = u.contiguous()
+    fids_re, fids_im, t, u, lower, upper = _as_kernel_inputs(
+        fids_re, fids_im, t, u0, lower, upper)
     n_free = u.shape[-1]
-    n_t = fids_re.shape[-1]
     plan = normal_eq_plan(
-        pmap_static, n_free, mhz, uniform_t_ok and n_t % 128 == 0
+        pmap_static, n_free, mhz, uniform_t_ok and fids_re.shape[-1] % 128 == 0
     )
-    eps = torch.finfo(dtype).eps
 
     def full_eval(u, voxel_mask=None):
         x, dxdu = internal_to_external_torch(u, lower, upper, kind)
@@ -509,16 +502,53 @@ def lm_fit_batched_slab(
             voxel_mask=voxel_mask,
         )
 
+    u, cost, n_acc, done, h = _lm_loop(
+        full_eval, kernels.spd_solve_damped, u, voxel_axis=1,
+        max_iter=max_iter, lam0=lam0, ftol=ftol, plateau_streak=plateau_streak,
+    )
+    return _slab_result_tail(u, cost, n_acc, done, h, lower, upper, kind)
+
+
+def _as_kernel_inputs(fids_re, fids_im, t, u0, lower, upper):
+    """float32 (the kernels' type), contiguous planes and time axis, and
+    the seed broadcast to (B, F)."""
+    dtype = torch.float32
+    fids_re = fids_re.to(dtype).contiguous()
+    fids_im = fids_im.to(dtype).contiguous()
+    u = u0.to(dtype)
+    if u.ndim == 1:
+        u = u[None, :].expand(fids_re.shape[0], -1)
+    return (fids_re, fids_im, t.to(dtype).contiguous(), u.contiguous(),
+            lower.to(dtype), upper.to(dtype))
+
+
+def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
+             plateau_streak):
+    """The per-iteration LM loop of the reference driver.
+
+    ``full_eval(u, voxel_mask)`` returns ``(cost, g, h)`` at internal
+    ``u`` (voxels whose mask entry is False may come back unspecified),
+    ``solve(h, g, lam)`` the damped step; ``h`` has its voxels on axis
+    ``voxel_axis`` (1 for the slab, 0 for dense matrices).  Returns ``(u,
+    cost, n_acc, done, h)`` at the last accepted state.
+    """
+    eps = torch.finfo(torch.float32).eps
+    b = u.shape[0]
     cost, g, h = full_eval(u)
-    lam = torch.full((b,), lam0, dtype=dtype, device=u.device)
+    lam = torch.full((b,), lam0, dtype=torch.float32, device=u.device)
     n_acc = torch.zeros((b,), dtype=torch.int32, device=u.device)
     streak = torch.zeros_like(n_acc)
     done = torch.zeros((b,), dtype=torch.bool, device=u.device)
 
+    def sel_h(ok, new, old):
+        shape = [1] * new.ndim
+        shape[voxel_axis] = b
+        return torch.where(ok.reshape(shape), new, old)
+
     for _ in range(max_iter):
         if bool(done.all()):
             break
-        delta_raw = kernels.spd_solve_damped(h, g, lam)
+        delta_raw = solve(h, g, lam)
         solve_ok = torch.isfinite(delta_raw).all(-1)
         delta = torch.where(
             solve_ok[:, None], delta_raw, torch.zeros_like(delta_raw)
@@ -538,7 +568,7 @@ def lm_fit_batched_slab(
         u = torch.where(ok[:, None], u_t, u)
         cost = torch.where(ok, cost_t, cost)
         g = torch.where(ok[:, None], g_t, g)
-        h = torch.where(ok[None, :], h_t, h)  # voxels are the minor axis
+        h = sel_h(ok, h_t, h)
         lam = torch.clamp(torch.where(ok, lam * 0.33, lam * 2.5), 1e-12, 1e12)
         n_acc = n_acc + ok.to(torch.int32)
         plateau = ~ok & ~done & (rel_drop.abs() <= 64.0 * eps)
@@ -548,7 +578,7 @@ def lm_fit_batched_slab(
             | (ok & (rel_drop < ftol) & (lam < lam0))
             | (streak >= plateau_streak)
         )
-    return _slab_result_tail(u, cost, n_acc, done, h, lower, upper, kind)
+    return u, cost, n_acc, done, h
 
 
 def _slab_result_tail(u, cost, n_acc, done, h_slab, lower, upper, kind):
@@ -605,6 +635,29 @@ def _t_is_uniform(t) -> bool:
     return float(np.max(np.abs(dt - dt[0]))) <= tol
 
 
+# kernel_version -> the unported TPU kernel it names (ROADMAP.md queue 2).
+_UNPORTED_VERSIONS = {1: "K14", 2: "K13", 6: "K11", 7: "K10", 8: "K9"}
+
+
+def check_kernel_version(kernel_version: int) -> None:
+    """Accept the versions the port runs: 3 (K7), 5 (K12), 9 (K2) and 10 or
+    above (the whole-loop K8; its per-evaluation callers take K2, as the
+    reference's ``_select_pallas_kernel`` resolves them).  The reference's
+    other versions raise ``NotImplementedError``; a version that does not
+    exist raises the reference's ``ValueError``."""
+    if kernel_version in _UNPORTED_VERSIONS:
+        raise NotImplementedError(
+            f"kernel_version={kernel_version} "
+            f"({_UNPORTED_VERSIONS[kernel_version]}) is not ported yet; the "
+            "port runs 3, 5, 9 and 10 (see ROADMAP.md queue 2)"
+        )
+    if kernel_version not in (3, 5, 9) and kernel_version < 10:
+        raise ValueError(
+            f"kernel_version={kernel_version!r} does not exist; "
+            "valid versions are 1-3 and 5-10 (9 is the default)"
+        )
+
+
 def lm_fit_batched_pallas(
     fids_re,
     fids_im,
@@ -616,51 +669,245 @@ def lm_fit_batched_pallas(
     pmap_static,
     mhz: float,
     max_iter: int = 50,
+    lam0: float = 1e-3,
+    ftol: float = 1e-10,
     kernel_version: int = 9,
+    return_hessian: bool | str = False,
+    require_uniform_t: bool = False,
+    gate_rejects: bool = False,
+    plateau_streak: int = 3,
+    varpro: bool | None = None,
+    spd_pallas: bool = True,
     *,
-    kernels,
+    kernels=DISPATCH,
 ):
     """Bounded LM on the hand-written kernels (reference
-    ``lm_fit_batched_pallas`` with ``return_hessian=True``), on its v9 +
-    slab path.
+    ``lm_fit_batched_pallas``, same signature and returns).
 
-    Runs :func:`lm_fit_batched_slab` (K2 + K3 per iteration), with the
-    block-factored basis when ``t`` is uniform.  Returns ``(LMResult,
-    h_ext)`` with ``h_ext`` the dense (B, F, F) external-space
-    Gauss-Newton Hessian at the optimum (rows of parameters pinned at a
-    bound zeroed), the Fisher information :func:`crlb_from_hessian` takes.
+    ``kernel_version`` 9 (default) evaluates with K2 each iteration, 3 with
+    K7 and 5 with K12; 10 (and above) runs the whole fit in one K8 launch.
+    The step of the per-iteration loop is K3 on the slab (v9 with
+    ``spd_pallas``), K6a on dense matrices (v3/v5 with ``spd_pallas``) or,
+    with ``spd_pallas=False``, the reference's plain ``spd_solve_small`` on
+    dense matrices.  The block-factored basis is used when ``t`` is uniform
+    (or ``require_uniform_t`` vouches for it).  The reference's ``v_tile``
+    and ``interpret`` (TPU tiling, Pallas interpret mode) have no
+    counterpart: tensors on the CPU take the kernels' plain versions.
 
-    Not ported: the other kernel versions and the dense SPD solve (K6a,
-    K7-K14, ROADMAP.md queue 2) and the VARPRO override (free-g priors,
-    queue 1 item 6, which :func:`lm_fit_batched_slab` refuses).
+    Returns the :class:`LMResult`, or with ``return_hessian=True``
+    ``(LMResult, h_ext)``: the dense (B, F, F) external-space Gauss-Newton
+    Hessian at the optimum (rows of parameters pinned at a bound zeroed),
+    the Fisher information :func:`crlb_from_hessian` takes;
+    ``return_hessian="slab"`` keeps it as the (F*F, B) slab (v9 with
+    ``spd_pallas`` only) for :func:`crlb_from_hessian_slab`.
+
+    Not ported (``NotImplementedError``): the other kernel versions (K9-K11,
+    K13, K14; ROADMAP.md queue 2), ``gate_rejects`` and the VARPRO override
+    (on by default for free-g priors; queue 1 item 6).
     """
-    if kernel_version != 9:
+    if gate_rejects:
         raise NotImplementedError(
-            "only kernel_version=9 with spd_pallas=True (the slab path) is "
-            "ported; the other LM kernels are ROADMAP.md queue 2, K6a-K14"
+            "gate_rejects (v9's per-tile accept gate) is not ported; see "
+            "ROADMAP.md queue 2"
         )
-    res, h_slab = lm_fit_batched_slab(
+    if varpro is None:
+        varpro = auto_varpro(pmap_static)
+    return _lm_fit_batched_pallas_impl(
         fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
-        kernels=kernels, max_iter=max_iter, uniform_t_ok=_t_is_uniform(t),
+        kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=ftol,
+        kernel_version=kernel_version, return_hessian=return_hessian,
+        uniform_t_ok=require_uniform_t or _t_is_uniform(t),
+        plateau_streak=plateau_streak,
+        varpro=bool(varpro) and varpro_plan(pmap_static) is not None,
+        spd_pallas=spd_pallas,
     )
-    return res, slab_to_bff(h_slab, res.x_free.shape[-1])
 
 
-def crlb_from_hessian(h_ext, cost, n_t: int, *, kernels):
+def _lm_fit_batched_pallas_impl(
+    fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz: float, *,
+    kernels, max_iter: int, lam0: float, ftol: float, kernel_version: int,
+    return_hessian, uniform_t_ok: bool, plateau_streak: int, varpro: bool,
+    spd_pallas: bool,
+):
+    """The driver's branches (reference ``_lm_fit_batched_pallas_impl``):
+    the whole-loop K8, the slab loop, or the dense per-iteration loop."""
+    check_kernel_version(kernel_version)
+    if varpro:
+        raise NotImplementedError(
+            "the VARPRO override (priors with a free g) is not ported yet; "
+            "see ROADMAP.md queue 1, item 6"
+        )
+    if kernel_version >= 10:
+        if return_hessian == "slab":
+            raise ValueError(
+                "return_hessian='slab' requires the per-iteration v9 path"
+            )
+        re, im, t, u, lo, hi = _as_kernel_inputs(fids_re, fids_im, t, u0,
+                                                 lower, upper)
+        plan = normal_eq_plan(pmap_static, u.shape[-1], mhz,
+                              uniform_t_ok and re.shape[-1] % 128 == 0)
+        u, cost, n_acc, done, h = kernels.lm_loop_v10(
+            u, re, im, t, lo, hi, kind, plan, pmap_static, max_iter=max_iter,
+            lam0=lam0, ftol=ftol, plateau_streak=plateau_streak,
+        )
+        return _pallas_result_tail(u, cost, n_acc, done, h, lo, hi, kind,
+                                   return_hessian)
+    slab_mode = uses_slab_hessian(spd_pallas, kernel_version)
+    if return_hessian == "slab" and not slab_mode:
+        raise ValueError(
+            "return_hessian='slab' requires the slab-mode path "
+            "(spd_pallas=True, kernel_version=9)"
+        )
+    if slab_mode:
+        res, h_slab = lm_fit_batched_slab(
+            fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
+            kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=ftol,
+            plateau_streak=plateau_streak, uniform_t_ok=uniform_t_ok,
+        )
+        if return_hessian == "slab":
+            return res, h_slab
+        return (res, slab_to_bff(h_slab, res.x_free.shape[-1])
+                ) if return_hessian else res
+
+    re, im, t, u, lo, hi = _as_kernel_inputs(fids_re, fids_im, t, u0, lower,
+                                             upper)
+    evaluate = _dense_normal_equations(
+        kernel_version, pmap_static, u.shape[-1], mhz,
+        uniform_t_ok and re.shape[-1] % 128 == 0, kernels, re, im, t,
+    )
+
+    def full_eval(u, voxel_mask=None):
+        x, dxdu = internal_to_external_torch(u, lo, hi, kind)
+        return evaluate(_expand_params_batched(x, pmap_static).contiguous(),
+                        dxdu.contiguous(), voxel_mask)
+
+    solve = kernels.spd_solve_damped_dense if spd_pallas else _damped_solve_small
+    u, cost, n_acc, done, h = _lm_loop(
+        full_eval, solve, u, voxel_axis=0, max_iter=max_iter, lam0=lam0,
+        ftol=ftol, plateau_streak=plateau_streak,
+    )
+    return _pallas_result_tail(u, cost, n_acc, done, h, lo, hi, kind,
+                               return_hessian)
+
+
+def _dense_normal_equations(kernel_version, pmap_static, n_free, mhz,
+                            factored, kernels, re, im, t):
+    """``evaluate(grids, dxdu, voxel_mask) -> (cost, g (B, F), h (B, F, F))``
+    in internal free space: K2 (v9, its slab made dense), or K7/K12 in
+    physical space folded by the scatter matrix and dx/du (the reference's
+    einsums, full float32 products outside the kernel)."""
+    if kernel_version >= 9:
+        plan = normal_eq_plan(pmap_static, n_free, mhz, factored)
+
+        def evaluate(grids, dxdu, voxel_mask):
+            cost, g, h = kernels.normal_equations(grids, re, im, t, dxdu, plan,
+                                                  voxel_mask=voxel_mask)
+            return cost, g, slab_to_bff(h, n_free)
+
+        return evaluate
+    n_peaks = int(pmap_static[3])
+    smat_np = _scatter_matrix(pmap_static, n_free)
+    if kernel_version == 5:
+        active = active_param_rows(pmap_static)
+        smat_np = smat_np[list(active), :]
+    smat = torch.as_tensor(smat_np, dtype=torch.float32, device=re.device)
+
+    def evaluate(grids, dxdu, voxel_mask):
+        if kernel_version == 3:
+            cost, g_p, h_p = kernels.normal_equations_v3(grids, re, im, t,
+                                                         n_peaks, mhz)
+        else:
+            cost, g_p, h_p = kernels.normal_equations_v5(grids, re, im, t,
+                                                         n_peaks, mhz, active)
+        g = torch.einsum("bp,pf->bf", g_p, smat) * dxdu
+        h = torch.einsum("pf,bpq,qh->bfh", smat, h_p, smat)
+        h = h * dxdu[:, :, None] * dxdu[:, None, :]
+        return cost, g.contiguous(), h.contiguous()
+
+    return evaluate
+
+
+def _damped_solve_small(h, g, lam):
+    """The reference's ``spd_pallas=False`` step: damping in tensor ops,
+    then the unrolled ``spd_solve_small``."""
+    eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)[None]
+    diag = torch.diagonal(h, dim1=1, dim2=2)
+    damped = h + (
+        lam[:, None, None] * torch.clamp(diag, min=1e-12)[:, None, :] * eye
+    ) + 1e-12 * eye
+    return spd_solve_small(damped, g)
+
+
+def _pallas_result_tail(u, cost, n_acc, done, h_fin, lower, upper, kind,
+                        return_hessian):
+    """Bound back-transform, convergence flags and, with
+    ``return_hessian``, the external-space Hessian of a dense carried H
+    (reference ``_pallas_result_tail``): the carried H is D H_ext D with
+    D = diag(dx/du); a parameter pinned at a bound (dx/du ~ 0) has its row
+    and column zeroed, which :func:`crlb_from_hessian` reports as an
+    infinite CRLB."""
+    x_final, dxdu_fin = internal_to_external_torch(u, lower, upper, kind)
+    converged = torch.isfinite(cost) & ((n_acc > 0) | done)
+    result = LMResult(x_free=x_final, cost=cost, n_iter=n_acc,
+                      converged=converged, done=done)
+    if not return_hessian:
+        return result
+    pinned = dxdu_fin.abs() < 1e-12
+    safe_d = torch.where(pinned, torch.ones_like(dxdu_fin), dxdu_fin)
+    h_ext = h_fin / (safe_d[:, :, None] * safe_d[:, None, :])
+    keep = (~pinned).to(h_ext.dtype)
+    return result, h_ext * keep[:, :, None] * keep[:, None, :]
+
+
+def crlb_from_hessian(h_ext, cost, n_t: int, use_pallas: bool = True, *,
+                      kernels=DISPATCH):
     """CRLB standard deviations from a dense (B, F, F) GN Hessian (reference
     ``crlb_from_hessian``): sigma^2 = cost / max(2 n_t - F, 1) per real
     channel, diag(H^-1) of ``h_ext + 1e-12 I`` from
-    ``kernels.spd_inverse_diag_dense`` (K6b on the card), and ``inf`` for a
-    parameter whose Fisher diagonal is <= 0 (unidentifiable).  Returns
-    ``(sds (B, F), sigma2 (B,))``."""
+    ``kernels.spd_inverse_diag_dense`` (K6b on the card; with
+    ``use_pallas=False`` the reference's plain ``spd_inverse_diag``), and
+    ``inf`` for a parameter whose Fisher diagonal is <= 0 (unidentifiable).
+    Returns ``(sds (B, F), sigma2 (B,))``."""
     n_free = h_ext.shape[-1]
     eye = torch.eye(n_free, dtype=h_ext.dtype, device=h_ext.device)
     h = (h_ext + 1e-12 * eye[None]).contiguous()
     dof = max(2.0 * n_t - n_free, 1.0)
     sigma2 = cost / dof
-    diag_inv = kernels.spd_inverse_diag_dense(h)
+    if use_pallas:
+        diag_inv = kernels.spd_inverse_diag_dense(h)
+    else:
+        diag_inv = spd_inverse_diag_small(h)
     sds = torch.sqrt(torch.clamp(sigma2[:, None] * diag_inv, min=0.0))
     unident = torch.diagonal(h_ext, dim1=1, dim2=2) <= 0.0
+    sds = torch.where(unident, torch.full_like(sds, math.inf), sds)
+    return sds, sigma2
+
+
+def crlb_batched_pallas(fids_re, fids_im, t, x_free, pmap_static, mhz: float,
+                        kernel_version: int = 9, *, kernels=DISPATCH):
+    """CRLBs from one normal-equations evaluation at the optimum (reference
+    ``crlb_batched_pallas``): the Gauss-Newton H at external ``x_free``
+    (K2 with a unit dx/du for 9 and above, the direct basis; K7/K12 folded
+    by the scatter matrix for 3/5), sigma^2 = cost / max(2 n_t - F, 1),
+    diag((H + 1e-12 I)^-1) from K6b, and ``inf`` where H's diagonal is <= 0.
+    Returns ``(sds (B, F), sigma2 (B,))``."""
+    check_kernel_version(kernel_version)
+    dtype = torch.float32
+    re = fids_re.to(dtype).contiguous()
+    im = fids_im.to(dtype).contiguous()
+    t = t.to(dtype).contiguous()
+    x_free = x_free.to(dtype)
+    n_free = x_free.shape[-1]
+    evaluate = _dense_normal_equations(
+        kernel_version, pmap_static, n_free, mhz, False, kernels, re, im, t)
+    cost, _, h = evaluate(_expand_params_batched(x_free, pmap_static)
+                          .contiguous(), torch.ones_like(x_free), None)
+    unident = torch.diagonal(h, dim1=1, dim2=2) <= 0.0
+    eye = torch.eye(n_free, dtype=dtype, device=h.device)
+    h = (h + 1e-12 * eye[None]).contiguous()
+    sigma2 = cost / max(2.0 * t.shape[0] - n_free, 1.0)
+    diag_inv = kernels.spd_inverse_diag_dense(h)
+    sds = torch.sqrt(torch.clamp(sigma2[:, None] * diag_inv, min=0.0))
     sds = torch.where(unident, torch.full_like(sds, math.inf), sds)
     return sds, sigma2
 

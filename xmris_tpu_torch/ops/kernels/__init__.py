@@ -1,13 +1,17 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch twins.
 
-=====  ==================================  ===============================================
-K1     ``dft_cuda.spectrum``               ``dft_pallas.spectrum_pallas``
-K2     ``lm_cuda.eq6_normal_equations``    ``lm_pallas.eq6_normal_equations_pallas_v9``
-K3     ``spd.spd_solve_damped``            ``spd.spd_solve_damped_pallas_slab``
-K4     ``spd.spd_inverse_diag``            ``spd.spd_inverse_diag_pallas_slab``
-K5     ``acme_cuda.acme_polish``           ``acme_pallas.acme_polish_pallas``
-K6b    ``spd.spd_inverse_diag_dense``      ``spd.spd_inverse_diag_pallas``
-=====  ==================================  ===============================================
+=====  =======================================  ===============================================
+K1     ``dft_cuda.spectrum``                    ``dft_pallas.spectrum_pallas``
+K2     ``lm_cuda.eq6_normal_equations``         ``lm_pallas.eq6_normal_equations_pallas_v9``
+K3     ``spd.spd_solve_damped``                 ``spd.spd_solve_damped_pallas_slab``
+K4     ``spd.spd_inverse_diag``                 ``spd.spd_inverse_diag_pallas_slab``
+K5     ``acme_cuda.acme_polish``                ``acme_pallas.acme_polish_pallas``
+K6a    ``spd.spd_solve_damped_dense``           ``spd.spd_solve_damped_pallas``
+K6b    ``spd.spd_inverse_diag_dense``           ``spd.spd_inverse_diag_pallas``
+K7     ``lm_jac_cuda.eq6_normal_equations_v3``  ``lm_pallas.eq6_normal_equations_pallas_v3``
+K8     ``lm_loop_cuda.lm_loop_v10``             ``lm_pallas.lm_loop_pallas_v10``
+K12    ``lm_jac_cuda.eq6_normal_equations_v5``  ``lm_pallas.eq6_normal_equations_pallas_v5``
+=====  =======================================  ===============================================
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors.  Code on the main paths takes its kernels from a
@@ -25,7 +29,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from xmris_tpu_torch.ops.kernels import acme_cuda, dft_cuda, lm_cuda, spd
+from xmris_tpu_torch.ops.kernels import (
+    acme_cuda,
+    dft_cuda,
+    lm_cuda,
+    lm_jac_cuda,
+    lm_loop_cuda,
+    spd,
+)
 from xmris_tpu_torch.ops.kernels._counters import (
     LAUNCHES,
     PLAIN_CALLS,
@@ -42,6 +53,10 @@ class KernelSet:
     spd_inverse_diag: Callable
     acme_polish: Callable
     spd_inverse_diag_dense: Callable
+    spd_solve_damped_dense: Callable
+    normal_equations_v3: Callable
+    normal_equations_v5: Callable
+    lm_loop_v10: Callable
 
 
 DISPATCH = KernelSet(
@@ -51,6 +66,10 @@ DISPATCH = KernelSet(
     spd_inverse_diag=spd.spd_inverse_diag,
     acme_polish=acme_cuda.acme_polish,
     spd_inverse_diag_dense=spd.spd_inverse_diag_dense,
+    spd_solve_damped_dense=spd.spd_solve_damped_dense,
+    normal_equations_v3=lm_jac_cuda.eq6_normal_equations_v3,
+    normal_equations_v5=lm_jac_cuda.eq6_normal_equations_v5,
+    lm_loop_v10=lm_loop_cuda.lm_loop_v10,
 )
 
 PLAIN = KernelSet(
@@ -60,9 +79,15 @@ PLAIN = KernelSet(
     spd_inverse_diag=spd.spd_inverse_diag_plain,
     acme_polish=acme_cuda.acme_polish_plain,
     spd_inverse_diag_dense=spd.spd_inverse_diag_dense_plain,
+    spd_solve_damped_dense=spd.spd_solve_damped_dense_plain,
+    normal_equations_v3=lm_jac_cuda.eq6_normal_equations_v3_plain,
+    normal_equations_v5=lm_jac_cuda.eq6_normal_equations_v5_plain,
+    lm_loop_v10=lm_loop_cuda.lm_loop_v10_plain,
 )
 
 _FIT = ("eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag")
+# The non-slab LM's step and its dense CRLB (kernel_version 3 and 5).
+_DENSE = ("spd_solve_damped_dense", "spd_inverse_diag_dense")
 
 # Entry point on the card -> the kernels it launches (counter names).
 PATHS = {
@@ -73,6 +98,13 @@ PATHS = {
     # fitting.amares.fit_amares, engine="pallas"
     "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
                    "spd_inverse_diag_dense"),
+    # process_grid_planar_raw, autophase="single", kernel_version=10, 3, 5
+    "grid_single_pivot_v10": ("spectrum", "lm_loop_v10",
+                              "spd_inverse_diag_dense"),
+    "grid_single_pivot_v3": ("spectrum", "eq6_normal_eq_v3") + _DENSE,
+    "grid_single_pivot_v5": ("spectrum", "eq6_normal_eq_v5") + _DENSE,
+    # fit_amares(kernel_version=10)
+    "fit_amares_v10": ("lm_loop_v10", "spd_inverse_diag_dense"),
 }
 
 __all__ = [

@@ -49,6 +49,16 @@ _SIGNATURES = {
     "xmt_spd_inverse_diag": [_P] * 2 + [_I] * 2 + [_F, _P],
     # h (B, F, F), out, b, f, stream
     "xmt_spd_inverse_diag_dense": [_P] * 2 + [_I] * 2 + [_P],
+    # h (B, F, F), g, lam, out, b, f, stream
+    "xmt_spd_solve_damped_dense": [_P] * 4 + [_I] * 2 + [_P],
+    # params, y_re, y_im, t, rows, cost, g, h, b, n_t, n_peaks, n_rows,
+    # w_cs_unit, stream
+    "xmt_eq6_normal_eq_jac": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # u0, y_re, y_im, t, lo, hi, kind, pmap_idx, pmap_scale, pmap_offset,
+    # ints, scales, u, cost, n_acc, done, h, trips, b, n_t, n_peaks, n_free,
+    # n_rows, q_n, factored, w_cs_unit, lam0, ftol, max_iter,
+    # plateau_streak, stream
+    "xmt_lm_loop_v10": [_P] * 18 + [_I] * 7 + [_F] * 3 + [_I] * 2 + [_P],
     # re, im, coords, pivots, p_init, p_out, f_out, g_out, b, n, x_range,
     # n_iter, p0_only, half_cell, span0, span1, stream
     "xmt_acme_polish": [_P] * 8 + [_I] * 2 + [_F] + [_I] * 2 + [_F] * 3 + [_P],

@@ -171,6 +171,14 @@ def eq6_normal_equations_plain(params, y_re, y_im, t, dxdu, plan,
     voxel is evaluated (the kernel leaves masked voxels unspecified).
     """
     _counters.PLAIN_CALLS["eq6_normal_eq_v9"] += 1
+    return normal_equations_plain_impl(params, y_re, y_im, t, dxdu, plan,
+                                       voxel_mask)
+
+
+def normal_equations_plain_impl(params, y_re, y_im, t, dxdu, plan,
+                                voxel_mask=None):
+    """The body of :func:`eq6_normal_equations_plain` without its call
+    counter (the whole-loop twin evaluates through it)."""
     b, n_t = _check_inputs(params, y_re, y_im, t, dxdu, plan, voxel_mask)
     n_peaks, n_free = plan.n_peaks, plan.n_free
     p = params.view(b, n_peaks, 5)
@@ -270,6 +278,26 @@ def eq6_normal_equations_plain(params, y_re, y_im, t, dxdu, plan,
     return cost, g, h.reshape(n_free * n_free, b)
 
 
+def check_plan(plan: NormalEqPlan, n_t: int) -> None:
+    """Refuse a prior or a time axis that the v9 evaluation (K2, K8) cannot
+    take: its static bounds and its shared memory."""
+    n_rows = len(plan.active)
+    if (plan.n_peaks > MAX_PEAKS or plan.n_free > MAX_FREE
+            or n_rows > MAX_ROWS or plan.q_n > MAX_QN):
+        raise ValueError(
+            f"prior too large for the kernel: peaks {plan.n_peaks} (max "
+            f"{MAX_PEAKS}), free {plan.n_free} (max {MAX_FREE}), rows "
+            f"{n_rows} (max {MAX_ROWS})"
+        )
+    n_pairs = plan.n_peaks * (plan.n_peaks + 1) // 2
+    smem = 4 * (n_t * (3 + 2 * plan.n_peaks)
+                + plan.n_peaks * (2 * _BLOCK_T + 2 * (n_t // _BLOCK_T))
+                + plan.n_peaks * (plan.q_n + 1) * 2
+                + n_pairs * (2 * plan.q_n + 1) * 2)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"n_t={n_t} needs {smem} B of shared memory")
+
+
 def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
     """K2: the plain version for CPU tensors, the CUDA kernel for CUDA ones.
 
@@ -287,21 +315,8 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
     tensors = (params, y_re, y_im, t, dxdu)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("normal equations: inputs must be contiguous")
+    check_plan(plan, n_t)
     n_rows = len(plan.active)
-    if (plan.n_peaks > MAX_PEAKS or plan.n_free > MAX_FREE
-            or n_rows > MAX_ROWS or plan.q_n > MAX_QN):
-        raise ValueError(
-            f"prior too large for the kernel: peaks {plan.n_peaks} (max "
-            f"{MAX_PEAKS}), free {plan.n_free} (max {MAX_FREE}), rows "
-            f"{n_rows} (max {MAX_ROWS})"
-        )
-    n_pairs = plan.n_peaks * (plan.n_peaks + 1) // 2
-    smem = 4 * (n_t * (3 + 2 * plan.n_peaks)
-                + plan.n_peaks * (2 * _BLOCK_T + 2 * (n_t // _BLOCK_T))
-                + plan.n_peaks * (plan.q_n + 1) * 2
-                + n_pairs * (2 * plan.q_n + 1) * 2)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n_t={n_t} needs {smem} B of shared memory")
     ints, scales = _plan_tensors(plan, str(y_re.device))
     mask = voxel_mask.contiguous() if voxel_mask is not None else None
     cost = torch.empty((b,), dtype=torch.float32, device=y_re.device)

@@ -3,9 +3,12 @@
 Port of :func:`xmris_tpu.parallel.process.process_grid_planar_raw`.  The
 reference compiles the whole per-grid workload into one XLA program; here
 it is one eager PyTorch call whose device work is the hand-written kernels
-(K1 spectrum, K5 fused ACME polish with ``autophase="all"``, K2 normal
-equations, K3 damped SPD solve, K4 inverse diagonal) plus tensor glue.  The spectral stage and the fit both read the
-raw FIDs and do not depend on each other.
+plus tensor glue: K1 spectrum (K5 fused ACME polish with
+``autophase="all"``), then the fit that ``kernel_version`` selects — 9: K2
+normal equations and K3 damped SPD solve per iteration, K4 CRLB diagonal;
+10: the whole LM in one K8 launch; 3 or 5: K7 or K12 with the dense K6a
+solve — with K6b's CRLB diagonal on the dense paths.  The spectral stage
+and the fit both read the raw FIDs and do not depend on each other.
 
 Everything is planar float32: complex FIDs travel as (real, imag) planes.
 """
