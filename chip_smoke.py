@@ -61,38 +61,93 @@ def _phase(name):
     print(f"== {name}", flush=True)
 
 
+def _atol_text(atol):
+    """A scalar atol as a number, a per-entry one as its range."""
+    import torch
+
+    if not isinstance(atol, torch.Tensor):
+        return f"{atol:.3e}"
+    return (f"{float(atol.min()):.3e}..{float(atol.max()):.3e} per entry")
+
+
+def _err_over_limit(err, lim):
+    """``err / lim``, but 0 wherever the error is 0 (also against a zero
+    limit), so that a nonzero error against a zero limit reads inf."""
+    import torch
+
+    return torch.where(err == 0, torch.zeros_like(err), err / lim)
+
+
 def _assert_close(name, got, ref, rtol, atol, mask=None):
-    """``|got - ref| <= atol + rtol*|ref|`` elementwise (NaN == NaN);
-    prints the error beside the limit and returns the max abs error."""
+    """``|got - ref| <= atol + rtol*|ref|`` elementwise (NaN == NaN), with
+    ``atol`` a number or a tensor of ``ref``'s shape; prints the error
+    beside the limit and returns the max abs error."""
     import torch
 
     got = got.double()
     ref = ref.double()
+    atol = atol.double() if isinstance(atol, torch.Tensor) else atol
     if mask is not None:
         got, ref = got[mask], ref[mask]
+        atol = atol[mask] if isinstance(atol, torch.Tensor) else atol
     nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
     if not torch.equal(nan_g, nan_r):
         raise AssertionError(f"{name}: NaN pattern differs")
     fin = ~nan_r
     err = (got[fin] - ref[fin]).abs()
-    lim = atol + rtol * ref[fin].abs()
-    worst = float((err / lim).max()) if err.numel() else 0.0
+    lim = (atol[fin] if isinstance(atol, torch.Tensor) else atol) \
+        + rtol * ref[fin].abs()
+    worst = float(_err_over_limit(err, lim).max()) if err.numel() else 0.0
     max_err = float(err.max()) if err.numel() else 0.0
     print(f"   {name}: max|err| {max_err:.3e}  worst err/limit {worst:.3f} "
-          f"(rtol {rtol:g}, atol {atol:.3e})", flush=True)
-    if worst > 1.0:
+          f"(rtol {rtol:g}, atol {_atol_text(atol)})", flush=True)
+    if not worst <= 1.0:
         raise AssertionError(f"{name}: error above tolerance ({worst:.3f}x)")
     return max_err
 
 
+def _gram_atols(h_ref, cost_ref, scale):
+    """Per-entry atols of a Gauss-Newton H = J J^T and g = J r (cost = r.r):
+    ``scale*sqrt(|H_ii H_jj|)`` and ``scale*sqrt(|H_ii| cost)``, the
+    Cauchy-Schwarz bounds of |H_ij| and |g_i| (and of the rounding of their
+    sums) scaled down, so that each row is held at its own size."""
+    import torch
+
+    d = torch.diagonal(h_ref, dim1=-2, dim2=-1).double().abs().sqrt()
+    return (scale * d[..., :, None] * d[..., None, :],
+            scale * d * cost_ref.double().abs().sqrt()[..., None])
+
+
+def _row_blocks(tag, rows, got, ref, atol, rtol):
+    """Prints the worst err/limit of H's rows of each parameter kind (the
+    physical row index mod 5), so each block shows its own margin."""
+    import torch
+
+    kinds = ("amplitude", "shift", "linewidth", "phase", "g")
+    err = (got.double() - ref.double()).abs()
+    ratio = _err_over_limit(err, atol + rtol * ref.double().abs())
+    parts = []
+    for c, kname in enumerate(kinds):
+        idx = [i for i, r in enumerate(rows) if r % 5 == c]
+        if idx:
+            sel = torch.as_tensor(idx, device=ratio.device)
+            parts.append(f"{kname} {float(ratio[:, sel].max()):.3f}")
+    print(f"   {tag} H rows, worst err/limit by kind: {', '.join(parts)}",
+          flush=True)
+
+
 def _share_within(name, got, ref, rtol, atol, min_share):
     """Share of voxels (rows) whose every entry is within
-    ``atol + rtol*|ref|``; raises below ``min_share``."""
+    ``atol + rtol*|ref|`` (``atol`` a number or a tensor of ``ref``'s
+    shape); raises below ``min_share``."""
+    import torch
+
+    atol = atol.double() if isinstance(atol, torch.Tensor) else atol
     ok = ((got.double() - ref.double()).abs()
           <= atol + rtol * ref.double().abs()).all(-1)
     share = float(ok.double().mean())
     print(f"   {name}: {share:.5f} of voxels within rtol {rtol:g} / atol "
-          f"{atol:g} (limit >= {min_share})", flush=True)
+          f"{_atol_text(atol)} (limit >= {min_share})", flush=True)
     if share < min_share:
         raise AssertionError(f"{name}: too few voxels within tolerance")
     return share
@@ -166,15 +221,17 @@ def main(argv) -> int:
         template_optimum,
     )
     from xmris_tpu_torch.fitting.lm import (
-        _expand_params_batched,
         crlb_batched_planar,
         hashable_pmap,
-        internal_to_external_torch,
         normal_eq_plan,
         slab_to_bff,
     )
     from xmris_tpu_torch.fitting.prior import prior_from_csv_text
     from xmris_tpu_torch.ops import kernels as K
+    from xmris_tpu_torch.ops.bounds import (
+        expand_params_batched,
+        internal_to_external_torch,
+    )
     from xmris_tpu_torch.ops.kernels import (
         _build,
         acme_cuda,
@@ -290,7 +347,7 @@ def main(argv) -> int:
     u0 = seed_grid(re, im, t_d, xt_d, lower, upper, kind, pmap_static=ps,
                    mhz=bi.MHZ, amp_slots=amp_slots, ls_plan=ls_plan)
     x0, dxdu = internal_to_external_torch(u0, lower, upper, kind)
-    grids = _expand_params_batched(x0, ps).contiguous()
+    grids = expand_params_batched(x0, ps).contiguous()
     dxdu = dxdu.contiguous()
     plan = normal_eq_plan(ps, n_free, bi.MHZ, True)
     c_k, g_k, h_k = lm_cuda.eq6_normal_equations(grids, re, im, t_d, dxdu, plan)
@@ -298,8 +355,12 @@ def main(argv) -> int:
                                                        dxdu, plan)
     _sync()
     _assert_close("K2 cost", c_k, c_p, 1e-5, 0.0)
-    e2g = _assert_close("K2 g", g_k, g_p, 1e-4, 1e-3 * float(g_p.abs().max()))
-    e2h = _assert_close("K2 H", h_k, h_p, 1e-4, 1e-3 * float(h_p.abs().max()))
+    # Each entry held at its own rows' size, as for K7 below.
+    h_atol, g_atol = _gram_atols(slab_to_bff(h_p, n_free), c_p, 1e-3)
+    e2g = _assert_close("K2 g", g_k, g_p, 1e-4, g_atol)
+    e2h = _assert_close("K2 H", slab_to_bff(h_k, n_free),
+                        slab_to_bff(h_p, n_free), 1e-4, h_atol)
+    del h_atol, g_atol
     kp_, qn = pk.n_peaks, plan.q_n
     # Per (voxel, t): the model (~10 per peak), residual and cost (6),
     # one complex product per peak pair with 2*q_n+1 t-power moments
@@ -409,10 +470,14 @@ def main(argv) -> int:
         cp, gp, hp = plain()
         _sync()
         _assert_close(f"{tag} cost", ck, cp, 1e-5, 0.0)
-        err = max(
-            _assert_close(f"{tag} g", gk, gp, 1e-4, 1e-3 * float(gp.abs().max())),
-            _assert_close(f"{tag} H", hk, hp, 1e-4, 1e-3 * float(hp.abs().max())))
-        del cp, gp, hp
+        # The rows of H span orders of magnitude (shifts ~1e6, phases ~1):
+        # each entry is held at its own rows' size, and each row block of H
+        # is reported on its own.
+        h_atol, g_atol = _gram_atols(hp, cp, 1e-3)
+        err = max(_assert_close(f"{tag} g", gk, gp, 1e-4, g_atol),
+                  _assert_close(f"{tag} H", hk, hp, 1e-4, h_atol))
+        _row_blocks(tag, rows, hk, hp, h_atol, 1e-4)
+        del cp, gp, hp, h_atol, g_atol
         n_r = len(rows)
         jac_out[name] = (ck, gk, hk)
         report[name] = dict(
@@ -432,11 +497,9 @@ def main(argv) -> int:
     sel = list(active)
     same = (torch.equal(c5, c3) and torch.equal(g5, g3[:, sel])
             and torch.equal(h5, h3[:, sel][:, :, sel]))
-    print(f"   K12 on K7's active rows: bit for bit {same}")
-    _assert_close("K12 vs K7 cost", c5, c3, 1e-6, 0.0)
-    _assert_close("K12 vs K7 g", g5, g3[:, sel], 1e-5, 1e-4)
-    _assert_close("K12 vs K7 H", h5, h3[:, sel][:, :, sel], 1e-5,
-                  1e-3 * float(h3.abs().max()))
+    if not same:
+        raise AssertionError("K12 differs from K7's active rows")
+    print("   K12 equals K7 on K7's active rows, bit for bit")
     del jac_out, c3, g3, h3, c5, g5, h5
 
     # K8: the whole LM of the seeded bench grid, against its plain twin.
@@ -459,7 +522,7 @@ def main(argv) -> int:
     _share_within("K8 x", x_k8, x_p8, 1e-4, 1e-4, 0.99)
     _share_within("K8 cost", k8[1][:, None], p8[1][:, None], 1e-5, 0.0, 0.99)
     _share_within("K8 H", k8[4].reshape(b, -1), p8[4].reshape(b, -1), 1e-3,
-                  1e-4 * float(p8[4].abs().max()), 0.99)
+                  _gram_atols(p8[4], p8[1], 1e-4)[0].reshape(b, -1), 0.99)
     n_eval = int(k8[5].sum())
     report["lm_loop_v10"] = dict(
         err=float((x_k8 - x_p8).abs().max()),

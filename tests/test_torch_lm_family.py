@@ -156,6 +156,39 @@ def test_jac_normal_equations_match_reference(version, n_t, k):
                                atol=1e-3 * np.abs(g).max())
     np.testing.assert_allclose(got[2].numpy(), h, rtol=1e-4,
                                atol=1e-3 * np.abs(h).max())
+    _assert_rows_at_their_scale(got, (cost, g, h))
+
+
+def _assert_rows_at_their_scale(got, ref):
+    """g and H within rtol 1e-4 plus, per entry, 1e-3 of its Cauchy-Schwarz
+    bound (``sqrt(|H_ii H_jj|)``, ``sqrt(|H_ii| cost)``): the rows of H span
+    orders of magnitude, so one atol from max|H| would not see a wrong
+    amplitude or phase row."""
+    cost, g, h = (np.asarray(a, np.float64) for a in ref)
+    d = np.sqrt(np.abs(np.diagonal(h, axis1=1, axis2=2)))
+    for x, x_ref, atol in (
+        (got[1], g, 1e-3 * d * np.sqrt(np.abs(cost))[:, None]),
+        (got[2], h, 1e-3 * d[:, :, None] * d[:, None, :]),
+    ):
+        err = np.abs(np.asarray(x, np.float64) - x_ref)
+        assert (err <= atol + 1e-4 * np.abs(x_ref)).all(), float(
+            (err / (atol + 1e-4 * np.abs(x_ref))).max())
+
+
+def test_row_scaled_check_sees_a_wrong_amplitude_row():
+    """One atol from max|H| lets an amplitude row 5 % off pass (shift rows
+    are ~1e3 times larger); the per-entry check does not."""
+    k = 3
+    grids, yre, yim, t = _jac_inputs(256, k, b=4, seed=5)
+    c, g, h = lm_jac_cuda.eq6_normal_equations_v3_plain(
+        *(_t(a) for a in (grids, yre, yim, t)), k, MHZ)
+    bad = h.clone()
+    bad[:, 0, :] *= 1.05
+    bad[:, :, 0] *= 1.05
+    np.testing.assert_allclose(bad.numpy(), h.numpy(), rtol=1e-4,
+                               atol=1e-3 * float(h.abs().max()))
+    with pytest.raises(AssertionError):
+        _assert_rows_at_their_scale((c, g, bad), (c, g, h))
 
 
 def test_v5_is_v3_on_the_active_rows():
@@ -172,6 +205,8 @@ def test_v5_is_v3_on_the_active_rows():
                                atol=1e-4)
     np.testing.assert_allclose(h5.numpy(), h3[:, sel][:, :, sel].numpy(),
                                rtol=1e-5, atol=1e-3 * float(h3.abs().max()))
+    _assert_rows_at_their_scale((c5, g5, h5),
+                                (c3, g3[:, sel], h3[:, sel][:, :, sel]))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from xmris_tpu_torch.ops.bounds import (
+    BOTH,
+    FREE,
+    LOWER,
+    UPPER,
+    expand_params_batched,
+    external_to_internal_torch,
+    internal_to_external_torch,
+)
 from xmris_tpu_torch.ops.kernels import DISPATCH
 from xmris_tpu_torch.ops.kernels.lm_cuda import NormalEqPlan
 from xmris_tpu_torch.ops.kernels.spd import (
@@ -43,16 +52,13 @@ from xmris_tpu_torch.ops.kernels.spd import (
     spd_solve_small,
 )
 
-_BOTH, _LOWER, _UPPER, _FREE = 0, 1, 2, 3
-
-
 def classify_bounds(lower: np.ndarray, upper: np.ndarray) -> np.ndarray:
-    kind = np.full(lower.shape, _FREE, dtype=np.int32)
+    kind = np.full(lower.shape, FREE, dtype=np.int32)
     has_lo = np.isfinite(lower)
     has_hi = np.isfinite(upper)
-    kind[has_lo & has_hi] = _BOTH
-    kind[has_lo & ~has_hi] = _LOWER
-    kind[~has_lo & has_hi] = _UPPER
+    kind[has_lo & has_hi] = BOTH
+    kind[has_lo & ~has_hi] = LOWER
+    kind[~has_lo & has_hi] = UPPER
     return kind
 
 
@@ -74,61 +80,10 @@ def external_to_internal(x, lower, upper, kind):
     u_upper = np.sqrt(w * w - 1.0)
 
     return np.select(
-        [kind == _BOTH, kind == _LOWER, kind == _UPPER],
+        [kind == BOTH, kind == LOWER, kind == UPPER],
         [u_both, u_lower, u_upper],
         x,
     )
-
-
-def _finite_or_zero(b):
-    return torch.where(torch.isfinite(b), b, torch.zeros_like(b))
-
-
-def external_to_internal_torch(x, lower, upper, kind):
-    """Tensor counterpart of :func:`external_to_internal` (same formulas)."""
-    lo = _finite_or_zero(lower)
-    hi = _finite_or_zero(upper)
-    span_ok = hi > lo
-    frac = torch.clamp(
-        torch.where(
-            span_ok,
-            (x - lo) / torch.where(span_ok, hi - lo, torch.ones_like(hi)),
-            torch.full_like(x, 0.5),
-        ),
-        1e-8,
-        1.0 - 1e-8,
-    )
-    u_both = torch.arcsin(2.0 * frac - 1.0)
-    v = torch.clamp(x - lo + 1.0, min=1.0 + 1e-12)
-    u_lower = torch.sqrt(v * v - 1.0)
-    w = torch.clamp(hi - x + 1.0, min=1.0 + 1e-12)
-    u_upper = torch.sqrt(w * w - 1.0)
-    out = torch.where(kind == _UPPER, u_upper, x)
-    out = torch.where(kind == _LOWER, u_lower, out)
-    return torch.where(kind == _BOTH, u_both, out)
-
-
-def internal_to_external_torch(u, lower, upper, kind):
-    """Bounded transform of internal ``u`` and its diagonal Jacobian dx/du."""
-    lo = _finite_or_zero(lower)
-    hi = _finite_or_zero(upper)
-
-    s = torch.sin(u)
-    x_both = lo + (s + 1.0) * 0.5 * (hi - lo)
-    d_both = 0.5 * (hi - lo) * torch.cos(u)
-
-    root = torch.sqrt(u * u + 1.0)
-    x_lower = lo - 1.0 + root
-    d_lower = u / root
-    x_upper = hi + 1.0 - root
-    d_upper = -u / root
-
-    is_both, is_lo, is_hi = kind == _BOTH, kind == _LOWER, kind == _UPPER
-    x = torch.where(is_both, x_both, torch.where(
-        is_lo, x_lower, torch.where(is_hi, x_upper, u)))
-    dxdu = torch.where(is_both, d_both, torch.where(
-        is_lo, d_lower, torch.where(is_hi, d_upper, torch.ones_like(u))))
-    return x, dxdu
 
 
 # ---------------------------------------------------------------------------
@@ -160,20 +115,9 @@ def hashable_pmap(pmap: ParamMap):
     )
 
 
-def _expand_params_batched(x, pmap_static):
-    """(..., F) free vectors -> (..., K*5) physical grids."""
-    idx = torch.as_tensor(pmap_static[0], device=x.device)
-    scale = torch.as_tensor(pmap_static[1], dtype=x.dtype, device=x.device)
-    offset = torch.as_tensor(pmap_static[2], dtype=x.dtype, device=x.device)
-    gathered = x[..., torch.clamp(idx, min=0)]
-    return offset + torch.where(
-        idx >= 0, scale * gathered, torch.zeros_like(gathered)
-    )
-
-
 def expand_params(x_free, pmap_static):
     """(..., F) free vector -> (..., K, 5) physical parameter grid."""
-    full = _expand_params_batched(x_free, pmap_static)
+    full = expand_params_batched(x_free, pmap_static)
     return full.reshape(full.shape[:-1] + (pmap_static[3], 5))
 
 
@@ -496,7 +440,7 @@ def lm_fit_batched_slab(
 
     def full_eval(u, voxel_mask=None):
         x, dxdu = internal_to_external_torch(u, lower, upper, kind)
-        grids = _expand_params_batched(x, pmap_static)
+        grids = expand_params_batched(x, pmap_static)
         return kernels.normal_equations(
             grids.contiguous(), fids_re, fids_im, t, dxdu.contiguous(), plan,
             voxel_mask=voxel_mask,
@@ -778,7 +722,7 @@ def _lm_fit_batched_pallas_impl(
 
     def full_eval(u, voxel_mask=None):
         x, dxdu = internal_to_external_torch(u, lo, hi, kind)
-        return evaluate(_expand_params_batched(x, pmap_static).contiguous(),
+        return evaluate(expand_params_batched(x, pmap_static).contiguous(),
                         dxdu.contiguous(), voxel_mask)
 
     solve = kernels.spd_solve_damped_dense if spd_pallas else _damped_solve_small
@@ -888,8 +832,7 @@ def crlb_batched_pallas(fids_re, fids_im, t, x_free, pmap_static, mhz: float,
     """CRLBs from one normal-equations evaluation at the optimum (reference
     ``crlb_batched_pallas``): the Gauss-Newton H at external ``x_free``
     (K2 with a unit dx/du for 9 and above, the direct basis; K7/K12 folded
-    by the scatter matrix for 3/5), sigma^2 = cost / max(2 n_t - F, 1),
-    diag((H + 1e-12 I)^-1) from K6b, and ``inf`` where H's diagonal is <= 0.
+    by the scatter matrix for 3/5), then :func:`crlb_from_hessian` (K6b).
     Returns ``(sds (B, F), sigma2 (B,))``."""
     check_kernel_version(kernel_version)
     dtype = torch.float32
@@ -900,16 +843,9 @@ def crlb_batched_pallas(fids_re, fids_im, t, x_free, pmap_static, mhz: float,
     n_free = x_free.shape[-1]
     evaluate = _dense_normal_equations(
         kernel_version, pmap_static, n_free, mhz, False, kernels, re, im, t)
-    cost, _, h = evaluate(_expand_params_batched(x_free, pmap_static)
+    cost, _, h = evaluate(expand_params_batched(x_free, pmap_static)
                           .contiguous(), torch.ones_like(x_free), None)
-    unident = torch.diagonal(h, dim1=1, dim2=2) <= 0.0
-    eye = torch.eye(n_free, dtype=dtype, device=h.device)
-    h = (h + 1e-12 * eye[None]).contiguous()
-    sigma2 = cost / max(2.0 * t.shape[0] - n_free, 1.0)
-    diag_inv = kernels.spd_inverse_diag_dense(h)
-    sds = torch.sqrt(torch.clamp(sigma2[:, None] * diag_inv, min=0.0))
-    sds = torch.where(unident, torch.full_like(sds, math.inf), sds)
-    return sds, sigma2
+    return crlb_from_hessian(h, cost, t.shape[0], kernels=kernels)
 
 
 def crlb_batched_planar(fids_re, fids_im, t, x_free, pmap_static, mhz: float):

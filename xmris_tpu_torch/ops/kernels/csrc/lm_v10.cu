@@ -38,7 +38,7 @@ namespace {
 constexpr int kBoth = 0, kLower = 1, kUpper = 2;  // bound kinds; 3 is free
 constexpr float kEps64 = 64.f * 1.1920928955078125e-07f;  // 64 * FLT_EPSILON
 
-// External value and dx/du of internal u (fitting.lm.internal_to_external
+// External value and dx/du of internal u (ops.bounds.internal_to_external
 // with every product and sum rounded on its own, in the torch version's
 // order; lo/hi are the finite-substituted bounds).
 __device__ __forceinline__ void to_external(float u, float lo, float hi,

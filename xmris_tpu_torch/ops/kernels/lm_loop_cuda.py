@@ -24,6 +24,10 @@ import functools
 import numpy as np
 import torch
 
+from xmris_tpu_torch.ops.bounds import (
+    expand_params_batched,
+    internal_to_external_torch,
+)
 from xmris_tpu_torch.ops.kernels import _build, _counters, lm_cuda
 from xmris_tpu_torch.ops.kernels.spd import solve_damped_bff
 
@@ -56,12 +60,6 @@ def lm_loop_v10_plain(u0, y_re, y_im, t, lower, upper, kind, plan,
                       plateau_streak=3, with_trips=False):
     """Plain K8: the kernel's trips over the whole batch, voxels that are
     done frozen (same contract as :func:`lm_loop_v10`)."""
-    # fitting.lm imports this package; its transform is taken at call time.
-    from xmris_tpu_torch.fitting.lm import (
-        _expand_params_batched,
-        internal_to_external_torch,
-    )
-
     _counters.PLAIN_CALLS["lm_loop_v10"] += 1
     b, _ = _check_inputs(u0, y_re, y_im, t, lower, upper, kind, plan,
                          pmap_static)
@@ -91,7 +89,7 @@ def lm_loop_v10_plain(u0, y_re, y_im, t, lower, upper, kind, plan,
         live = ~done
         u_t = u + delta
         x, dxdu = internal_to_external_torch(u_t, lower, upper, kind)
-        grids = _expand_params_batched(x, pmap_static).contiguous()
+        grids = expand_params_batched(x, pmap_static).contiguous()
         cost_t, g_t, h_t = lm_cuda.normal_equations_plain_impl(
             grids, y_re, y_im, t, dxdu.contiguous(), plan)
         h_t = h_t.view(f, f, b).permute(2, 0, 1)
