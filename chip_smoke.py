@@ -9,14 +9,17 @@ Phases (each ends in ``torch.cuda.synchronize()``; any failed check raises
 and the script exits non-zero):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build the ten CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
+2. build the fifteen CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
    (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
    version's, a single PyTorch call's where one computes the same function,
    and its bound on the card (K6a bit for bit against its twin and K3; K8
-   by the share of voxels within the reference's tolerances);
+   by the share of voxels within the reference's tolerances; K13 and K14
+   bit for bit K7, K11 K12 on its unmasked voxels, K10 against K11 per
+   entry; K2's accept gate: the cost bit for bit, g and H on the improving
+   voxels);
 4. the slice: ``process_grid_planar_raw`` (single-pivot autophase) on the
    full bench grid for three grids in a row with the launch counters
    checked, the fit checked against the phantom's ground truth, and the
@@ -25,17 +28,22 @@ and the script exits non-zero):
    against the plain path;
    4c. ``fit_amares`` on the bench grid as a labeled (x, y, z, time) array
    (K2, K3 and K6b) against the phantom's truth and the plain path;
-   4d-4f. ``process_grid_planar_raw`` at ``kernel_version`` 10 (K8), 3 (K7
-   + K6a) and 5 (K12 + K6a), each against the phantom's truth and, by the
-   share of voxels within the reference's tolerances, the v9 grid of 4;
-   4g. ``fit_amares(kernel_version=10)`` against the truth and 4c's maps;
+   4d-4k. ``process_grid_planar_raw`` at ``kernel_version`` 10 (K8), 3
+   (K7), 5 (K12), 8 (K9), 6 (K11), 7 (K10), 2 (K13) and 1 (K14), the
+   last seven with K6a and K6b, each against the phantom's truth and, by
+   the share of voxels within the reference's tolerances, the v9 grid of 4;
+   4l. ``fit_amares(kernel_version=10)`` against the truth and 4c's maps;
+   4m. ``fit_amares(kernel_version=8)`` (K9 + K6a + K6b) likewise;
+   4n. ``lm_fit_batched_pallas(gate_rejects=True)`` at 9 and 10 (K2 with
+   its gate, not K8) bit for bit the ungated v9 fit of the bench seeds;
 5. timing: median ms per single-pivot grid over synchronized grids, and
-   voxels/s; the grid and its fit stage at versions 9, 10, 3 and 5 in
-   turns; median ms of a per-voxel-autophased grid; median s of one
-   ``fit_amares`` call at versions 9 and 10.
+   voxels/s; the grid and its fit stage at every version in turns with
+   v9; median ms of a per-voxel-autophased grid; median s of one
+   ``fit_amares`` call at versions 9, 10 and 8.
 
 ``--profile-dir DIR`` adds a ``torch.profiler`` look at one grid of each
-autophase mode and of the v10 and v3 fits: the device-busy share on stdout
+autophase mode and of the v10, v3, v8 and v7 fits: the device-busy share
+on stdout
 and kernel tables in ``DIR/profile*.txt``.  The
 line before the card's name lists every kernel as JSON; the last line of
 standard output is one JSON object with ``"ok": true`` and the device.
@@ -223,6 +231,8 @@ def main(argv) -> int:
     from xmris_tpu_torch.fitting.lm import (
         crlb_batched_planar,
         hashable_pmap,
+        lm_fit_batched_pallas,
+        lorentzian_env_flags,
         normal_eq_plan,
         slab_to_bff,
     )
@@ -381,6 +391,21 @@ def main(argv) -> int:
         ),
     )
 
+    # K2's accept gate: cost_prev just above the cost on even voxels (they
+    # improve) and just below it on odd ones (rejected: no moments, g, H).
+    factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
+    c_prev = (c_k * factor).contiguous()
+    c_g, g_g, h_g = lm_cuda.eq6_normal_equations(grids, re, im, t_d, dxdu, plan,
+                                                 cost_prev=c_prev)
+    _sync()
+    better = c_g < c_prev
+    if not (torch.equal(c_g, c_k) and torch.equal(g_g[better], g_k[better])
+            and torch.equal(h_g[:, better], h_k[:, better])):
+        raise AssertionError("K2 with the accept gate differs from K2")
+    print(f"   K2 gated: cost bit for bit on all {b} voxels, g and H bit for "
+          f"bit on the {int(better.sum())} improving ones")
+    del c_g, g_g, h_g, c_prev
+
     planted = torch.tensor([5, 777, b - 3], device=dev)
     h_sp = h_k.clone()
     h_sp[0, planted] = -1.0  # H[0, 0] < 0: not SPD
@@ -447,22 +472,47 @@ def main(argv) -> int:
     del c_p, g_p, h_p, h_sp, h_dense, d_k, d_p, i_k, i_p, j_k, j_p, h_bff
     del a_k, a_p
 
-    # K7 (every physical row) and K12 (the prior's active rows) at the
-    # seeded bench grid, in physical space.
+    # The explicit-Jacobian family at the seeded bench grid, in physical
+    # space: K7, K13 and K14 (every physical row, one kernel), K12 and K11
+    # (the prior's active rows, K11 unmasked: its first launch in the LM),
+    # K10 (K11 on the block-factored basis) and K9 (the three moments).
     active = tuple(plan.active)
+    all_rows = tuple(range(5 * kp_))
+    flags = lorentzian_env_flags(ps)
+    jargs = (grids, re, im, t_d, kp_, bi.MHZ)
     jac = {
-        "eq6_normal_eq_v3": (
-            "K7", tuple(range(5 * kp_)),
-            lambda: lm_jac_cuda.eq6_normal_equations_v3(
-                grids, re, im, t_d, kp_, bi.MHZ),
-            lambda: lm_jac_cuda.eq6_normal_equations_v3_plain(
-                grids, re, im, t_d, kp_, bi.MHZ)),
-        "eq6_normal_eq_v5": (
-            "K12", active,
-            lambda: lm_jac_cuda.eq6_normal_equations_v5(
-                grids, re, im, t_d, kp_, bi.MHZ, active),
-            lambda: lm_jac_cuda.eq6_normal_equations_v5_plain(
-                grids, re, im, t_d, kp_, bi.MHZ, active)),
+        "eq6_normal_eq_v3": ("K7", all_rows,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v3(*jargs),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v3_plain(
+                                 *jargs)),
+        "eq6_normal_eq_v2": ("K13", all_rows,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v2(*jargs),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v2_plain(
+                                 *jargs)),
+        "eq6_normal_eq_v1": ("K14", all_rows,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v1(*jargs),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v1_plain(
+                                 *jargs)),
+        "eq6_normal_eq_v5": ("K12", active,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v5(
+                                 *jargs, active),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v5_plain(
+                                 *jargs, active)),
+        "eq6_normal_eq_v6": ("K11", active,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v6(
+                                 *jargs, active),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v6_plain(
+                                 *jargs, active)),
+        "eq6_normal_eq_v7": ("K10", active,
+                             lambda: lm_jac_cuda.eq6_normal_equations_v7(
+                                 *jargs, active, flags, validate=False),
+                             lambda: lm_jac_cuda.eq6_normal_equations_v7_plain(
+                                 *jargs, active, flags, validate=False)),
+        "eq6_normal_eq_v8": ("K9", active,
+                             lambda: lm_cuda.eq6_normal_equations_v8(
+                                 *jargs, active, validate=False),
+                             lambda: lm_cuda.eq6_normal_equations_v8_plain(
+                                 *jargs, active, validate=False)),
     }
     jac_out = {}
     for name, (tag, rows, kern, plain) in jac.items():
@@ -480,27 +530,60 @@ def main(argv) -> int:
         del cp, gp, hp, h_atol, g_atol
         n_r = len(rows)
         jac_out[name] = (ck, gk, hk)
+        if name == "eq6_normal_eq_v8":
+            # K2's work with q_n = 1 on the direct basis (~30 operations
+            # per peak and sample: an exp, a sincos, the products), with
+            # an identity fold.
+            ops = n_in * (30 * kp_ + 6 + kp_ * (kp_ + 1) / 2 * (6 + 4 * 3)
+                          + kp_ * (6 + 4 * 2))
+        else:
+            # Per (voxel, t): the bases (~10 per peak; ~6 from K10's
+            # tables), model and residual (6), a Jacobian row (4 each) and
+            # 2 multiply-adds for each upper-triangle H entry and g entry.
+            per_peak = 6 if name == "eq6_normal_eq_v7" else 10
+            ops = n_in * (per_peak * kp_ + 6 + 4 * n_r
+                          + 4 * (n_r * (n_r + 1) / 2 + n_r))
         report[name] = dict(
             err=err,
             ms=_time_ms(kern, 10),
             plain_ms=_time_ms(plain, 1, warmup=1),
             library_ms=None,
-            # Per (voxel, t): the bases (~10 per peak), model and residual
-            # (6), a Jacobian row (4 each) and 2 multiply-adds for each
-            # upper-triangle H entry and g entry.
             bound=_bound(
                 b * 4 * (5 * kp_ + 2 * n_in + 1 + n_r + n_r * n_r) + 4 * n_in,
-                b * n_in * (10 * kp_ + 6 + 4 * n_r
-                            + 4 * (n_r * (n_r + 1) / 2 + n_r))),
+                b * ops),
         )
-    (c3, g3, h3), (c5, g5, h5) = jac_out.values()
     sel = list(active)
+    c3, g3, h3 = jac_out["eq6_normal_eq_v3"]
+    for name in ("eq6_normal_eq_v2", "eq6_normal_eq_v1"):
+        if not all(torch.equal(x, y) for x, y in zip(jac_out[name], (c3, g3, h3))):
+            raise AssertionError(f"{jac[name][0]} differs from K7")
+    print("   K13 and K14 equal K7, bit for bit")
+    c5, g5, h5 = jac_out["eq6_normal_eq_v5"]
     same = (torch.equal(c5, c3) and torch.equal(g5, g3[:, sel])
             and torch.equal(h5, h3[:, sel][:, :, sel]))
     if not same:
         raise AssertionError("K12 differs from K7's active rows")
     print("   K12 equals K7 on K7's active rows, bit for bit")
-    del jac_out, c3, g3, h3, c5, g5, h5
+    if not all(torch.equal(x, y) for x, y in
+               zip(jac_out["eq6_normal_eq_v6"], (c5, g5, h5))):
+        raise AssertionError("unmasked K11 differs from K12")
+    keep = torch.arange(b, device=dev) % 2 == 0
+    part = lm_jac_cuda.eq6_normal_equations_v6(*jargs, active, voxel_mask=keep)
+    _sync()
+    if not all(torch.equal(x[keep], y[keep]) for x, y in zip(part, (c5, g5, h5))):
+        raise AssertionError("K11 differs from K12 on the voxels it keeps")
+    print(f"   K11 equals K12 bit for bit, unmasked and on the "
+          f"{int(keep.sum())} voxels its mask keeps")
+    del part
+    # K10's factored basis is another rounding of K11's: per entry.
+    c6, g6, h6 = jac_out["eq6_normal_eq_v6"]
+    h_atol, g_atol = _gram_atols(h6, c6, 1e-3)
+    c7, g7, h7 = jac_out["eq6_normal_eq_v7"]
+    _assert_close("K10 cost vs K11", c7, c6, 1e-5, 0.0)
+    _assert_close("K10 g vs K11", g7, g6, 1e-4, g_atol)
+    _assert_close("K10 H vs K11", h7, h6, 1e-4, h_atol)
+    _row_blocks("K10 vs K11", active, h7, h6, h_atol, 1e-4)
+    del jac_out, c3, g3, h3, c5, g5, h5, c6, g6, h6, c7, g7, h7, h_atol, g_atol
 
     # K8: the whole LM of the seeded bench grid, against its plain twin.
     loop_args = (u0, re, im, t_d, lower, upper, kind, plan, ps)
@@ -789,14 +872,17 @@ def main(argv) -> int:
     del ds_p, got, ref
     torch.cuda.empty_cache()
 
-    # ---- 4d-4f. the grid at kernel_version 10 (K8), 3 (K7) and 5 (K12) ----
+    # ---- 4d-4k. the grid at every other kernel_version ----
+    # 10 (K8), 3 (K7), 5 (K12), 8 (K9), 6 (K11), 7 (K10), 2 (K13), 1 (K14).
     # Each against the v9 grid of phase 4 on the same inputs, by the share of
     # voxels within the reference's own tolerances between these versions:
     # test_lm_pallas_v10.py:99-111 for 10 (x rtol/atol 1e-4, cost rtol
-    # 1e-5), test_lm_pallas.py:1363 for 3 and 5 (x rtol/atol 0.02), CRLB
-    # rtol 1e-3 (10) and 0.05 (3, 5); and every voxel within 0.1 CRLB.
-    tols = {10: (1e-4, 1e-5, 1e-3), 3: (0.02, 1e-4, 0.05), 5: (0.02, 1e-4, 0.05)}
-    for tag, v in (("4d", 10), ("4e", 3), ("4f", 5)):
+    # 1e-5), test_lm_pallas.py:1363 for the others (x rtol/atol 0.02), CRLB
+    # rtol 1e-3 (10) and 0.05 (the others); and every voxel within 0.1 CRLB.
+    tols = {v: (0.02, 1e-4, 0.05) for v in (3, 5, 8, 6, 7, 2, 1)}
+    tols[10] = (1e-4, 1e-5, 1e-3)
+    for tag, v in (("4d", 10), ("4e", 3), ("4f", 5), ("4g", 8), ("4h", 6),
+                   ("4i", 7), ("4j", 2), ("4k", 1)):
         _phase(f"{tag} process_grid_planar_raw, kernel_version={v}")
         K.reset_counters()
         out = process_grid_planar_raw(*args, **fit_kw, kernel_version=v)
@@ -829,8 +915,8 @@ def main(argv) -> int:
         del out, x_v, cost_v, conv_v, sds_v
         torch.cuda.empty_cache()
 
-    # ---- 4g. fit_amares(kernel_version=10) (K8 + K6b) ----
-    _phase("4g fit_amares(kernel_version=10) on the bench grid")
+    # ---- 4l. fit_amares(kernel_version=10) (K8 + K6b) ----
+    _phase("4l fit_amares(kernel_version=10) on the bench grid")
     K.reset_counters()
     ds10 = fit_amares(da, pk, kernel_version=10)
     _sync()
@@ -865,6 +951,67 @@ def main(argv) -> int:
     del ds10, got, ref
     torch.cuda.empty_cache()
 
+    # ---- 4m. fit_amares(kernel_version=8) (K9 + K6a + K6b) ----
+    # Another evaluation kernel than v9's: held like the v8 grid (every
+    # parameter within 0.1 CRLB of 4c's maps, amplitudes, shifts and
+    # linewidths within 0.02 for >= 99 % of voxels, CRLB % within 0.05).
+    _phase("4m fit_amares(kernel_version=8) on the bench grid")
+    K.reset_counters()
+    ds8 = fit_amares(da, pk, kernel_version=8)
+    _sync()
+    counts = K.counters()
+    print(f"   counters {counts}")
+    _check_path(K, counts, "fit_amares_v8")
+    amp8 = ds8["amplitude"].values.reshape(b, -1)
+    conv_share = float(ds8["fit_converged"].values.mean())
+    pcr_err = float(np.median(np.abs(amp8[:, 0] - bi.pcr_amplitudes())
+                              / bi.pcr_amplitudes()))
+    print(f"   converged share {conv_share:.4f} (limit >= 0.95); PCr median "
+          f"rel err {pcr_err:.5f} (limit <= 0.05)")
+    if conv_share < 0.95 or not pcr_err <= 0.05:
+        raise AssertionError("fit_amares v8 quality check failed")
+    got = np.stack([ds8[n].values.reshape(b, -1) for n in fams])
+    ref = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    _within_crlb("fit_amares v8 parameters", torch.as_tensor(got),
+                 torch.as_tensor(ref), torch.as_tensor(sd))
+    for c, n in enumerate(fams):
+        ok = (np.abs(got[c] - ref[c]) <= 0.02 + 0.02 * np.abs(ref[c])).all(1)
+        print(f"   fit_amares v8 {n}: {ok.mean():.5f} of voxels within rtol "
+              f"0.02 / atol 0.02 of v9" + (" (limit >= 0.99)" if n != "phase"
+                                           else " (reported)"))
+        if n != "phase" and ok.mean() < 0.99:
+            raise AssertionError(f"fit_amares v8 {n}: too few voxels within 0.02")
+    _share_within("fit_amares v8 CRLB %",
+                  torch.as_tensor(ds8["crlb"].values).reshape(b, -1),
+                  torch.as_tensor(ds["crlb"].values).reshape(b, -1), 0.05, 1e-4,
+                  0.99)
+    del ds8, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- 4n. the accept gate in the LM (K2 with cost_prev) ----
+    # The gate changes what K2 computes, not what the loop consumes: the
+    # gated fit of the bench seeds equals the ungated one bit for bit, and
+    # kernel_version=10 with the gate runs the v9 loop (K2 + K3), not K8.
+    _phase("4n lm_fit_batched_pallas(gate_rejects=True) on the bench seeds")
+    lm_args = (re, im, t_d, u0, lower, upper, kind, ps, bi.MHZ)
+    lm_kw = dict(max_iter=24, require_uniform_t=True)
+    open_fit = lm_fit_batched_pallas(*lm_args, **lm_kw)
+    for v in (9, 10):
+        K.reset_counters()
+        gated = lm_fit_batched_pallas(*lm_args, **lm_kw, kernel_version=v,
+                                      gate_rejects=True)
+        _sync()
+        counts = K.counters()["launches"]
+        if counts["lm_loop_v10"] or not counts["eq6_normal_eq_v9"]:
+            raise AssertionError(f"gated v{v}: K2 did not run the loop")
+        if not all(torch.equal(x, y) for x, y in
+                   zip(gated[:3], open_fit[:3])):
+            raise AssertionError(f"gated v{v} fit differs from the open fit")
+        print(f"   gate_rejects, kernel_version={v}: {counts['eq6_normal_eq_v9']} "
+              f"K2 launches, K8 none; x, cost and n_iter bit for bit the "
+              f"ungated v9 fit")
+    del open_fit, gated
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -883,7 +1030,7 @@ def main(argv) -> int:
     # the state of the card and of the host: medians with their quartiles,
     # and the rounds in which each version beat v9.
     fit_only = {k: v for k, v in fit_kw.items() if k != "cfg"}
-    versions = (9, 10, 3, 5)
+    versions = (9, 10, 3, 5, 8, 6, 7, 2, 1)
     turns = {(what, v): [] for what in ("grid", "fit") for v in versions}
     for rnd in range(10):
         for v in (versions if rnd % 2 == 0 else versions[::-1]):
@@ -909,7 +1056,7 @@ def main(argv) -> int:
               + ("" if v == 9 else f", faster than v9 in {wins}/10 rounds"))
         if what == "grid":
             grid_ms[v] = float(med)
-    for v in (10, 3, 5):
+    for v in versions[1:]:
         print(f"   kernel_version={v}: {grid_ms[v]:.3f} ms/grid = "
               f"{b / (grid_ms[v] / 1e3):.1f} voxels/s")
     stages = {
@@ -964,12 +1111,23 @@ def main(argv) -> int:
     print(f"   fit_amares(kernel_version=10) times s: "
           f"{[round(x, 3) for x in fit_times]}; median {fit_med10:.3f} s = "
           f"{b / fit_med10:.1f} voxels/s")
+    fit_times = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        fit_amares(da, pk, return_curves=True, kernel_version=8)
+        _sync()
+        fit_times.append(time.perf_counter() - t0)
+    fit_med8 = float(np.median(fit_times))
+    print(f"   fit_amares(kernel_version=8) times s: "
+          f"{[round(x, 3) for x in fit_times]}; median {fit_med8:.3f} s = "
+          f"{b / fit_med8:.1f} voxels/s")
     if profile_dir:
         _profile(process_grid_planar_raw, args, fit_kw, ms, profile_dir,
                  "single-pivot grid", "profile.txt")
         _profile(process_grid_planar_raw, args, fit_kw_all, ms_all,
                  profile_dir, "per-voxel grid", "profile_per_voxel.txt")
-        for v in (10, 3):
+        for v in (10, 3, 8, 7):
             _profile(process_grid_planar_raw, args,
                      dict(fit_kw, kernel_version=v), grid_ms[v], profile_dir,
                      f"kernel_version={v} grid", f"profile_v{v}.txt")
@@ -995,6 +1153,16 @@ def main(argv) -> int:
                              "xmris_tpu/ops/kernels/lm_pallas.py:631"),
         "lm_loop_v10": ("xmris_tpu_torch/ops/kernels/csrc/lm_v10.cu",
                         "xmris_tpu/ops/kernels/lm_pallas.py:2382"),
+        "eq6_normal_eq_v8": ("xmris_tpu_torch/ops/kernels/csrc/lm_v8.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:1366"),
+        "eq6_normal_eq_v7": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:1093"),
+        "eq6_normal_eq_v6": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:843"),
+        "eq6_normal_eq_v2": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:1493"),
+        "eq6_normal_eq_v1": ("xmris_tpu_torch/ops/kernels/csrc/lm_jac.cu",
+                             "xmris_tpu/ops/kernels/lm_pallas.py:175"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": replaces[name][0],
@@ -1007,11 +1175,10 @@ def main(argv) -> int:
         for name in K.LAUNCHES
     ]
     print(json.dumps({"ms_per_grid": ms, "voxels_per_s": b / (ms / 1e3),
-                      "ms_per_grid_v10": grid_ms[10],
-                      "ms_per_grid_v3": grid_ms[3], "ms_per_grid_v5": grid_ms[5],
+                      **{f"ms_per_grid_v{v}": grid_ms[v] for v in versions},
                       "ms_per_grid_per_voxel_autophase": ms_all,
                       "fit_amares_s": fit_med, "fit_amares_v10_s": fit_med10,
-                      "voxels": b}))
+                      "fit_amares_v8_s": fit_med8, "voxels": b}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Hold the port's LM kernels bit for bit against another checkout's build.
+
+Usage, on a machine with a CUDA card and nvcc, from the root of a checkout:
+
+    python3 scripts/compare_kernel_builds.py OTHER_CHECKOUT
+
+Each checkout (this one and OTHER_CHECKOUT, e.g. the parent commit unpacked
+with ``git archive``) builds its own kernels from its own
+``xmris_tpu_torch/ops/kernels/csrc`` into its own ``build/``, in a fresh
+process that evaluates, on seeded bench inputs (16x16x16 voxels, the bench
+prior, parameters within 20 % of its initial values):
+
+* K2 (``lm_cuda.eq6_normal_equations``) with the factored and the direct
+  basis, with and without a voxel mask (masked voxels are not compared);
+* K7 and K12 (``lm_jac_cuda.eq6_normal_equations_v3`` / ``_v5``);
+* K8 (``lm_loop_cuda.lm_loop_v10``, 24 iterations).
+
+Only entry points both checkouts have are called.  Every output must be
+equal bit for bit; the script prints one line per output and exits
+non-zero on any difference.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _dump(repo: str, out: str) -> None:
+    """Evaluate the kernels of the checkout ``repo`` and save the outputs."""
+    sys.path.insert(0, repo)
+    import numpy as np
+    import torch
+
+    from xmris_tpu_torch import bench_inputs as bi
+    from xmris_tpu_torch.fitting.lm import (
+        external_to_internal,
+        hashable_pmap,
+        normal_eq_plan,
+    )
+    from xmris_tpu_torch.fitting.prior import prior_from_csv_text
+    from xmris_tpu_torch.ops.bounds import expand_params_batched
+    from xmris_tpu_torch.ops.kernels import lm_cuda, lm_jac_cuda, lm_loop_cuda
+
+    assert Path(lm_cuda.__file__).resolve().is_relative_to(Path(repo).resolve())
+    dev = torch.device("cuda", 0)
+    pk = prior_from_csv_text(bi.PK_CSV)
+    ps = hashable_pmap(pk.pmap)
+    fids, _, _ = bi.make_inputs((16, 16, 16))
+    b, nf = fids.shape[0], pk.n_free
+    rng = np.random.default_rng(0)
+    x = np.clip(pk.init_free[None] * rng.uniform(0.8, 1.2, (b, nf)),
+                pk.lower, pk.upper)
+    u0 = external_to_internal(x, pk.lower, pk.upper, pk.kind)
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    re, im, xs, u0 = f32(fids.real), f32(fids.imag), f32(x), f32(u0)
+    lo, hi = f32(pk.lower), f32(pk.upper)
+    kind = torch.as_tensor(pk.kind, device=dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    grids = expand_params_batched(xs, ps).contiguous()
+    dxdu = f32(rng.uniform(0.5, 1.5, (b, nf)))
+    mask = torch.arange(b, device=dev) % 3 != 0
+    outs = {}
+    for factored in (True, False):
+        plan = normal_eq_plan(ps, nf, bi.MHZ, factored)
+        for masked in (False, True):
+            c, g, h = lm_cuda.eq6_normal_equations(
+                grids, re, im, t, dxdu, plan,
+                voxel_mask=mask if masked else None)
+            keep = mask if masked else torch.ones_like(mask)
+            tag = f"K2 factored={factored} masked={masked}"
+            outs[f"{tag} cost"] = c[keep]
+            outs[f"{tag} g"] = g[keep]
+            outs[f"{tag} H"] = h[:, keep]
+    k, active = pk.n_peaks, normal_eq_plan(ps, nf, bi.MHZ, True).active
+    for tag, res in (
+        ("K7", lm_jac_cuda.eq6_normal_equations_v3(grids, re, im, t, k,
+                                                   bi.MHZ)),
+        ("K12", lm_jac_cuda.eq6_normal_equations_v5(grids, re, im, t, k,
+                                                    bi.MHZ, active)),
+    ):
+        for name, val in zip(("cost", "g", "H"), res):
+            outs[f"{tag} {name}"] = val
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
+    res = lm_loop_cuda.lm_loop_v10(u0, re, im, t, lo, hi, kind, plan, ps,
+                                   max_iter=24)
+    for name, val in zip(("u", "cost", "n_acc", "done", "H"), res):
+        outs[f"K8 {name}"] = val
+    torch.cuda.synchronize()
+    torch.save({n: v.cpu() for n, v in outs.items()}, out)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[0] == "--dump":
+        _dump(argv[1], argv[2])
+        return 0
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernel_builds: needs a CUDA device", file=sys.stderr)
+        return 2
+    other = str(Path(argv[0]).resolve())
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dumps = {}
+        for label, repo in (("this", str(ROOT)), ("other", other)):
+            out = str(Path(tmp) / f"{label}.pt")
+            subprocess.run([sys.executable, __file__, "--dump", repo, out],
+                           check=True, cwd=repo)
+            dumps[label] = torch.load(out)
+    failed = 0
+    for name, val in dumps["this"].items():
+        ref = dumps["other"][name]
+        same = val.shape == ref.shape and torch.equal(val, ref)
+        diff = "" if same else (
+            f" ({int((val != ref).sum())} of {val.numel()} entries differ)"
+            if val.shape == ref.shape else " (shapes differ)")
+        print(f"{name}: {'bit for bit' if same else 'DIFFERS'}{diff}")
+        failed += not same
+    print(f"{len(dumps['this']) - failed} of {len(dumps['this'])} outputs "
+          f"equal bit for bit to {other}'s build")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

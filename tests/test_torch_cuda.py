@@ -29,6 +29,7 @@ from xmris_tpu_torch.fitting.amares import (
 from xmris_tpu_torch.fitting.lm import (
     crlb_batched_pallas,
     hashable_pmap,
+    lm_fit_batched_pallas,
     normal_eq_plan,
     slab_to_bff,
 )
@@ -432,6 +433,126 @@ def test_jac_normal_equations_kernels_match_plain(dev, b):
     assert torch.equal(h5, h3[:, sel][:, :, sel])
 
 
+def _phys_inputs(dev, csv_text, b=37):
+    """Grids, planes and t of ``_normal_eq_inputs`` for the first ``b``
+    voxels, the prior's peak count, active rows and g == 0 flags."""
+    from xmris_tpu_torch.fitting.lm import active_param_rows, lorentzian_env_flags
+
+    ps, _, ins = _normal_eq_inputs(dev, csv_text)
+    grids, re, im, t = (a[:b].contiguous() if a.dim() == 2 else a
+                        for a in ins[:4])
+    return ((grids, re, im, t), ps[3], active_param_rows(ps),
+            lorentzian_env_flags(ps))
+
+
+def test_v1_v2_kernels_are_k7(dev):
+    """K14 and K13 launch K7's kernel: bit for bit K7, and within the
+    per-entry tolerance of their plain versions."""
+    ins, k, _, _ = _phys_inputs(dev, FREE_G_CSV)
+    c3, g3, h3 = lm_jac_cuda.eq6_normal_equations_v3(*ins, k, bi.MHZ)
+    for fn, plain in (
+        (lm_jac_cuda.eq6_normal_equations_v1,
+         lm_jac_cuda.eq6_normal_equations_v1_plain),
+        (lm_jac_cuda.eq6_normal_equations_v2,
+         lm_jac_cuda.eq6_normal_equations_v2_plain),
+    ):
+        c, g, h = fn(*ins, k, bi.MHZ)
+        assert torch.equal(c, c3) and torch.equal(g, g3) and torch.equal(h, h3)
+        _assert_normal_eq_close((c, g, h), plain(*ins, k, bi.MHZ))
+
+
+def test_v6_kernel_is_k12_on_unmasked_voxels(dev):
+    """K11 without a mask, and on the voxels its mask keeps, equals K12 bit
+    for bit; it matches its plain version per entry."""
+    ins, k, active, _ = _phys_inputs(dev, bi.PK_CSV)
+    b = ins[1].shape[0]
+    mask = torch.arange(b, device=dev) % 2 == 0
+    ref = lm_jac_cuda.eq6_normal_equations_v5(*ins, k, bi.MHZ, active)
+    full = lm_jac_cuda.eq6_normal_equations_v6(*ins, k, bi.MHZ, active)
+    part = lm_jac_cuda.eq6_normal_equations_v6(*ins, k, bi.MHZ, active,
+                                               voxel_mask=mask)
+    for a, f, p in zip(ref, full, part):
+        assert torch.equal(f, a) and torch.equal(p[mask], a[mask])
+    _assert_normal_eq_close(full, lm_jac_cuda.eq6_normal_equations_v6_plain(
+        *ins, k, bi.MHZ, active))
+
+
+@pytest.mark.parametrize("prior", ["bench", "free_g"])
+def test_v7_kernel_matches_plain(dev, prior):
+    """K10 (every basis factored on the bench prior; the angle only on the
+    free-g prior) against its plain version, and against K11 (the direct
+    basis, another rounding) at the same per-entry tolerance."""
+    ins, k, active, flags = _phys_inputs(
+        dev, bi.PK_CSV if prior == "bench" else FREE_G_CSV)
+    assert all(flags) == (prior == "bench")
+    got = lm_jac_cuda.eq6_normal_equations_v7(*ins, k, bi.MHZ, active, flags)
+    _assert_normal_eq_close(got, lm_jac_cuda.eq6_normal_equations_v7_plain(
+        *ins, k, bi.MHZ, active, flags))
+    _assert_normal_eq_close(got, lm_jac_cuda.eq6_normal_equations_v6(
+        *ins, k, bi.MHZ, active))
+
+
+def test_v8_kernel_matches_plain(dev):
+    """K9 on the bench prior (every g fixed at 0) against its plain version
+    and against K12 (the explicit Jacobian) per entry; masked voxels are
+    skipped, the others unchanged."""
+    ins, k, active, _ = _phys_inputs(dev, bi.PK_CSV)
+    got = lm_cuda.eq6_normal_equations_v8(*ins, k, bi.MHZ, active)
+    _assert_normal_eq_close(got, lm_cuda.eq6_normal_equations_v8_plain(
+        *ins, k, bi.MHZ, active))
+    _assert_normal_eq_close(got, lm_jac_cuda.eq6_normal_equations_v5(
+        *ins, k, bi.MHZ, active))
+    mask = torch.arange(ins[1].shape[0], device=dev) % 3 != 0
+    part = lm_cuda.eq6_normal_equations_v8(*ins, k, bi.MHZ, active,
+                                           voxel_mask=mask)
+    for a, p in zip(got, part):
+        assert torch.equal(p[mask], a[mask])
+
+
+def test_normal_equations_gate_skips_only_rejected_voxels(dev):
+    """K2 with ``cost_prev``: the cost bit for bit the ungated one on every
+    voxel, g and H on every voxel whose cost improved."""
+    ps, nf, ins = _normal_eq_inputs(dev, bi.PK_CSV)
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
+    c, g, h = lm_cuda.eq6_normal_equations(*ins, plan)
+    b = c.shape[0]
+    factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
+    c2, g2, h2 = lm_cuda.eq6_normal_equations(*ins, plan,
+                                              cost_prev=(c * factor).contiguous())
+    better = c2 < c * factor
+    assert torch.equal(c2, c) and 0 < int(better.sum()) < b
+    assert torch.equal(g2[better], g[better])
+    assert torch.equal(h2[:, better], h[:, better])
+
+
+@pytest.mark.parametrize("spd_pallas", [True, False])
+@pytest.mark.parametrize("version", [9, 10])
+def test_gated_lm_equals_the_open_lm(dev, version, spd_pallas):
+    """gate_rejects runs the v9 loop (K2 with its gate, never K8) on the
+    slab and the dense path, and the fit is the ungated one bit for bit."""
+    pk = prior_from_csv_text(bi.PK_CSV)
+    re, im, _, _ = _planes(dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    lo, hi = (torch.as_tensor(a.astype(np.float32), device=dev)
+              for a in (pk.lower, pk.upper))
+    kind = torch.as_tensor(pk.kind, device=dev)
+    x_t = torch.as_tensor(pk.init_free, dtype=torch.float32, device=dev)
+    amp_slots, ls_plan = seed_plan(pk)
+    ps = hashable_pmap(pk.pmap)
+    u0 = seed_grid(re, im, t, x_t, lo, hi, kind, pmap_static=ps, mhz=bi.MHZ,
+                   amp_slots=amp_slots, ls_plan=ls_plan)
+    args = (re, im, t, u0, lo, hi, kind, ps, bi.MHZ)
+    kw = dict(max_iter=24, spd_pallas=spd_pallas)
+    open_ = lm_fit_batched_pallas(*args, **kw)
+    K.reset_counters()
+    gated = lm_fit_batched_pallas(*args, **kw, kernel_version=version,
+                                  gate_rejects=True)
+    launches = K.counters()["launches"]
+    assert launches["eq6_normal_eq_v9"] > 0 and launches["lm_loop_v10"] == 0
+    for a, b in zip(gated, open_):
+        assert torch.equal(a, b)
+
+
 def test_lm_loop_v10_kernel_matches_plain(dev):
     """K8 against its plain twin on the seeded bench voxels: per voxel, x
     within rtol/atol 1e-4 and cost within rtol 1e-5
@@ -464,12 +585,13 @@ def test_lm_loop_v10_kernel_matches_plain(dev):
     assert torch.isfinite(h).all()
 
 
-@pytest.mark.parametrize("version", [10, 3, 5])
+@pytest.mark.parametrize("version", [10, 3, 5, 8, 6, 7, 2, 1])
 def test_grid_versions_run_on_the_kernels(dev, version):
-    """process_grid_planar_raw at kernel_version 10, 3 and 5 launches every
+    """process_grid_planar_raw at every kernel_version but 9 launches every
     kernel of its path (no plain version), recovers the phantom and lands
     within the reference's tolerances of the v9 grid
-    (``test_lm_pallas_v10.py`` for 10, ``test_lm_pallas.py:1363`` for 3/5)."""
+    (``test_lm_pallas_v10.py`` for 10, ``test_lm_pallas.py:1363`` for the
+    others)."""
     fids, weight, freqs = bi.make_inputs(GRID)
     pk = prior_from_csv_text(bi.PK_CSV)
     amp_slots, ls_plan = seed_plan(pk)
@@ -522,6 +644,28 @@ def test_fit_amares_v10_runs_on_the_kernels(dev):
                                    rtol=2e-3, atol=2e-3)
 
 
+def test_fit_amares_v8_runs_on_the_kernels(dev):
+    """fit_amares(kernel_version=8) launches K9, K6a and K6b only and
+    matches the v9 engine's maps."""
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    da = XmrArray(fids.reshape(GRID + (bi.N_TIME,)), dims=("x", "y", "z", "time"),
+                  coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+    pk = prior_from_csv_text(bi.PK_CSV)
+    K.reset_counters()
+    ds = fit_amares(da, pk, kernel_version=8, return_curves=False)
+    counts = K.counters()
+    path = K.PATHS["fit_amares_v8"]
+    for name in K.LAUNCHES:
+        assert (counts["launches"][name] > 0) == (name in path), name
+    assert not any(counts["plain_calls"].values())
+    assert ds["fit_converged"].values.all()
+    ds9 = fit_amares(da, pk, return_curves=False)
+    for name in ("amplitude", "chem_shift", "linewidth"):
+        np.testing.assert_allclose(ds[name].values, ds9[name].values,
+                                   rtol=2e-3, atol=2e-3)
+
+
 def test_dense_v9_path_runs_on_the_kernels(dev):
     """v9 without the kernel SPD solve (the dense path: K2's slab made
     dense, the plain ``spd_solve_small`` step, the plain inverse diagonal)
@@ -551,10 +695,10 @@ def test_dense_v9_path_runs_on_the_kernels(dev):
     torch.testing.assert_close(sds, sds2, rtol=2e-2, atol=1e-4)
 
 
-@pytest.mark.parametrize("version", [3, 5, 9, 10])
+@pytest.mark.parametrize("version", [1, 2, 3, 5, 6, 7, 8, 9, 10])
 def test_crlb_batched_pallas_runs_on_the_kernels(dev, version):
-    """crlb_batched_pallas on the card (K7, K12 or K2, then K6b) against the
-    same function on the plain versions."""
+    """crlb_batched_pallas on the card (the version's normal-equations
+    kernel, then K6b) against the same function on the plain versions."""
     pk = prior_from_csv_text(bi.PK_CSV)
     re, im, _, _ = _planes(dev)
     t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
@@ -568,8 +712,7 @@ def test_crlb_batched_pallas_runs_on_the_kernels(dev, version):
                                   kernel_version=version)
     torch.cuda.synchronize()
     counts = K.counters()
-    evals = {3: "eq6_normal_eq_v3", 5: "eq6_normal_eq_v5"}.get(
-        version, "eq6_normal_eq_v9")
+    evals = f"eq6_normal_eq_v{min(version, 9)}"
     for name in K.LAUNCHES:
         assert (counts["launches"][name] > 0) == (
             name in (evals, "spd_inverse_diag_dense")), name

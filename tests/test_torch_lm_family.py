@@ -1,6 +1,8 @@
 """The port's explicit-Jacobian LM path against the JAX package: the dense
 damped solve (K6a), the v3/v5 normal equations (K7/K12), the non-slab LM
-driver, ``crlb_batched_pallas`` and the ``kernel_version`` contract.
+driver, ``crlb_batched_pallas`` and the ``kernel_version`` contract (the
+other versions are held against the reference in
+``test_torch_lm_versions.py``).
 
 On the CPU each wrapper runs its plain version; the JAX side runs its
 Pallas kernels in interpret mode, as its own tests do.  Tolerances are the
@@ -34,7 +36,7 @@ from xmris_tpu.ops.kernels.lm_pallas import (
     eq6_normal_equations_pallas_v5,
 )
 
-from test_fitting import make_phantom
+from test_fitting import PK_CSV as FREE_G_CSV, make_phantom
 from test_lm_pallas import sane_grids
 
 from xmris_tpu_torch.fitting import amares as tam
@@ -275,10 +277,21 @@ def test_crlb_batched_pallas_matches_reference(tmp_path, version):
 # ---------------------------------------------------------------------------
 
 
+# kernel_version -> the normal-equations counter it takes on a Lorentzian
+# prior with n_t % 128 == 0 (the reference's _select_pallas_kernel).
+_VERSION_KERNEL = {1: "eq6_normal_eq_v1", 2: "eq6_normal_eq_v2",
+                   3: "eq6_normal_eq_v3", 5: "eq6_normal_eq_v5",
+                   6: "eq6_normal_eq_v6", 7: "eq6_normal_eq_v7",
+                   8: "eq6_normal_eq_v8", 9: "eq6_normal_eq_v9"}
+
+
 def test_kernel_version_contract(tmp_path):
-    """3, 5, 9 and 10 run; 1, 2, 6, 7 and 8 raise NotImplementedError naming
-    ROADMAP.md queue 2; 0 and 4 raise the reference's ValueError; 11 is the
-    whole-loop kernel, as the reference resolves every version >= 10."""
+    """Every version the reference accepts runs: 1-3 and 5-9 through the LM
+    driver, ``crlb_batched_pallas`` and ``seeded_fit_grid_raw``, each on
+    its own normal-equations kernel; 0 and 4 raise the reference's
+    ValueError; 11 is the whole-loop kernel, as the reference resolves
+    every version >= 10; ``gate_rejects`` runs.  The one refusal left is
+    the VARPRO override of a free-g prior (ROADMAP.md queue 1, item 6)."""
     pk, args, ps = _driver_inputs(tmp_path, n_voxels=2, n_points=128)
     targs = tuple(_t(a) for a in args)
     amp_slots, ls_plan = jam.seed_plan(pk)
@@ -288,15 +301,17 @@ def test_kernel_version_contract(tmp_path):
                  _t(pk.upper.astype(np.float32)), targs[6])
     seed_kw = dict(pmap_static=ps, mhz=MHZ, amp_slots=amp_slots,
                    ls_plan=ls_plan)
-    for v in (1, 2, 6, 7, 8):
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            tlm.lm_fit_batched_pallas(*targs, ps, MHZ, kernel_version=v)
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            tlm.crlb_batched_pallas(targs[0], targs[1], targs[2],
-                                    _t(pk.init_free), ps, MHZ,
-                                    kernel_version=v)
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            tam.seeded_fit_grid_raw(*seed_args, **seed_kw, kernel_version=v)
+    for v, kernel in _VERSION_KERNEL.items():
+        K.reset_counters()
+        res = tlm.lm_fit_batched_pallas(*targs, ps, MHZ, kernel_version=v)
+        sds, _ = tlm.crlb_batched_pallas(targs[0], targs[1], targs[2],
+                                         res.x_free, ps, MHZ, kernel_version=v)
+        x, _, conv, _ = tam.seeded_fit_grid_raw(*seed_args, **seed_kw,
+                                                kernel_version=v)
+        plain = K.counters()["plain_calls"]
+        assert [n for n in _VERSION_KERNEL.values() if plain[n]] == [kernel]
+        assert res.converged.all() and conv.all()
+        assert torch.isfinite(sds).all() and torch.isfinite(x).all()
     for v in (0, 4):
         with pytest.raises(ValueError) as ref_err:
             jlm._select_pallas_kernel(v, ps, 128)
@@ -314,8 +329,16 @@ def test_kernel_version_contract(tmp_path):
     with pytest.raises(ValueError, match="per-iteration v9"):
         tlm.lm_fit_batched_pallas(*targs, ps, MHZ, kernel_version=10,
                                   return_hessian="slab")
-    with pytest.raises(NotImplementedError, match="gate_rejects"):
-        tlm.lm_fit_batched_pallas(*targs, ps, MHZ, gate_rejects=True)
+    K.reset_counters()
+    gated = tlm.lm_fit_batched_pallas(*targs, ps, MHZ, gate_rejects=True)
+    assert K.counters()["plain_calls"]["eq6_normal_eq_v9"] > 0
+    assert gated.converged.all()
+    free_g, args_g, ps_g = _driver_inputs(tmp_path, csv=FREE_G_CSV, n_voxels=2,
+                                          n_points=128)
+    for v in (6, 8, 10):
+        with pytest.raises(NotImplementedError, match="VARPRO"):
+            tlm.lm_fit_batched_pallas(*(_t(a) for a in args_g), ps_g, MHZ,
+                                      kernel_version=v)
 
 
 def test_return_hessian_forms(tmp_path):

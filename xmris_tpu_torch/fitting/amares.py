@@ -456,8 +456,10 @@ def fit_amares(
     It runs on ``device``: the card unless the caller passes ``"cpu"``.
     ``engine`` maps one to one onto the reference's: ``"pallas"`` runs the
     hand-written kernels (``kernel_version`` 9: K2 normal equations and K3
-    damped SPD solve per LM iteration; 3 or 5: K7 or K12 and K6a; 10: the
-    whole fit in one K8 launch; the CRLB diagonal through K6b), ``"xla"``
+    damped SPD solve per LM iteration; 1, 2, 3, 5, 6, 7 or 8: K14, K13, K7,
+    K12, K11, K10 or K9 (resolved as the LM driver resolves them) and K6a;
+    10: the whole fit in one K8 launch; the CRLB diagonal through K6b),
+    ``"xla"``
     the pure-tensor planar LM with CRLBs from the analytic Jacobian,
     ``"auto"`` the kernels
     on a CUDA device and the pure-tensor LM on the CPU.  ``chunk_size=None``
@@ -467,9 +469,8 @@ def fit_amares(
 
     Not ported (``NotImplementedError``): ``mesh`` (ROADMAP.md queue 1,
     item 11), ``device_fids``/staged planes and priors with a free g (the
-    g scan and the VARPRO override; item 6), and kernel versions 1, 2, 6, 7
-    and 8 (queue 2).  ``g_scan`` is a no-op for fixed-g priors, as in the
-    reference.
+    g scan and the VARPRO override; item 6).  ``g_scan`` is a no-op for
+    fixed-g priors, as in the reference.
     """
     if mesh is not None:
         raise NotImplementedError(

@@ -12,10 +12,11 @@ PyTorch around the port's hand-written CUDA kernels:
   the Hessian kept in the voxel-minor slab layout throughout;
 * :func:`crlb_from_hessian_slab` — CRLBs from the carried Hessian (K4);
 * :func:`lm_fit_batched_pallas` — the public kernel LM (``fit_amares``'s),
-  with every branch of the reference driver that ``kernel_version`` and
-  ``spd_pallas`` select: the slab loop (v9, K2 + K3), the dense per-
-  iteration loop (v3 K7, v5 K12 or v9 K2, with the damped solve K6a or the
-  plain ``spd_solve_small``) and the whole-loop kernel (v10, K8);
+  with every branch of the reference's LM driver that ``kernel_version``,
+  ``spd_pallas`` and ``gate_rejects`` select: the slab loop (v9, K2 + K3),
+  the dense per-iteration loop (v1 K14, v2 K13, v3 K7, v5 K12, v6 K11, v7
+  K10, v8 K9 or v9 K2, with the damped solve K6a or the plain
+  ``spd_solve_small``) and the whole-loop kernel (v10, K8);
 * :func:`crlb_from_hessian` (K6b) and :func:`crlb_batched_pallas` — CRLBs
   from a dense Hessian, the latter from one normal-equations evaluation;
 * :func:`crlb_batched_planar` — CRLBs from the analytic Jacobian, the
@@ -47,6 +48,7 @@ from xmris_tpu_torch.ops.bounds import (
 )
 from xmris_tpu_torch.ops.kernels import DISPATCH
 from xmris_tpu_torch.ops.kernels.lm_cuda import NormalEqPlan
+from xmris_tpu_torch.ops.kernels.lm_jac_cuda import t_is_uniform as _t_is_uniform
 from xmris_tpu_torch.ops.kernels.spd import (
     spd_inverse_diag_small,
     spd_solve_small,
@@ -413,13 +415,16 @@ def lm_fit_batched_slab(
     ftol: float = 1e-10,
     plateau_streak: int = 3,
     uniform_t_ok: bool = False,
+    gate_rejects: bool = False,
 ):
     """Bounded LM over the grid on the normal-equations and SPD kernels.
 
     Port of the reference's ``_lm_fit_batched_pallas_impl`` on its v9 +
-    slab branch without the VARPRO override and the accept gate: one K2
-    evaluation per iteration returns (cost, g, H) at the trial point,
-    rejected steps keep the carried accepted-state H/g and only re-damp.
+    slab branch without the VARPRO override: one K2 evaluation per
+    iteration returns (cost, g, H) at the trial point, rejected steps keep
+    the carried accepted-state H/g and only re-damp.  ``gate_rejects``
+    passes the carried cost to K2 as its accept gate: a trial that does not
+    improve gets its cost only (the loop never selects its g and H).
 
     The reference loop runs while ``(i < max_iter) & ~all(done)``; this
     one reads ``done.all()`` on the host once per iteration, which gives
@@ -438,12 +443,13 @@ def lm_fit_batched_slab(
         pmap_static, n_free, mhz, uniform_t_ok and fids_re.shape[-1] % 128 == 0
     )
 
-    def full_eval(u, voxel_mask=None):
+    def full_eval(u, voxel_mask=None, cost_prev=None):
         x, dxdu = internal_to_external_torch(u, lower, upper, kind)
         grids = expand_params_batched(x, pmap_static)
         return kernels.normal_equations(
             grids.contiguous(), fids_re, fids_im, t, dxdu.contiguous(), plan,
             voxel_mask=voxel_mask,
+            cost_prev=cost_prev if gate_rejects else None,
         )
 
     u, cost, n_acc, done, h = _lm_loop(
@@ -470,11 +476,15 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
              plateau_streak):
     """The per-iteration LM loop of the reference driver.
 
-    ``full_eval(u, voxel_mask)`` returns ``(cost, g, h)`` at internal
-    ``u`` (voxels whose mask entry is False may come back unspecified),
-    ``solve(h, g, lam)`` the damped step; ``h`` has its voxels on axis
-    ``voxel_axis`` (1 for the slab, 0 for dense matrices).  Returns ``(u,
-    cost, n_acc, done, h)`` at the last accepted state.
+    ``full_eval(u, voxel_mask, cost_prev)`` returns ``(cost, g, h)`` at
+    internal ``u``: voxels whose mask entry is False may come back
+    unspecified, and (with an accept gate) so may the g and H of a voxel
+    whose cost is not below its ``cost_prev``.  Neither is ever selected:
+    every carried value is chosen by ``torch.where`` on ``ok``, which
+    requires an improving cost of a voxel that is not done.  ``solve(h, g,
+    lam)`` is the damped step; ``h`` has its voxels on axis ``voxel_axis``
+    (1 for the slab, 0 for dense matrices).  Returns ``(u, cost, n_acc,
+    done, h)`` at the last accepted state.
     """
     eps = torch.finfo(torch.float32).eps
     b = u.shape[0]
@@ -505,7 +515,7 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
             & solve_ok
         )
 
-        cost_t, g_t, h_t = full_eval(u_t, voxel_mask=~done)
+        cost_t, g_t, h_t = full_eval(u_t, voxel_mask=~done, cost_prev=cost)
         ok = torch.isfinite(cost_t) & (cost_t < cost) & ~done
         rel_drop = (cost - cost_t) / torch.clamp(cost, min=1e-30)
 
@@ -566,36 +576,13 @@ def slab_to_bff(h_slab, f: int):
     return h_slab.view(f, f, -1).permute(2, 0, 1).contiguous()
 
 
-def _t_is_uniform(t) -> bool:
-    """True when ``t`` is uniformly sampled to within 16 ulp of its dtype
-    at the largest |t| (the reference's test, same tolerance)."""
-    t_np = torch.as_tensor(t).detach().cpu().numpy()
-    eps = float(np.finfo(t_np.dtype).eps)
-    t_np = t_np.astype(np.float64)
-    if t_np.size < 3:
-        return True
-    dt = np.diff(t_np)
-    tol = 16.0 * eps * max(float(np.max(np.abs(t_np))), 1e-30)
-    return float(np.max(np.abs(dt - dt[0]))) <= tol
-
-
-# kernel_version -> the unported TPU kernel it names (ROADMAP.md queue 2).
-_UNPORTED_VERSIONS = {1: "K14", 2: "K13", 6: "K11", 7: "K10", 8: "K9"}
-
-
 def check_kernel_version(kernel_version: int) -> None:
-    """Accept the versions the port runs: 3 (K7), 5 (K12), 9 (K2) and 10 or
-    above (the whole-loop K8; its per-evaluation callers take K2, as the
-    reference's ``_select_pallas_kernel`` resolves them).  The reference's
-    other versions raise ``NotImplementedError``; a version that does not
-    exist raises the reference's ``ValueError``."""
-    if kernel_version in _UNPORTED_VERSIONS:
-        raise NotImplementedError(
-            f"kernel_version={kernel_version} "
-            f"({_UNPORTED_VERSIONS[kernel_version]}) is not ported yet; the "
-            "port runs 3, 5, 9 and 10 (see ROADMAP.md queue 2)"
-        )
-    if kernel_version not in (3, 5, 9) and kernel_version < 10:
+    """Accept the versions the reference accepts: 1-3 and 5-9 (the per-
+    iteration normal-equations kernels) and 10 or above (the whole-loop K8;
+    its per-evaluation callers take K2, as the reference's
+    ``_select_pallas_kernel`` resolves them).  Any other version raises the
+    reference's ``ValueError``."""
+    if kernel_version < 10 and kernel_version not in (1, 2, 3, 5, 6, 7, 8, 9):
         raise ValueError(
             f"kernel_version={kernel_version!r} does not exist; "
             "valid versions are 1-3 and 5-10 (9 is the default)"
@@ -628,15 +615,28 @@ def lm_fit_batched_pallas(
     """Bounded LM on the hand-written kernels (reference
     ``lm_fit_batched_pallas``, same signature and returns).
 
-    ``kernel_version`` 9 (default) evaluates with K2 each iteration, 3 with
-    K7 and 5 with K12; 10 (and above) runs the whole fit in one K8 launch.
-    The step of the per-iteration loop is K3 on the slab (v9 with
-    ``spd_pallas``), K6a on dense matrices (v3/v5 with ``spd_pallas``) or,
-    with ``spd_pallas=False``, the reference's plain ``spd_solve_small`` on
-    dense matrices.  The block-factored basis is used when ``t`` is uniform
-    (or ``require_uniform_t`` vouches for it).  The reference's ``v_tile``
-    and ``interpret`` (TPU tiling, Pallas interpret mode) have no
-    counterpart: tensors on the CPU take the kernels' plain versions.
+    ``kernel_version`` resolves as the reference's ``_select_pallas_kernel``
+    does: 9 (default) evaluates with K2 each iteration; 1 with K14, 2 with
+    K13 and 3 with K7 (one function, every physical row); 5 with K12, 6
+    with K11 (the active rows; K11 skips done voxels); 7 with K10 (K11 on
+    the block-factored basis) when ``n_t % 128 == 0``, else K11; 8 with K9
+    (three moments) when every g is fixed at 0, else K11; 10 and above run
+    the whole fit in one K8 launch.  The step of the per-iteration loop is
+    K3 on the slab (v9 with ``spd_pallas``), K6a on dense matrices (the
+    other versions with ``spd_pallas``) or, with ``spd_pallas=False``, the
+    reference's plain ``spd_solve_small`` on dense matrices.  The block-
+    factored basis of v9/v10 is used when ``t`` is uniform (or
+    ``require_uniform_t`` vouches for it).  Version 7 with
+    ``n_t % 128 == 0`` raises the reference's ``ValueError`` on a non-
+    uniform ``t``: the port's axis is always concrete, and the reference
+    checks a concrete axis whatever ``require_uniform_t`` says.
+
+    ``gate_rejects`` turns on K2's accept gate (v9): a trial whose cost does
+    not improve skips its moments, g and H.  At 10 and above it falls back
+    to the per-iteration v9 path, as in the reference.  Other versions
+    ignore it.  The reference's ``v_tile`` and ``interpret`` (TPU tiling,
+    Pallas interpret mode) have no counterpart: tensors on the CPU take the
+    kernels' plain versions.
 
     Returns the :class:`LMResult`, or with ``return_hessian=True``
     ``(LMResult, h_ext)``: the dense (B, F, F) external-space Gauss-Newton
@@ -645,14 +645,14 @@ def lm_fit_batched_pallas(
     ``return_hessian="slab"`` keeps it as the (F*F, B) slab (v9 with
     ``spd_pallas`` only) for :func:`crlb_from_hessian_slab`.
 
-    Not ported (``NotImplementedError``): the other kernel versions (K9-K11,
-    K13, K14; ROADMAP.md queue 2), ``gate_rejects`` and the VARPRO override
-    (on by default for free-g priors; queue 1 item 6).
+    Not ported (``NotImplementedError``): the VARPRO override (on by
+    default for free-g priors; ROADMAP.md queue 1 item 6).
     """
-    if gate_rejects:
-        raise NotImplementedError(
-            "gate_rejects (v9's per-tile accept gate) is not ported; see "
-            "ROADMAP.md queue 2"
+    t_uniform = _t_is_uniform(t)
+    if kernel_version == 7 and fids_re.shape[-1] % 128 == 0 and not t_uniform:
+        raise ValueError(
+            "kernel_version=7 requires a uniformly sampled time axis; "
+            "got non-uniform spacing. Use kernel_version=6/8 instead."
         )
     if varpro is None:
         varpro = auto_varpro(pmap_static)
@@ -660,10 +660,10 @@ def lm_fit_batched_pallas(
         fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
         kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=ftol,
         kernel_version=kernel_version, return_hessian=return_hessian,
-        uniform_t_ok=require_uniform_t or _t_is_uniform(t),
+        uniform_t_ok=require_uniform_t or t_uniform,
         plateau_streak=plateau_streak,
         varpro=bool(varpro) and varpro_plan(pmap_static) is not None,
-        spd_pallas=spd_pallas,
+        spd_pallas=spd_pallas, gate_rejects=gate_rejects,
     )
 
 
@@ -671,7 +671,7 @@ def _lm_fit_batched_pallas_impl(
     fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz: float, *,
     kernels, max_iter: int, lam0: float, ftol: float, kernel_version: int,
     return_hessian, uniform_t_ok: bool, plateau_streak: int, varpro: bool,
-    spd_pallas: bool,
+    spd_pallas: bool, gate_rejects: bool = False,
 ):
     """The driver's branches (reference ``_lm_fit_batched_pallas_impl``):
     the whole-loop K8, the slab loop, or the dense per-iteration loop."""
@@ -681,6 +681,9 @@ def _lm_fit_batched_pallas_impl(
             "the VARPRO override (priors with a free g) is not ported yet; "
             "see ROADMAP.md queue 1, item 6"
         )
+    if kernel_version >= 10 and gate_rejects:
+        # The accept gate is a launch-loop concept: the v9 loop runs.
+        kernel_version = 9
     if kernel_version >= 10:
         if return_hessian == "slab":
             raise ValueError(
@@ -707,6 +710,7 @@ def _lm_fit_batched_pallas_impl(
             fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
             kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=ftol,
             plateau_streak=plateau_streak, uniform_t_ok=uniform_t_ok,
+            gate_rejects=gate_rejects,
         )
         if return_hessian == "slab":
             return res, h_slab
@@ -718,12 +722,13 @@ def _lm_fit_batched_pallas_impl(
     evaluate = _dense_normal_equations(
         kernel_version, pmap_static, u.shape[-1], mhz,
         uniform_t_ok and re.shape[-1] % 128 == 0, kernels, re, im, t,
+        gate_rejects=gate_rejects,
     )
 
-    def full_eval(u, voxel_mask=None):
+    def full_eval(u, voxel_mask=None, cost_prev=None):
         x, dxdu = internal_to_external_torch(u, lo, hi, kind)
         return evaluate(expand_params_batched(x, pmap_static).contiguous(),
-                        dxdu.contiguous(), voxel_mask)
+                        dxdu.contiguous(), voxel_mask, cost_prev)
 
     solve = kernels.spd_solve_damped_dense if spd_pallas else _damped_solve_small
     u, cost, n_acc, done, h = _lm_loop(
@@ -734,35 +739,65 @@ def _lm_fit_batched_pallas_impl(
                                return_hessian)
 
 
+def _physical_normal_equations(kernel_version, pmap_static, n_t, mhz,
+                               kernels):
+    """The reference's ``_select_pallas_kernel`` for versions 1-8:
+    ``(evaluate, rows)`` with ``evaluate(grids, re, im, t, voxel_mask) ->
+    (cost, g, h)`` in physical space over ``rows`` (the prior's active
+    rows, or ``None`` for all 5K).  6, 7 and 8 take the voxel mask; 7 falls
+    back to K11 when ``n_t % 128 != 0``, 8 when a g is not fixed at 0.
+    The LM driver checked the time axis and the prior, so K10 and K9 skip
+    their host-side checks (``validate=False``)."""
+    n_peaks = int(pmap_static[3])
+    if kernel_version in (1, 2, 3):
+        fn = {1: kernels.normal_equations_v1, 2: kernels.normal_equations_v2,
+              3: kernels.normal_equations_v3}[kernel_version]
+        return (lambda grids, re, im, t, mask:
+                fn(grids, re, im, t, n_peaks, mhz)), None
+    active = active_param_rows(pmap_static)
+    flags = lorentzian_env_flags(pmap_static)
+    if kernel_version == 8 and all(flags):
+        return (lambda grids, re, im, t, mask: kernels.normal_equations_v8(
+            grids, re, im, t, n_peaks, mhz, active, voxel_mask=mask,
+            validate=False)), active
+    if kernel_version == 7 and n_t % 128 == 0:
+        return (lambda grids, re, im, t, mask: kernels.normal_equations_v7(
+            grids, re, im, t, n_peaks, mhz, active, flags, voxel_mask=mask,
+            validate=False)), active
+    if kernel_version >= 6:
+        return (lambda grids, re, im, t, mask: kernels.normal_equations_v6(
+            grids, re, im, t, n_peaks, mhz, active, voxel_mask=mask)), active
+    return (lambda grids, re, im, t, mask: kernels.normal_equations_v5(
+        grids, re, im, t, n_peaks, mhz, active)), active
+
+
 def _dense_normal_equations(kernel_version, pmap_static, n_free, mhz,
-                            factored, kernels, re, im, t):
-    """``evaluate(grids, dxdu, voxel_mask) -> (cost, g (B, F), h (B, F, F))``
-    in internal free space: K2 (v9, its slab made dense), or K7/K12 in
-    physical space folded by the scatter matrix and dx/du (the reference's
-    einsums, full float32 products outside the kernel)."""
+                            factored, kernels, re, im, t, gate_rejects=False):
+    """``evaluate(grids, dxdu, voxel_mask, cost_prev) -> (cost, g (B, F),
+    h (B, F, F))`` in internal free space: K2 (v9, its slab made dense;
+    ``cost_prev`` is its accept gate with ``gate_rejects``), or a physical-
+    space kernel of :func:`_physical_normal_equations` folded by the
+    scatter matrix and dx/du (the reference's einsums, full float32
+    products outside the kernel; ``cost_prev`` unused)."""
     if kernel_version >= 9:
         plan = normal_eq_plan(pmap_static, n_free, mhz, factored)
 
-        def evaluate(grids, dxdu, voxel_mask):
-            cost, g, h = kernels.normal_equations(grids, re, im, t, dxdu, plan,
-                                                  voxel_mask=voxel_mask)
+        def evaluate(grids, dxdu, voxel_mask, cost_prev=None):
+            cost, g, h = kernels.normal_equations(
+                grids, re, im, t, dxdu, plan, voxel_mask=voxel_mask,
+                cost_prev=cost_prev if gate_rejects else None)
             return cost, g, slab_to_bff(h, n_free)
 
         return evaluate
-    n_peaks = int(pmap_static[3])
+    phys, rows = _physical_normal_equations(kernel_version, pmap_static,
+                                            re.shape[-1], mhz, kernels)
     smat_np = _scatter_matrix(pmap_static, n_free)
-    if kernel_version == 5:
-        active = active_param_rows(pmap_static)
-        smat_np = smat_np[list(active), :]
+    if rows is not None:
+        smat_np = smat_np[list(rows), :]
     smat = torch.as_tensor(smat_np, dtype=torch.float32, device=re.device)
 
-    def evaluate(grids, dxdu, voxel_mask):
-        if kernel_version == 3:
-            cost, g_p, h_p = kernels.normal_equations_v3(grids, re, im, t,
-                                                         n_peaks, mhz)
-        else:
-            cost, g_p, h_p = kernels.normal_equations_v5(grids, re, im, t,
-                                                         n_peaks, mhz, active)
+    def evaluate(grids, dxdu, voxel_mask, cost_prev=None):
+        cost, g_p, h_p = phys(grids, re, im, t, voxel_mask)
         g = torch.einsum("bp,pf->bf", g_p, smat) * dxdu
         h = torch.einsum("pf,bpq,qh->bfh", smat, h_p, smat)
         h = h * dxdu[:, :, None] * dxdu[:, None, :]
@@ -831,9 +866,11 @@ def crlb_batched_pallas(fids_re, fids_im, t, x_free, pmap_static, mhz: float,
                         kernel_version: int = 9, *, kernels=DISPATCH):
     """CRLBs from one normal-equations evaluation at the optimum (reference
     ``crlb_batched_pallas``): the Gauss-Newton H at external ``x_free``
-    (K2 with a unit dx/du for 9 and above, the direct basis; K7/K12 folded
-    by the scatter matrix for 3/5), then :func:`crlb_from_hessian` (K6b).
-    Returns ``(sds (B, F), sigma2 (B,))``."""
+    (K2 with a unit dx/du for 9 and above, the direct basis; for 1-8 the
+    physical-space kernel the LM driver resolves, folded by the scatter
+    matrix), then :func:`crlb_from_hessian` (K6b).  As in the reference,
+    7 takes the block-factored K10 whenever ``n_t % 128 == 0``, with no
+    check that ``t`` is uniform.  Returns ``(sds (B, F), sigma2 (B,))``."""
     check_kernel_version(kernel_version)
     dtype = torch.float32
     re = fids_re.to(dtype).contiguous()

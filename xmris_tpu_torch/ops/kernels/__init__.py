@@ -10,8 +10,17 @@ K6a    ``spd.spd_solve_damped_dense``           ``spd.spd_solve_damped_pallas``
 K6b    ``spd.spd_inverse_diag_dense``           ``spd.spd_inverse_diag_pallas``
 K7     ``lm_jac_cuda.eq6_normal_equations_v3``  ``lm_pallas.eq6_normal_equations_pallas_v3``
 K8     ``lm_loop_cuda.lm_loop_v10``             ``lm_pallas.lm_loop_pallas_v10``
+K9     ``lm_cuda.eq6_normal_equations_v8``      ``lm_pallas.eq6_normal_equations_pallas_v8``
+K10    ``lm_jac_cuda.eq6_normal_equations_v7``  ``lm_pallas.eq6_normal_equations_pallas_v7``
+K11    ``lm_jac_cuda.eq6_normal_equations_v6``  ``lm_pallas.eq6_normal_equations_pallas_v6``
 K12    ``lm_jac_cuda.eq6_normal_equations_v5``  ``lm_pallas.eq6_normal_equations_pallas_v5``
+K13    ``lm_jac_cuda.eq6_normal_equations_v2``  ``lm_pallas.eq6_normal_equations_pallas_v2``
+K14    ``lm_jac_cuda.eq6_normal_equations_v1``  ``lm_pallas.eq6_normal_equations_pallas``
 =====  =======================================  ===============================================
+
+K13 and K14 launch K7's kernel (the same function), K11 and K10 K12's
+with a voxel mask (K10 on the block-factored basis), K9 K2's evaluation
+with an identity fold; each under its own counter.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors.  Code on the main paths takes its kernels from a
@@ -57,6 +66,11 @@ class KernelSet:
     normal_equations_v3: Callable
     normal_equations_v5: Callable
     lm_loop_v10: Callable
+    normal_equations_v8: Callable
+    normal_equations_v7: Callable
+    normal_equations_v6: Callable
+    normal_equations_v2: Callable
+    normal_equations_v1: Callable
 
 
 DISPATCH = KernelSet(
@@ -70,6 +84,11 @@ DISPATCH = KernelSet(
     normal_equations_v3=lm_jac_cuda.eq6_normal_equations_v3,
     normal_equations_v5=lm_jac_cuda.eq6_normal_equations_v5,
     lm_loop_v10=lm_loop_cuda.lm_loop_v10,
+    normal_equations_v8=lm_cuda.eq6_normal_equations_v8,
+    normal_equations_v7=lm_jac_cuda.eq6_normal_equations_v7,
+    normal_equations_v6=lm_jac_cuda.eq6_normal_equations_v6,
+    normal_equations_v2=lm_jac_cuda.eq6_normal_equations_v2,
+    normal_equations_v1=lm_jac_cuda.eq6_normal_equations_v1,
 )
 
 PLAIN = KernelSet(
@@ -83,10 +102,15 @@ PLAIN = KernelSet(
     normal_equations_v3=lm_jac_cuda.eq6_normal_equations_v3_plain,
     normal_equations_v5=lm_jac_cuda.eq6_normal_equations_v5_plain,
     lm_loop_v10=lm_loop_cuda.lm_loop_v10_plain,
+    normal_equations_v8=lm_cuda.eq6_normal_equations_v8_plain,
+    normal_equations_v7=lm_jac_cuda.eq6_normal_equations_v7_plain,
+    normal_equations_v6=lm_jac_cuda.eq6_normal_equations_v6_plain,
+    normal_equations_v2=lm_jac_cuda.eq6_normal_equations_v2_plain,
+    normal_equations_v1=lm_jac_cuda.eq6_normal_equations_v1_plain,
 )
 
 _FIT = ("eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag")
-# The non-slab LM's step and its dense CRLB (kernel_version 3 and 5).
+# The non-slab LM's step and its dense CRLB (kernel_version 1-3 and 5-8).
 _DENSE = ("spd_solve_damped_dense", "spd_inverse_diag_dense")
 
 # Entry point on the card -> the kernels it launches (counter names).
@@ -99,12 +123,14 @@ PATHS = {
     "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
                    "spd_inverse_diag_dense"),
     # process_grid_planar_raw, autophase="single", kernel_version=10, 3, 5
+    # and (the bench's Lorentzian prior, n_t % 128 == 0) 8, 6, 7, 2, 1
     "grid_single_pivot_v10": ("spectrum", "lm_loop_v10",
                               "spd_inverse_diag_dense"),
-    "grid_single_pivot_v3": ("spectrum", "eq6_normal_eq_v3") + _DENSE,
-    "grid_single_pivot_v5": ("spectrum", "eq6_normal_eq_v5") + _DENSE,
-    # fit_amares(kernel_version=10)
+    **{f"grid_single_pivot_v{v}": ("spectrum", f"eq6_normal_eq_v{v}") + _DENSE
+       for v in (3, 5, 8, 6, 7, 2, 1)},
+    # fit_amares(kernel_version=10), fit_amares(kernel_version=8)
     "fit_amares_v10": ("lm_loop_v10", "spd_inverse_diag_dense"),
+    "fit_amares_v8": ("eq6_normal_eq_v8",) + _DENSE,
 }
 
 __all__ = [

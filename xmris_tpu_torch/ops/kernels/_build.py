@@ -40,9 +40,12 @@ _SIGNATURES = {
     # xr, xi, window, f1t_re, f1t_im, twt_re, twt_im, f2_re, f2_im,
     # out_re, out_im, maxmag, maxidx, b, n_in, n_out, n2, with_maxmag, stream
     "xmt_spectrum": [_P] * 13 + [_I] * 5 + [_P],
-    # params, y_re, y_im, t, dxdu, mask, ints, scales, cost, g, h,
+    # params, y_re, y_im, t, dxdu, mask, cost_prev, ints, scales, cost, g, h,
     # b, n_t, n_peaks, n_free, n_rows, q_n, factored, w_cs_unit, stream
-    "xmt_eq6_normal_eq_v9": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "xmt_eq6_normal_eq_v9": [_P] * 12 + [_I] * 7 + [_F, _P],
+    # params, y_re, y_im, t, mask, ints, scales, cost, g, h, b, n_t, n_peaks,
+    # n_rows, w_cs_unit, stream
+    "xmt_eq6_normal_eq_v8": [_P] * 10 + [_I] * 4 + [_F, _P],
     # h, g, lam, out, b, f, stream
     "xmt_spd_solve_damped": [_P] * 4 + [_I] * 2 + [_P],
     # h, out, b, f, tikhonov, stream
@@ -51,9 +54,9 @@ _SIGNATURES = {
     "xmt_spd_inverse_diag_dense": [_P] * 2 + [_I] * 2 + [_P],
     # h (B, F, F), g, lam, out, b, f, stream
     "xmt_spd_solve_damped_dense": [_P] * 4 + [_I] * 2 + [_P],
-    # params, y_re, y_im, t, rows, cost, g, h, b, n_t, n_peaks, n_rows,
-    # w_cs_unit, stream
-    "xmt_eq6_normal_eq_jac": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # params, y_re, y_im, t, rows, mask, g_zero, cost, g, h, b, n_t, n_peaks,
+    # n_rows, factored, w_cs_unit, stream
+    "xmt_eq6_normal_eq_jac": [_P] * 10 + [_I] * 5 + [_F, _P],
     # u0, y_re, y_im, t, lo, hi, kind, pmap_idx, pmap_scale, pmap_offset,
     # ints, scales, u, cost, n_acc, done, h, trips, b, n_t, n_peaks, n_free,
     # n_rows, q_n, factored, w_cs_unit, lam0, ftol, max_iter,

@@ -195,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) lm_loop_v10_kernel(
         // ---- the trial's cost, g and H (K2's evaluation) ----
         v9_eval(s_par, s_dx, smem, y_re + v * n_t, y_im + v * n_t, st,
                 row_scale, &s_cost_t, s_gt, s_ht, 1, n_t, n_peaks, n_free,
-                n_rows, q_n, factored, w_cs_unit);
+                n_rows, q_n, factored, w_cs_unit, nullptr);
         __syncthreads();
         ++trips;
 

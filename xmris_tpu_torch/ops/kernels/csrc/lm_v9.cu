@@ -12,7 +12,12 @@
 // (see lm_v9_eval.cuh).  H is written in the port's voxel-minor slab layout
 // (F*F, B), so the SPD kernels read it coalesced.  Voxels whose mask entry
 // is 0 (done in the LM) return at once and leave their outputs unspecified:
-// the LM loop discards them.
+// the LM loop discards them.  The accept gate (`cost_prev`, optional): a
+// voxel whose trial cost is not below its previous accepted cost writes its
+// cost and skips the moments, g and H (left unspecified), the LM loop
+// taking only the cost of a rejected trial.  The reference gates per tile
+// of voxels, when no voxel of the tile improves; per voxel, the outputs the
+// loop consumes are the same.
 
 #include "lm_v9_eval.cuh"
 
@@ -25,6 +30,7 @@ __global__ void __launch_bounds__(kThreads) normal_eq_v9_kernel(
     const float* __restrict__ t,        // (n_t,)
     const float* __restrict__ dxdu,     // (B, F)
     const unsigned char* __restrict__ mask,  // (B,) or null
+    const float* __restrict__ cost_prev,     // (B,) or null
     Structure st,
     const float* __restrict__ row_scale,  // (A,)
     float* __restrict__ cost_out,        // (B,)
@@ -51,15 +57,16 @@ __global__ void __launch_bounds__(kThreads) normal_eq_v9_kernel(
     v9_eval(s_par, s_dx, smem, y_re + (long long)v * n_t,
             y_im + (long long)v * n_t, st, row_scale, cost_out + v,
             g_out + (long long)v * n_free, h_out + v, b, n_t, n_peaks,
-            n_free, n_rows, q_n, factored, w_cs_unit);
+            n_free, n_rows, q_n, factored, w_cs_unit,
+            cost_prev != nullptr ? cost_prev + v : nullptr);
 }
 
 }  // namespace
 
 extern "C" int xmt_eq6_normal_eq_v9(
     const float* params, const float* y_re, const float* y_im, const float* t,
-    const float* dxdu, const unsigned char* mask, const int* ints,
-    const float* row_scale, float* cost, float* g, float* h,
+    const float* dxdu, const unsigned char* mask, const float* cost_prev,
+    const int* ints, const float* row_scale, float* cost, float* g, float* h,
     int b, int n_t, int n_peaks, int n_free, int n_rows, int q_n,
     int factored, float w_cs_unit, void* stream) {
     const Structure st = unpack_structure(ints, n_rows, n_free);
@@ -71,8 +78,8 @@ extern "C" int xmt_eq6_normal_eq_v9(
     }
     if (b > 0) {
         normal_eq_v9_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
-            params, y_re, y_im, t, dxdu, mask, st, row_scale, cost, g, h, b,
-            n_t, n_peaks, n_free, n_rows, q_n, factored, w_cs_unit);
+            params, y_re, y_im, t, dxdu, mask, cost_prev, st, row_scale, cost,
+            g, h, b, n_t, n_peaks, n_free, n_rows, q_n, factored, w_cs_unit);
     }
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-// The v9 evaluation of one voxel (K2's body), shared by K2 (lm_v9.cu) and
-// the whole-loop LM kernel K8 (lm_v10.cu).
+// The v9 evaluation of one voxel (K2's body), shared by K2 (lm_v9.cu), the
+// whole-loop LM kernel K8 (lm_v10.cu) and the moment kernel K9 (lm_v8.cu);
+// the explicit-Jacobian kernels (lm_jac.cu) take its constants and the
+// block-factored basis tables (`factored_tables`).
 //
 // Every Jacobian row of the Eq.6 model is (z_0 + z_1 t + z_2 t^2) * B_k with
 // per-voxel complex coefficients z_d, so the Gram matrix J^T J collapses to
@@ -83,19 +85,72 @@ __device__ __forceinline__ int pair_index(int k, int kp, int n_peaks) {
     return k * n_peaks - (k * (k - 1)) / 2 + (kp - k);
 }
 
+// The tables of the block-factored basis (the reference's factored form,
+// lm_pallas.py:988-1026 and :1680-1727).  On a uniform axis with
+// n_t % 128 == 0, t[q*128 + r] = t[r] + t_q with t_q = t[q*128] - t[0], so
+// peak k's basis is F_q[k] * G_r[k] (complex), written here by all kThreads
+// threads of the block (the caller syncs after):
+//   gr (K x 128): e^{-d t_r} e^{i (w t_r + phi)} if g_zero[k], else
+//                 e^{i (w t_r + phi)} (the envelope stays per sample);
+//   fq (K x n_q): a e^{-d t_q} e^{i w t_q} if g_zero[k], else e^{i w t_q};
+// with d = pi lw and w = 2 pi MHz cs.  `t` may be shared or global memory.
+__device__ __forceinline__ void factored_tables(
+    const float* s_par, const float* t, const int* g_zero, int n_peaks,
+    int n_q, float w_cs_unit, float* s_gr_re, float* s_gr_im,
+    float* s_fq_re, float* s_fq_im) {
+    const int tid = threadIdx.x;
+    const float t0 = t[0];
+    for (int idx = tid; idx < n_peaks * kBlockT; idx += kThreads) {
+        const int k = idx / kBlockT;
+        const int r = idx % kBlockT;
+        const float d = kPi * s_par[k * 5 + 2];
+        const float w = w_cs_unit * s_par[k * 5 + 1];
+        const float ang = w * t[r] + s_par[k * 5 + 3] * kDeg;
+        float sn, cs;
+        sincosf(ang, &sn, &cs);
+        if (g_zero[k]) {
+            const float er = expf(-d * t[r]);
+            s_gr_re[idx] = er * cs;
+            s_gr_im[idx] = er * sn;
+        } else {
+            s_gr_re[idx] = cs;
+            s_gr_im[idx] = sn;
+        }
+    }
+    for (int idx = tid; idx < n_peaks * n_q; idx += kThreads) {
+        const int k = idx / n_q;
+        const int q = idx % n_q;
+        const float tq = t[q * kBlockT] - t0;
+        const float d = kPi * s_par[k * 5 + 2];
+        const float w = w_cs_unit * s_par[k * 5 + 1];
+        float sn, cs;
+        sincosf(w * tq, &sn, &cs);
+        if (g_zero[k]) {
+            const float fq = s_par[k * 5 + 0] * expf(-d * tq);
+            s_fq_re[idx] = fq * cs;
+            s_fq_im[idx] = fq * sn;
+        } else {
+            s_fq_re[idx] = cs;
+            s_fq_im[idx] = sn;
+        }
+    }
+}
+
 // One voxel's evaluation by the whole block of kThreads threads.  The
 // caller has written s_par (K*5 physical parameters), s_dx (F bound-
 // transform factors) and s_t (n_t samples) to shared memory and passed a
 // __syncthreads(); `smem` is the dynamic shared memory, s_t at its start.
 // y_re/y_im are the voxel's (n_t,) rows.  Writes the cost to *cost_out
 // (thread 0), g_f to g_out[f] and H(f, h) to h_out[(f*F + h) * h_stride].
+// With a non-null `cost_prev` (the accept gate) the moments, g and H are
+// skipped, and left unwritten, when the cost is not below *cost_prev.
 __device__ __forceinline__ void v9_eval(
     const float* s_par, const float* s_dx, float* smem,
     const float* __restrict__ y_re, const float* __restrict__ y_im,
     const Structure& st, const float* __restrict__ row_scale,
     float* cost_out, float* g_out, float* h_out, long long h_stride,
     int n_t, int n_peaks, int n_free, int n_rows, int q_n, int factored,
-    float w_cs_unit) {
+    float w_cs_unit, const float* cost_prev) {
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
@@ -123,41 +178,8 @@ __device__ __forceinline__ void v9_eval(
 
     // ---- 1. bases, model, residual, cost ----
     if (factored) {
-        const float t0 = s_t[0];
-        for (int idx = tid; idx < n_peaks * kBlockT; idx += kThreads) {
-            const int k = idx / kBlockT;
-            const int r = idx % kBlockT;
-            const float d = kPi * s_par[k * 5 + 2];
-            const float w = w_cs_unit * s_par[k * 5 + 1];
-            const float ang = w * s_t[r] + s_par[k * 5 + 3] * kDeg;
-            float sn, cs;
-            sincosf(ang, &sn, &cs);
-            if (st.g_zero[k]) {
-                const float er = expf(-d * s_t[r]);
-                s_gr_re[idx] = er * cs;
-                s_gr_im[idx] = er * sn;
-            } else {
-                s_gr_re[idx] = cs;
-                s_gr_im[idx] = sn;
-            }
-        }
-        for (int idx = tid; idx < n_peaks * n_q; idx += kThreads) {
-            const int k = idx / n_q;
-            const int q = idx % n_q;
-            const float tq = s_t[q * kBlockT] - t0;
-            const float d = kPi * s_par[k * 5 + 2];
-            const float w = w_cs_unit * s_par[k * 5 + 1];
-            float sn, cs;
-            sincosf(w * tq, &sn, &cs);
-            if (st.g_zero[k]) {
-                const float fq = s_par[k * 5 + 0] * expf(-d * tq);
-                s_fq_re[idx] = fq * cs;
-                s_fq_im[idx] = fq * sn;
-            } else {
-                s_fq_re[idx] = cs;
-                s_fq_im[idx] = sn;
-            }
-        }
+        factored_tables(s_par, s_t, st.g_zero, n_peaks, n_q, w_cs_unit,
+                        s_gr_re, s_gr_im, s_fq_re, s_fq_im);
         __syncthreads();
     }
 
@@ -217,6 +239,12 @@ __device__ __forceinline__ void v9_eval(
         float c = 0.f;
         for (int wi = 0; wi < kWarps; ++wi) c += s_red[wi];
         *cost_out = c;
+    }
+    if (cost_prev != nullptr) {
+        // Every thread sums s_red in thread 0's order: one uniform exit.
+        float c = 0.f;
+        for (int wi = 0; wi < kWarps; ++wi) c += s_red[wi];
+        if (!(c < *cost_prev)) return;
     }
 
     // ---- 2. moments: one warp per peak (N) or peak pair (M) ----

@@ -1,10 +1,18 @@
-"""K2: Eq.6 cost, free-space gradient and Gauss-Newton Hessian per voxel.
+"""K2 and K9: Eq.6 cost, gradient and Gauss-Newton Hessian per voxel from
+complex moments.
 
-Replaces ``xmris_tpu/ops/kernels/lm_pallas.py::eq6_normal_equations_pallas_v9``
-(with ``fold_slots``/``fold_scales``/``dxdu`` and ``slab_h=True``).  The CUDA
+K2 replaces ``xmris_tpu/ops/kernels/lm_pallas.py::eq6_normal_equations_pallas_v9``
+(with ``fold_slots``/``fold_scales``/``dxdu``, ``slab_h=True`` and the
+optional ``cost_prev`` accept gate): the free-space system.  The CUDA
 source is ``csrc/lm_v9.cu``; its header comment gives the bound on the
 H100 and the design.  :func:`eq6_normal_equations_plain` is the same
 function in plain PyTorch.
+
+K9 replaces ``eq6_normal_equations_pallas_v8``: the physical active rows of
+a purely Lorentzian prior (every g fixed at 0) from three moments, which is
+K2's evaluation with an identity fold and the direct basis
+(``csrc/lm_v8.cu``; :func:`eq6_normal_equations_v8_plain` the same in plain
+PyTorch, through K2's plain evaluation with that fold).
 
 Basis form: with ``plan.factored`` (uniform t, n_t % 128 == 0) both
 versions build the basis block-factored over 128-sample blocks, exactly as
@@ -111,9 +119,9 @@ def _check_inputs(params, y_re, y_im, t, dxdu, plan, voxel_mask):
         raise ValueError(
             f"params must be (B, {plan.n_peaks * 5}), got {tuple(params.shape)}"
         )
-    if dxdu.shape != (b, plan.n_free):
+    if dxdu is not None and dxdu.shape != (b, plan.n_free):
         raise ValueError(f"dxdu must be (B, {plan.n_free})")
-    tensors = (params, y_re, y_im, t, dxdu)
+    tensors = tuple(x for x in (params, y_re, y_im, t, dxdu) if x is not None)
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError("normal equations take float32 tensors")
     if any(x.device != y_re.device for x in tensors):
@@ -164,11 +172,12 @@ def _peak_basis(p, k, t, plan):
 
 
 def eq6_normal_equations_plain(params, y_re, y_im, t, dxdu, plan,
-                               voxel_mask=None):
+                               voxel_mask=None, cost_prev=None):
     """Plain-PyTorch K2; same contract as :func:`eq6_normal_equations`.
 
-    ``voxel_mask`` is accepted for interface parity and ignored: every
-    voxel is evaluated (the kernel leaves masked voxels unspecified).
+    ``voxel_mask`` and ``cost_prev`` are accepted for interface parity and
+    ignored: every voxel is evaluated in full (the kernel leaves masked and
+    gated voxels' outputs unspecified).
     """
     _counters.PLAIN_CALLS["eq6_normal_eq_v9"] += 1
     return normal_equations_plain_impl(params, y_re, y_im, t, dxdu, plan,
@@ -298,16 +307,19 @@ def check_plan(plan: NormalEqPlan, n_t: int) -> None:
         raise ValueError(f"n_t={n_t} needs {smem} B of shared memory")
 
 
-def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
+def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None,
+                         cost_prev=None):
     """K2: the plain version for CPU tensors, the CUDA kernel for CUDA ones.
 
     Returns ``(cost (B,), g (B, F), h (F*F, B))``.  Voxels whose
     ``voxel_mask`` entry is False are skipped by the kernel and their
-    outputs are unspecified.
+    outputs are unspecified.  With ``cost_prev`` (B,) (the accept gate) a
+    voxel whose cost is not below its ``cost_prev`` gets its cost and
+    unspecified g and H.
     """
     if y_re.device.type == "cpu":
         return eq6_normal_equations_plain(
-            params, y_re, y_im, t, dxdu, plan, voxel_mask
+            params, y_re, y_im, t, dxdu, plan, voxel_mask, cost_prev
         )
     if y_re.device.type != "cuda":
         raise ValueError(f"normal equations: unsupported device {y_re.device}")
@@ -315,6 +327,12 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
     tensors = (params, y_re, y_im, t, dxdu)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("normal equations: inputs must be contiguous")
+    if cost_prev is not None and (
+        cost_prev.shape != (b,) or cost_prev.dtype != torch.float32
+        or cost_prev.device != y_re.device or not cost_prev.is_contiguous()
+    ):
+        raise ValueError("cost_prev must be a contiguous (B,) float32 tensor "
+                         "on the device")
     check_plan(plan, n_t)
     n_rows = len(plan.active)
     ints, scales = _plan_tensors(plan, str(y_re.device))
@@ -326,6 +344,7 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
     err = _build.library().xmt_eq6_normal_eq_v9(
         params.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), t.data_ptr(),
         dxdu.data_ptr(), mask.data_ptr() if mask is not None else None,
+        cost_prev.data_ptr() if cost_prev is not None else None,
         ints.data_ptr(), scales.data_ptr(),
         cost.data_ptr(), g.data_ptr(), h.data_ptr(),
         b, n_t, plan.n_peaks, plan.n_free, n_rows, plan.q_n,
@@ -333,4 +352,95 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None):
     )
     _build.check("xmt_eq6_normal_eq_v9", err)
     _counters.LAUNCHES["eq6_normal_eq_v9"] += 1
+    return cost, g, h
+
+
+# ---------------------------------------------------------------------------
+# K9: the three-moment form (v8) on a purely Lorentzian prior
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _v8_plan(n_peaks: int, mhz: float, active: tuple[int, ...]):
+    """K2's plan with an identity fold over the active rows: one free slot
+    per row, scale 1, every g fixed at 0, the direct basis."""
+    return NormalEqPlan(
+        n_peaks=n_peaks, n_free=len(active), mhz=float(mhz), active=active,
+        g_zero=(True,) * n_peaks, fold_slots=tuple(range(len(active))),
+        fold_scales=(1.0,) * len(active), factored=False,
+    )
+
+
+def _check_v8(params, active, validate):
+    """The reference v8 wrapper's refusals: a free g row always; with
+    ``validate``, a g fixed at a nonzero value in ``params`` (a host read;
+    the LM driver selects v8 only for priors that fix every g at 0)."""
+    if any(j % 5 == 4 for j in active):
+        raise ValueError(
+            "v8 requires every g fixed (purely Lorentzian prior); "
+            "use kernel_version=6"
+        )
+    if validate:
+        g_cols = params[..., 4::5]
+        if g_cols.numel() and float(g_cols.abs().max()) != 0.0:
+            raise ValueError(
+                "v8 requires every g fixed AT 0 (purely Lorentzian "
+                "prior); this prior fixes g at a nonzero value — use "
+                "kernel_version=6 or 9"
+            )
+
+
+def eq6_normal_equations_v8_plain(params, y_re, y_im, t, n_peaks, mhz, active,
+                                  voxel_mask=None, validate=True):
+    """Plain K9: the three-moment form, through K2's plain evaluation with
+    the identity fold (its coefficients times exactly 1.0); every voxel is
+    evaluated.  Returns ``(cost (B,), g (B, A), h (B, A, A))``."""
+    _counters.PLAIN_CALLS["eq6_normal_eq_v8"] += 1
+    active = tuple(active)
+    _check_v8(params, active, validate)
+    plan = _v8_plan(int(n_peaks), float(mhz), active)
+    a = len(active)
+    ones = torch.ones((y_re.shape[0], a), dtype=torch.float32,
+                      device=y_re.device)
+    cost, g, h = normal_equations_plain_impl(params, y_re, y_im, t, ones, plan,
+                                             voxel_mask)
+    return cost, g, h.view(a, a, -1).permute(2, 0, 1).contiguous()
+
+
+def eq6_normal_equations_v8(params, y_re, y_im, t, n_peaks, mhz, active,
+                            voxel_mask=None, validate=True):
+    """K9: the plain version for CPU tensors, the CUDA kernel for CUDA ones.
+
+    Returns ``(cost (B,), g (B, A), h (B, A, A))`` over the ``active``
+    physical rows, as K12 does.  Voxels whose ``voxel_mask`` entry is False
+    are skipped by the kernel and their outputs are unspecified.  Raises
+    the reference's ``ValueError`` for a free g row and, with ``validate``,
+    for a g fixed at a nonzero value.
+    """
+    if y_re.device.type == "cpu":
+        return eq6_normal_equations_v8_plain(params, y_re, y_im, t, n_peaks,
+                                             mhz, active, voxel_mask, validate)
+    if y_re.device.type != "cuda":
+        raise ValueError(f"normal equations: unsupported device {y_re.device}")
+    active = tuple(active)
+    _check_v8(params, active, validate)
+    plan = _v8_plan(int(n_peaks), float(mhz), active)
+    a = len(active)
+    b, n_t = _check_inputs(params, y_re, y_im, t, None, plan, voxel_mask)
+    if not all(x.is_contiguous() for x in (params, y_re, y_im, t)):
+        raise ValueError("normal equations: inputs must be contiguous")
+    check_plan(plan, n_t)
+    ints, scales = _plan_tensors(plan, str(y_re.device))
+    mask = voxel_mask.contiguous() if voxel_mask is not None else None
+    cost = torch.empty((b,), dtype=torch.float32, device=y_re.device)
+    g = torch.empty((b, a), dtype=torch.float32, device=y_re.device)
+    h = torch.empty((b, a, a), dtype=torch.float32, device=y_re.device)
+    err = _build.library().xmt_eq6_normal_eq_v8(
+        params.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), t.data_ptr(),
+        mask.data_ptr() if mask is not None else None, ints.data_ptr(),
+        scales.data_ptr(), cost.data_ptr(), g.data_ptr(), h.data_ptr(),
+        b, n_t, plan.n_peaks, a, plan.w_cs_unit, _build.stream_ptr(y_re.device),
+    )
+    _build.check("xmt_eq6_normal_eq_v8", err)
+    _counters.LAUNCHES["eq6_normal_eq_v8"] += 1
     return cost, g, h
