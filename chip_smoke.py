@@ -15,7 +15,9 @@ and the script exits non-zero):
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
    version's, a single PyTorch call's where one computes the same function,
-   and its bound on the card (K6a bit for bit against its twin and K3; K8
+   and its bound on the card (K1 on both routes: the FFT kernel at the
+   bench shape, the split kernel at 768 -> 1536; K6a bit for bit against
+   its twin and K3; K8
    by the share of voxels within the reference's tolerances; K13 and K14
    bit for bit K7, K11 K12 on its unmasked voxels, K10 against K11 per
    entry; K2's accept gate: the cost bit for bit, g and H on the improving
@@ -335,6 +337,33 @@ def main(argv) -> int:
     if not torch.equal(ks[3].long(), kp[3].long()):
         raise AssertionError("K1: per-voxel argmax indices differ")
     print("   K1 argmax indices identical", flush=True)
+    if dft_cuda.route(bi.N_TIME, bi.ZERO_FILL) != "fft":
+        raise AssertionError("K1: the bench shape does not take the FFT route")
+    # K1's other kernel, the split, on a length the FFT does not take.
+    n_split = (768, 1536)
+    if dft_cuda.route(*n_split) != "split":
+        raise AssertionError("K1: 768 -> 1536 does not take the split route")
+    g_split = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn((4096, n_split[0]), device=dev, generator=g_split)
+          for _ in range(2)]
+    ws = torch.rand(n_split[0], device=dev, generator=g_split)
+    ks_s = dft_cuda.spectrum(*xs, n_split[1], window=ws, with_maxmag=True,
+                             stacked_out=True)
+    kp_s = dft_cuda.spectrum_plain(*xs, n_split[1], window=ws,
+                                   with_maxmag=True, stacked_out=True)
+    _sync()
+    scale_s = float(torch.maximum(kp_s[0].abs().max(), kp_s[1].abs().max()))
+    e1 = max(e1,
+             _assert_close("K1 split route (768 -> 1536) re", ks_s[0], kp_s[0],
+                           0.0, 1e-6 * scale_s),
+             _assert_close("K1 split route (768 -> 1536) im", ks_s[1], kp_s[1],
+                           0.0, 1e-6 * scale_s))
+    if not torch.equal(ks_s[3].long(), kp_s[3].long()):
+        raise AssertionError("K1 split route: per-voxel argmax indices differ")
+    print(f"   K1 split route argmax indices identical; split kernel "
+          f"{_time_ms(lambda: dft_cuda.spectrum(*xs, n_split[1], window=ws, with_maxmag=True), 10):.4f}"
+          f" ms for 4096 voxels at 768 -> 1536", flush=True)
+    del xs, ws, ks_s, kp_s
     z_win = torch.complex(re * win, im * win)
     n_in, n_out = bi.N_TIME, bi.ZERO_FILL
     report["spectrum"] = dict(

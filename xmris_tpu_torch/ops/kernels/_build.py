@@ -40,6 +40,9 @@ _SIGNATURES = {
     # xr, xi, window, f1t_re, f1t_im, twt_re, twt_im, f2_re, f2_im,
     # out_re, out_im, maxmag, maxidx, b, n_in, n_out, n2, with_maxmag, stream
     "xmt_spectrum": [_P] * 13 + [_I] * 5 + [_P],
+    # xr, xi, window, tw (n_out, 2), out_re, out_im, maxmag, maxidx, b, n_in,
+    # log2n, scale, with_maxmag, vec_load, stream
+    "xmt_spectrum_fft": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     # params, y_re, y_im, t, dxdu, mask, cost_prev, ints, scales, cost, g, h,
     # b, n_t, n_peaks, n_free, n_rows, q_n, factored, w_cs_unit, stream
     "xmt_eq6_normal_eq_v9": [_P] * 12 + [_I] * 7 + [_F, _P],

@@ -3,7 +3,11 @@
 Replaces ``xmris_tpu/ops/kernels/dft_pallas.py::spectrum_pallas`` (with
 ``with_maxmag`` and ``stacked_out``).  The CUDA source is
 ``csrc/spectrum.cu``; its header comment gives the bound on the H100 and
-the design.  :func:`spectrum_plain` is the same function in plain PyTorch
+the design.  It holds two kernels for one function: a shared-memory
+Stockham FFT for power-of-two ``n_out`` (256..8192) and the reference's
+Cooley-Tukey split for the other lengths :func:`pallas_split_ok` accepts;
+:func:`route` names the one a shape takes, and both count as ``spectrum``.
+:func:`spectrum_plain` is the same function in plain PyTorch
 (``torch.fft``), used for CPU tensors and as the reference on the card.
 """
 
@@ -34,6 +38,37 @@ def pallas_split_ok(n_in: int, n_out: int) -> bool:
         return False
     n2 = _pick_n2(n_in, n_out)
     return n_in % n2 == 0 and n_out % n2 == 0
+
+
+FFT_MIN, FFT_MAX = 256, 8192
+
+
+def route(n_in: int, n_out: int) -> str:
+    """The kernel a CUDA call takes for (n_in, n_out): ``"fft"`` when n_out
+    is a power of two in [256, 8192], else ``"split"``."""
+    pow2 = n_out > 0 and n_out & (n_out - 1) == 0
+    return "fft" if pow2 and FFT_MIN <= n_out <= FFT_MAX and n_in <= n_out \
+        else "split"
+
+
+def fft_plan(n_out: int) -> tuple[int, ...]:
+    """The FFT kernel's pass radices, in order: radix 8 while it divides,
+    then one radix-2 or radix-4 pass for the remaining factor."""
+    m = n_out.bit_length() - 1
+    return (8,) * (m // 3) + ((), (2,), (4,))[m % 3]
+
+
+@functools.lru_cache(maxsize=16)
+def fft_twiddles(n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """``e^(-2 pi i k / n_out)`` for k < n_out as float32 (cos, sin) planes,
+    computed in float64; entries within 1e-12 of 0 are exact zeros, so the
+    quarter turns multiply exactly."""
+    ang = -2.0 * np.pi * np.arange(n_out) / n_out
+    tables = []
+    for a in (np.cos(ang), np.sin(ang)):
+        a[np.abs(a) < 1e-12] = 0.0
+        tables.append(np.ascontiguousarray(a, dtype=np.float32))
+    return tables[0], tables[1]
 
 
 def stacked_spec_shape(n_in: int, n_out: int) -> tuple[int, int]:
@@ -72,13 +107,15 @@ def _factor_tables(n_in: int, n_out: int, n2: int) -> tuple[np.ndarray, ...]:
 _device_tables: dict = {}
 
 
-def _tables_on(device, n_in: int, n_out: int, n2: int):
-    key = (str(device), n_in, n_out, n2)
+def _tables_on(device, kind: str, *shape: int):
+    key = (str(device), kind) + shape
     if key not in _device_tables:
-        _device_tables[key] = tuple(
-            torch.as_tensor(a, device=device)
-            for a in _factor_tables(n_in, n_out, n2)
-        )
+        if kind == "split":
+            tables = _factor_tables(*shape)
+        else:  # one (n_out, 2) table of interleaved (cos, sin) pairs
+            tables = (np.stack(fft_twiddles(*shape), axis=1),)
+        _device_tables[key] = tuple(torch.as_tensor(a, device=device)
+                                    for a in tables)
     return _device_tables[key]
 
 
@@ -151,24 +188,37 @@ def spectrum(xr, xi, n_out: int, window=None, with_maxmag=False,
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError("spectrum: planes must be contiguous")
     b = xr.shape[0]
-    n2 = _pick_n2(n_in, n_out)
     if window is None:
         window = torch.ones(n_in, dtype=torch.float32, device=xr.device)
     window = window.contiguous()
-    tables = _tables_on(xr.device, n_in, n_out, n2)
     out_re = torch.empty((b, n_out), dtype=torch.float32, device=xr.device)
     out_im = torch.empty_like(out_re)
     mv = torch.empty((b,), dtype=torch.float32, device=xr.device)
     mi = torch.empty((b,), dtype=torch.int32, device=xr.device)
     lib = _build.library()
-    err = lib.xmt_spectrum(
-        xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
-        *(a.data_ptr() for a in tables),
-        out_re.data_ptr(), out_im.data_ptr(), mv.data_ptr(), mi.data_ptr(),
-        b, n_in, n_out, n2, int(bool(with_maxmag)),
-        _build.stream_ptr(xr.device),
-    )
-    _build.check("xmt_spectrum", err)
+    outs = (out_re.data_ptr(), out_im.data_ptr(), mv.data_ptr(), mi.data_ptr())
+    stream = _build.stream_ptr(xr.device)
+    if route(n_in, n_out) == "fft":
+        # 16-byte loads need 16-byte aligned rows of the planes and window.
+        vec = n_in % 4 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (xr, xi, window))
+        err = lib.xmt_spectrum_fft(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
+            *(a.data_ptr() for a in _tables_on(xr.device, "fft", n_out)),
+            *outs, b, n_in, n_out.bit_length() - 1,
+            float(np.float32(1.0 / math.sqrt(n_out))), int(bool(with_maxmag)),
+            int(vec), stream,
+        )
+        _build.check("xmt_spectrum_fft", err)
+    else:
+        n2 = _pick_n2(n_in, n_out)
+        err = lib.xmt_spectrum(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
+            *(a.data_ptr() for a in _tables_on(xr.device, "split", n_in,
+                                               n_out, n2)),
+            *outs, b, n_in, n_out, n2, int(bool(with_maxmag)), stream,
+        )
+        _build.check("xmt_spectrum", err)
     _counters.LAUNCHES["spectrum"] += 1
     shaped = _shape_outputs(out_re, out_im, n_in, n_out, stacked_out)
     return shaped + (mv, mi) if with_maxmag else shaped
