@@ -16,7 +16,9 @@ and the script exits non-zero):
    tolerance printed beside the error, and each one's time, its plain
    version's, a single PyTorch call's where one computes the same function,
    and its bound on the card (K1 on both routes: the FFT kernel at the
-   bench shape, the split kernel at 768 -> 1536; K6a bit for bit against
+   bench shape and at 500 -> 1024, which has no split, the split kernel at
+   768 -> 1536; the dense route, not a kernel, at 1000 -> 1500 against the
+   plain version with its own counter; K6a bit for bit against
    its twin and K3; K8
    by the share of voxels within the reference's tolerances; K13 and K14
    bit for bit K7, K11 K12 on its unmasked voxels, K10 against K11 per
@@ -364,6 +366,37 @@ def main(argv) -> int:
           f"{_time_ms(lambda: dft_cuda.spectrum(*xs, n_split[1], window=ws, with_maxmag=True), 10):.4f}"
           f" ms for 4096 voxels at 768 -> 1536", flush=True)
     del xs, ws, ks_s, kp_s
+    # A zero-fill without a split: 500 -> 1024 on K1's FFT route, and
+    # 1000 -> 1500 on the dense route (a matmul, not K1), each against the
+    # plain version; the dense route counts apart from K1.
+    for (n_a, n_b), want in (((500, 1024), "fft"), ((1000, 1500), "dense")):
+        if dft_cuda.route(n_a, n_b) != want or dft_cuda.pallas_split_ok(n_a, n_b):
+            raise AssertionError(f"{n_a} -> {n_b} does not take the {want} route")
+        xs = [torch.randn((4096, n_a), device=dev, generator=g_split)
+              for _ in range(2)]
+        ws = torch.rand(n_a, device=dev, generator=g_split)
+        K.reset_counters()
+        ks_s = dft_cuda.spectrum(*xs, n_b, window=ws, with_maxmag=True)
+        _sync()
+        counts = K.counters()["launches"]
+        kp_s = dft_cuda.spectrum_plain(*xs, n_b, window=ws, with_maxmag=True)
+        _sync()
+        if (counts["spectrum"], counts["spectrum_dense"]) != (
+                (1, 0) if want == "fft" else (0, 1)):
+            raise AssertionError(f"{n_a} -> {n_b}: launches {counts}")
+        scale_s = float(torch.maximum(kp_s[0].abs().max(), kp_s[1].abs().max()))
+        err = max(_assert_close(f"{want} route ({n_a} -> {n_b}) re", ks_s[0],
+                                kp_s[0], 0.0, 1e-6 * scale_s),
+                  _assert_close(f"{want} route ({n_a} -> {n_b}) im", ks_s[1],
+                                kp_s[1], 0.0, 1e-6 * scale_s))
+        if not torch.equal(ks_s[3].long(), kp_s[3].long()):
+            raise AssertionError(f"{want} route: per-voxel argmax indices differ")
+        if want == "fft":
+            e1 = max(e1, err)
+        print(f"   {want} route ({n_a} -> {n_b}, 4096 voxels): argmax identical, "
+              f"{_time_ms(lambda: dft_cuda.spectrum(*xs, n_b, window=ws, with_maxmag=True), 10):.4f}"
+              f" ms", flush=True)
+        del xs, ws, ks_s, kp_s
     z_win = torch.complex(re * win, im * win)
     n_in, n_out = bi.N_TIME, bi.ZERO_FILL
     report["spectrum"] = dict(
@@ -1201,7 +1234,7 @@ def main(argv) -> int:
          "bound_ms": report[name]["bound"][0],
          "bound_by": report[name]["bound"][1],
          "library_ms": report[name]["library_ms"]}
-        for name in K.LAUNCHES
+        for name in replaces
     ]
     print(json.dumps({"ms_per_grid": ms, "voxels_per_s": b / (ms / 1e3),
                       **{f"ms_per_grid_v{v}": grid_ms[v] for v in versions},

@@ -16,11 +16,13 @@ predicted-decrease exit and the done test), so that each voxel runs all
 max_iter + 1 trips whatever its changed arithmetic does to the trajectory,
 and compares with "all trips", the source as built under the same change:
 
-* "solve skipped": no factorization or substitution after the first trip;
-  each trial takes the step of the trip before;
+* "solve skipped": no factorization or substitution after the first trip
+  (whose step is zero), so every trial takes that step again;
 * "evaluation skipped": no v9 evaluation; the trial's cost is NaN, so no
-  trial is accepted (the carried H stays zero);
-* the kernel's own factorization and solve against one warp's.
+  trial is accepted (the carried H stays zero).
+
+The difference between "all trips" and each of the other two is the time
+of that stage.
 
 For each variant the script prints registers and spills, the time of one
 launch (CUDA events, mean of 3 after a warm-up call), the evaluations it
@@ -47,32 +49,6 @@ ALL_TRIPS = [
     ("        __syncthreads();\n        if (done) break;",
      "        __syncthreads();"),
 ]
-FACTOR_BLOCK = """        for (int k = 0; k < n_free; ++k) {
-            float dk = s_L[tri(k, k)];
-            __syncthreads();  // every thread has the pivot before it changes
-            dk = dk > 0.f ? dk : NAN;
-            const float inv = __fdiv_rn(1.f, __fsqrt_rn(dk));
-            for (int i = k + tid; i < n_free; i += kThreads)
-                s_L[tri(i, k)] = __fmul_rn(s_L[tri(i, k)], inv);
-            __syncthreads();"""
-FACTOR_WARP = """        for (int k = 0; k < (tid < 32 ? n_free : 0); ++k) {
-            float dk = s_L[tri(k, k)];
-            __syncwarp();  // every lane has the pivot before it changes
-            dk = dk > 0.f ? dk : NAN;
-            const float inv = __fdiv_rn(1.f, __fsqrt_rn(dk));
-            for (int i = k + tid; i < n_free; i += 32)
-                s_L[tri(i, k)] = __fmul_rn(s_L[tri(i, k)], inv);
-            __syncwarp();"""
-FACTOR_BLOCK_TAIL = """            for (int e = tid; e < m * (m + 1) / 2; e += kThreads) {"""
-FACTOR_WARP_TAIL = """            for (int e = tid; e < m * (m + 1) / 2; e += 32) {"""
-FACTOR_BLOCK_END = """                    s_L[tri(i, j)], __fmul_rn(s_L[tri(i, k)], s_L[tri(j, k)]));
-            }
-            __syncthreads();
-        }"""
-FACTOR_WARP_END = """                    s_L[tri(i, j)], __fmul_rn(s_L[tri(i, k)], s_L[tri(j, k)]));
-            }
-            __syncwarp();
-        }"""
 EVAL_CALL = """        v9_eval(s_par, s_dx, smem, y_re + v * n_t, y_im + v * n_t, st,
                 row_scale, &s_cost_t, s_gt, s_ht, 1, n_t, n_peaks, n_free,
                 n_rows, q_n, factored, w_cs_unit, nullptr);"""
@@ -82,18 +58,11 @@ VARIANTS = {
     "as built": [],
     "all trips": ALL_TRIPS,
     "all trips, solve skipped": ALL_TRIPS + [
-        ("        for (int k = 0; k < n_free; ++k) {\n            float dk",
-         "        for (int k = 0; k < (it == 0 ? n_free : 0); ++k) {\n"
-         "            float dk"),
-        ("        if (tid == 0) {\n            float y[kMaxFree];",
-         "        if (tid == 0 && it == 0) {\n            float y[kMaxFree];"),
+        ("        if (tid < 32)\n            warp_factor_solve_any(",
+         "        if (tid < 32 && it == 0)\n            warp_factor_solve_any("),
     ],
     "all trips, evaluation skipped": ALL_TRIPS + [
         (EVAL_CALL, "        if (tid == 0) s_cost_t = NAN;"),
-    ],
-    "all trips, factor by one warp": ALL_TRIPS + [
-        (FACTOR_BLOCK, FACTOR_WARP), (FACTOR_BLOCK_TAIL, FACTOR_WARP_TAIL),
-        (FACTOR_BLOCK_END, FACTOR_WARP_END),
     ],
 }
 
@@ -170,7 +139,6 @@ def main() -> int:
     loop_args = (u0, re, im, t_d, lower, upper, kind, plan, ps)
     lib = kb.library()
     entries = dict(vars(lib))
-    per_eval = {}
     try:
         for name, (fn, regs) in fns.items():
             kb._lib = types.SimpleNamespace(**dict(entries, xmt_lm_loop_v10=fn))
@@ -189,9 +157,8 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end) / 3
-            per_eval[name] = 1e6 * ms / trips
             print(f"{name}: {ms:.4f} ms; {trips} evaluations; "
-                  f"{per_eval[name]:.4f} ns per evaluation; {regs}",
+                  f"{1e6 * ms / trips:.4f} ns per evaluation; {regs}",
                   flush=True)
     finally:
         kb._lib = lib

@@ -305,6 +305,20 @@ def test_unported_autophase_options_raise(phantom_grid):
         tph.autophase(da, method="entropy", optimizer="grid", device="cpu")
 
 
+def test_scipy_in_mode_all_raises_the_reference_value_error(phantom_grid):
+    """scipy is single-mode only: mode="all" refuses it with the
+    reference's ValueError and message, before any check of what is not
+    ported."""
+    _, ref_da, da = phantom_grid
+    with pytest.raises(ValueError) as ref_err:
+        jph.autophase(ref_da, mode="all", optimizer="scipy")
+    for method in ("acme", "peak_minima"):
+        with pytest.raises(ValueError) as port_err:
+            tph.autophase(da, mode="all", optimizer="scipy", method=method,
+                          device="cpu")
+        assert str(port_err.value) == str(ref_err.value)
+
+
 # ---------------------------------------------------------------------------
 # The per-grid program with per-voxel autophase
 # ---------------------------------------------------------------------------

@@ -145,6 +145,25 @@ def test_spectrum_split_route_matches_plain(dev):
         re, im, 1536, window=win, with_maxmag=True, stacked_out=True))
 
 
+@pytest.mark.parametrize("n_in,n_out,want", [
+    (500, 1024, "fft"), (1020, 2048, "fft"), (1000, 1500, "dense"),
+    (500, 1500, "dense")])
+def test_spectrum_without_a_split_matches_plain(dev, n_in, n_out, want):
+    """Zero-fills that have no Cooley-Tukey split: a power-of-two output on
+    K1's FFT kernel, the others on the dense route (a float32 matmul, its
+    own counter, no K1 launch), each against the plain version."""
+    assert dft_cuda.route(n_in, n_out) == want
+    assert not dft_cuda.pallas_split_ok(n_in, n_out)
+    re, im, win = _random_planes(dev, 37, n_in)
+    K.reset_counters()
+    got = dft_cuda.spectrum(re, im, n_out, window=win, with_maxmag=True)
+    launches = K.counters()["launches"]
+    assert (launches["spectrum"], launches["spectrum_dense"]) == (
+        (1, 0) if want == "fft" else (0, 1))
+    _assert_spectrum_close(got, dft_cuda.spectrum_plain(
+        re, im, n_out, window=win, with_maxmag=True))
+
+
 def test_spectrum_fft_zero_row_and_tied_maxima(dev):
     """An all-zero row gives a zero spectrum, peak 0 at index 0; a row
     alternating 2, 0 has |X| equal at k = 0 and k = n/2 (stored at n/2 and
@@ -506,6 +525,52 @@ def test_jac_normal_equations_kernels_match_plain(dev, b):
     assert torch.equal(c5, c3)
     assert torch.equal(g5, g3[:, sel])
     assert torch.equal(h5, h3[:, sel][:, :, sel])
+
+
+def _wide_jac_inputs(dev, n_rows, n_t, b=37):
+    """Physical grids, planes and t for the explicit-Jacobian kernel at R =
+    ``n_rows``: the bench prior's active rows (20), its 5 peaks' rows (25),
+    or 8 peaks (the 5 and copies of the first 3 moved by 0.5 ppm; 40 rows).
+    ``n_t`` < 1024 cuts the axis (a ragged last chunk)."""
+    ps, _, ins = _normal_eq_inputs(dev, bi.PK_CSV)
+    grids, re, im, t = (a[:b] if a.dim() == 2 else a for a in ins[:4])
+    k = 5
+    rows = tuple(range(25))
+    if n_rows == 20:
+        from xmris_tpu_torch.fitting.lm import active_param_rows
+
+        rows = tuple(active_param_rows(ps))
+    elif n_rows == 40:
+        extra = grids[:, :15].clone().view(b, 3, 5)
+        extra[:, :, 1] += 0.5
+        grids = torch.cat([grids, extra.reshape(b, 15)], 1)
+        k, rows = 8, tuple(range(40))
+    assert len(rows) == n_rows
+    re, im, t = re[:, :n_t], im[:, :n_t], t[:n_t]
+    return (grids.contiguous(), re.contiguous(), im.contiguous(),
+            t.contiguous()), k, rows
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_t", [1000, 1024])
+@pytest.mark.parametrize("n_rows", [20, 25, 40])
+def test_tiled_jac_kernel_matches_plain(dev, n_rows, n_t, masked):
+    """The register-tiled explicit-Jacobian kernel at R = 20, 25 and 40 (one,
+    one and three tile rounds a lane), on a uniform (1024) and a ragged
+    (1000) axis: against its plain twin per entry, and, masked (K11), equal
+    bit for bit to the unmasked launch on the voxels the mask keeps."""
+    ins, k, rows = _wide_jac_inputs(dev, n_rows, n_t)
+    b = ins[1].shape[0]
+    full = lm_jac_cuda.eq6_normal_equations_v5(*ins, k, bi.MHZ, rows)
+    torch.cuda.synchronize()
+    _assert_normal_eq_close(full, lm_jac_cuda.eq6_normal_equations_v5_plain(
+        *ins, k, bi.MHZ, rows))
+    if masked:
+        keep = torch.arange(b, device=dev) % 3 != 1
+        part = lm_jac_cuda.eq6_normal_equations_v6(*ins, k, bi.MHZ, rows,
+                                                   voxel_mask=keep)
+        for x, y in zip(part, full):
+            assert torch.equal(x[keep], y[keep])
 
 
 def _phys_inputs(dev, csv_text, b=37):

@@ -217,6 +217,24 @@ def test_fit_amares_matches_the_oracle(oracle_fit, field, var, tol):
         np.testing.assert_allclose(vals[:, i], want, err_msg=m, **tol)
 
 
+def test_fit_amares_mesh_auto_is_no_mesh_on_one_device(bench_fits):
+    """``mesh="auto"`` resolves to no mesh on the CPU, as the reference
+    resolves it on one device: the same dataset as ``mesh=None``; any
+    other string raises the reference's ValueError."""
+    out, path = bench_fits
+    ref_da, port_da = _grid_arrays()
+    got = fit_amares(port_da, path, engine="xla", device="cpu", mesh="auto")
+    want = out["xla"][1]
+    assert set(got.data_vars) == set(want.data_vars)
+    for name in want.data_vars:
+        np.testing.assert_array_equal(np.asarray(got[name].values),
+                                      np.asarray(want[name].values))
+    with pytest.raises(ValueError, match="mesh='bogus'"):
+        ref_fit_amares(ref_da, path, engine="xla", mesh="bogus")
+    with pytest.raises(ValueError, match="mesh='bogus'"):
+        fit_amares(port_da, path, device="cpu", mesh="bogus")
+
+
 def test_fit_amares_unported_options_raise(bench_fits, tmp_path):
     _, path = bench_fits
     _, da = _grid_arrays()

@@ -467,15 +467,26 @@ def fit_amares(
     4096 on the tensor engine.  ``kernels`` selects the kernel wrappers
     (default) or their plain versions.
 
-    Not ported (``NotImplementedError``): ``mesh`` (ROADMAP.md queue 1,
-    item 11), ``device_fids``/staged planes and priors with a free g (the
+    ``mesh="auto"`` on the CPU or on one CUDA device is no mesh, as in
+    the reference; another string raises ``ValueError``.  Not ported
+    (``NotImplementedError``): a mesh or device count, and ``"auto"`` on
+    several CUDA devices (ROADMAP.md queue 1, item 11), ``device_fids``/
+    staged planes and priors with a free g (the
     g scan and the VARPRO override; item 6).  ``g_scan`` is a no-op for
     fixed-g priors, as in the reference.
     """
+    # The reference's mesh resolution: "auto" is no mesh on one device.
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(
+                f"mesh={mesh!r}: expected a mesh, a device count, 'auto', "
+                "or None.")
+        if torch.device(device).type == "cpu" or torch.cuda.device_count() <= 1:
+            mesh = None
     if mesh is not None:
         raise NotImplementedError(
-            "fit_amares(mesh=...) is not ported yet; see ROADMAP.md queue 1, "
-            "item 11")
+            "fit_amares(mesh=...) over several devices is not ported yet; "
+            "see ROADMAP.md queue 1, item 11")
     if device_fids is not None:
         raise NotImplementedError(
             "fit_amares(device_fids=...) (staged planes) is not ported; see "

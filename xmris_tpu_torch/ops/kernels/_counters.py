@@ -11,7 +11,9 @@ NAMES = ("spectrum", "eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag",
          "acme_polish", "spd_inverse_diag_dense", "spd_solve_damped_dense",
          "eq6_normal_eq_v3", "eq6_normal_eq_v5", "lm_loop_v10",
          "eq6_normal_eq_v8", "eq6_normal_eq_v7", "eq6_normal_eq_v6",
-         "eq6_normal_eq_v2", "eq6_normal_eq_v1")
+         "eq6_normal_eq_v2", "eq6_normal_eq_v1",
+         # K1's dense route: plain PyTorch (a matmul), not a kernel
+         "spectrum_dense")
 
 LAUNCHES: dict[str, int] = {n: 0 for n in NAMES}
 PLAIN_CALLS: dict[str, int] = {n: 0 for n in NAMES}

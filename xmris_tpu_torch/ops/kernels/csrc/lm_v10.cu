@@ -16,16 +16,26 @@
 // one v9 evaluation (a few hundred kFLOP) and one F^3/3 factorization per
 // trip, and most voxels retire after a few trips: fp32 issue-bound.
 // Design: one block of 256 threads per voxel, the whole LM state in shared
-// memory for the life of the fit.  The factorization runs across the block
-// (each of the F steps scales column k, then updates the trailing triangle,
-// one packed entry per thread, every entry with the same sequence of
-// correctly rounded operations as K3's serial loop, so the factor is K3's
-// bit for bit); thread 0 runs the two substitutions (`solve_with_factor`,
-// shared with K3).  The scalar state (cost, lambda, streak, counts, done) is
-// computed identically by every thread from shared values, so the trip loop
-// and the early exit of a done voxel are uniform across the block.  A done
-// voxel stops at once: the reference keeps stepping a tile until all of its
-// voxels are done, but a done voxel's outputs no longer change.
+// memory for the life of the fit.  The damped factorization and both
+// substitutions run in warp 0 alone, in registers (lane i holds row i of
+// the factor; `warp_factor_solve`, its loops unrolled over the free count
+// rounded up to a multiple of 4, so that no branch separates the
+// independent shuffles of a column), synchronised by shuffles: no block
+// barrier inside, where the block-wide design it replaced took 3 block
+// barriers a column and left both substitutions to one thread while 255
+// waited (half of the time of a trip, scripts/ablate_lm_v10.py; about a
+// third now, the v9 evaluation most of the rest).  Every entry still sees K3's
+// sequence of correctly rounded operations in K3's order: the outer-product
+// updates of column k, the forward substitution by columns (each y_i takes
+// its subtractions j = 0..i-1 in order), and the back substitution in K3's
+// serial order (x_i = (y_i - L_{i+1,i} x_{i+1} - ...) / L_ii, the products
+// formed by their lanes, the differences by lane i), so the factor, the
+// step and the whole fit are K3's, and the v9 loop's, bit for bit.  The
+// scalar state (cost, lambda, streak, counts, done) is computed identically
+// by every thread from shared values, so the trip loop and the early exit
+// of a done voxel are uniform across the block.  A done voxel stops at
+// once: the reference keeps stepping a tile until all of its voxels are
+// done, but a done voxel's outputs no longer change.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,6 +47,93 @@ namespace {
 
 constexpr int kBoth = 0, kLower = 1, kUpper = 2;  // bound kinds; 3 is free
 constexpr float kEps64 = 64.f * 1.1920928955078125e-07f;  // 64 * FLT_EPSILON
+constexpr unsigned kFull = 0xffffffffu;
+
+// The damped Cholesky solve of the carried system by one warp (K3's
+// arithmetic in K3's order; see the header), on kF >= n_free rows: lane i
+// holds row i of L(i, j) = A[j][i], j <= i, the diagonal damped; rows
+// n_free..kF-1 are the identity and their right-hand side 0, which leaves
+// every operation on the first n_free rows as it is (their updates come
+// after, and subtract exact zeros).  Every loop has kF trips, with no
+// branch, so the independent shuffles of a column issue together.  Writes
+// the step to s_delta, whether it is finite to *s_ok, and the predicted
+// decrease sum_i g_i delta_i (in order; 0 terms for a failed solve) to
+// *s_pred.
+template <int kF>
+__device__ __forceinline__ void warp_factor_solve(
+    const float* s_h, const float* s_g, float lam, int n_free, float* s_delta,
+    int* s_ok, float* s_pred) {
+    const int lane = threadIdx.x & 31;
+    const bool real = lane < n_free;
+    float a[kF];
+#pragma unroll
+    for (int j = 0; j < kF; ++j) {
+        const float x = (j <= lane && real) ? s_h[j * n_free + lane] : 0.f;
+        a[j] = (j == lane) ? (real ? damp(x, lam) : 1.f) : x;
+    }
+    // Factor: column k scaled by 1/sqrt(pivot), then the trailing update.
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+        float dk = __shfl_sync(kFull, a[k], k);
+        dk = dk > 0.f ? dk : NAN;
+        const float inv = __fdiv_rn(1.f, __fsqrt_rn(dk));
+        if (lane >= k) a[k] = __fmul_rn(a[k], inv);
+#pragma unroll
+        for (int j = k + 1; j < kF; ++j) {
+            const float ljk = __shfl_sync(kFull, a[k], j);
+            if (lane >= j) a[j] = __fsub_rn(a[j], __fmul_rn(a[k], ljk));
+        }
+    }
+    // Forward substitution L y = g, by columns.
+    const float g_own = real ? s_g[lane] : 0.f;
+    float acc = g_own, y = 0.f;
+#pragma unroll
+    for (int j = 0; j < kF; ++j) {
+        if (lane == j) y = __fdiv_rn(acc, a[j]);
+        const float yj = __shfl_sync(kFull, y, j);
+        if (lane > j) acc = __fsub_rn(acc, __fmul_rn(a[j], yj));
+    }
+    // Back substitution L^T x = y in K3's order: lane j > i forms
+    // L(j, i) x_j, lane i subtracts them for j = i+1, i+2, ...
+    float x = 0.f;
+#pragma unroll
+    for (int i = kF - 1; i >= 0; --i) {
+        const float p = __fmul_rn(a[i], x);
+        float acc_b = y;
+#pragma unroll
+        for (int j = i + 1; j < kF; ++j)
+            acc_b = __fsub_rn(acc_b, __shfl_sync(kFull, p, j));
+        if (lane == i) x = __fdiv_rn(acc_b, a[i]);
+    }
+    const int ok = __all_sync(kFull, !real || isfinite(x)) ? 1 : 0;
+    const float pg = __fmul_rn(g_own, ok ? x : 0.f);
+    float pred = 0.f;
+#pragma unroll
+    for (int i = 0; i < kF; ++i)
+        pred = __fadd_rn(pred, __shfl_sync(kFull, pg, i));
+    if (real) s_delta[lane] = x;
+    if (lane == 0) {
+        *s_ok = ok;
+        *s_pred = pred;
+    }
+}
+
+// warp_factor_solve on n_free rows padded to a multiple of 4.
+__device__ __forceinline__ void warp_factor_solve_any(
+    const float* s_h, const float* s_g, float lam, int n_free, float* s_delta,
+    int* s_ok, float* s_pred) {
+    switch ((n_free + 3) / 4) {
+#define XMT_SOLVE_CASE(q)                                                  \
+    case q:                                                                \
+        warp_factor_solve<4 * q>(s_h, s_g, lam, n_free, s_delta, s_ok,     \
+                                 s_pred);                                  \
+        break;
+        XMT_SOLVE_CASE(1) XMT_SOLVE_CASE(2) XMT_SOLVE_CASE(3)
+        XMT_SOLVE_CASE(4) XMT_SOLVE_CASE(5) XMT_SOLVE_CASE(6)
+        XMT_SOLVE_CASE(7) XMT_SOLVE_CASE(8)
+#undef XMT_SOLVE_CASE
+    }
+}
 
 // External value and dx/du of internal u (ops.bounds.internal_to_external
 // with every product and sum rounded on its own, in the torch version's
@@ -63,7 +160,7 @@ __device__ __forceinline__ void to_external(float u, float lo, float hi,
     }
 }
 
-__global__ void __launch_bounds__(kThreads) lm_loop_v10_kernel(
+__global__ void __launch_bounds__(kThreads, 4) lm_loop_v10_kernel(
     const float* __restrict__ u0,       // (B, F) internal seed
     const float* __restrict__ y_re,     // (B, n_t)
     const float* __restrict__ y_im,
@@ -88,7 +185,6 @@ __global__ void __launch_bounds__(kThreads) lm_loop_v10_kernel(
     const long long v = blockIdx.x;
     const int tid = threadIdx.x;
     const int ff = n_free * n_free;
-    const int n_tri = n_free * (n_free + 1) / 2;
 
     extern __shared__ float smem[];
     float* s_t = smem;  // n_t, then v9_eval's work area
@@ -102,8 +198,8 @@ __global__ void __launch_bounds__(kThreads) lm_loop_v10_kernel(
     __shared__ float s_delta[kMaxFree];
     __shared__ float s_h[kMaxFree * kMaxFree];   // accepted H, row-major
     __shared__ float s_ht[kMaxFree * kMaxFree];  // trial H
-    __shared__ float s_L[kMaxFree * (kMaxFree + 1) / 2];
     __shared__ float s_cost_t;
+    __shared__ float s_pred;
     __shared__ int s_solve_ok;
 
     for (int i = tid; i < n_t; i += kThreads) s_t[i] = t[i];
@@ -120,57 +216,15 @@ __global__ void __launch_bounds__(kThreads) lm_loop_v10_kernel(
     bool done = false;
 
     for (int it = 0; it <= max_iter; ++it) {
-        // ---- damped Cholesky of the carried H: L(i, j) = A[j][i], i >= j ----
-        for (int e = tid; e < n_tri; e += kThreads) {
-            int i = 0, rem = e;
-            while (rem > i) {
-                rem -= i + 1;
-                ++i;
-            }
-            const float a = s_h[rem * n_free + i];
-            s_L[e] = (i == rem) ? damp(a, lam) : a;
-        }
-        __syncthreads();
-        for (int k = 0; k < n_free; ++k) {
-            float dk = s_L[tri(k, k)];
-            __syncthreads();  // every thread has the pivot before it changes
-            dk = dk > 0.f ? dk : NAN;
-            const float inv = __fdiv_rn(1.f, __fsqrt_rn(dk));
-            for (int i = k + tid; i < n_free; i += kThreads)
-                s_L[tri(i, k)] = __fmul_rn(s_L[tri(i, k)], inv);
-            __syncthreads();
-            const int m = n_free - k - 1;
-            for (int e = tid; e < m * (m + 1) / 2; e += kThreads) {
-                int ii = 0, jj = e;
-                while (jj > ii) {
-                    jj -= ii + 1;
-                    ++ii;
-                }
-                const int i = k + 1 + ii, j = k + 1 + jj;
-                s_L[tri(i, j)] = __fsub_rn(
-                    s_L[tri(i, j)], __fmul_rn(s_L[tri(i, k)], s_L[tri(j, k)]));
-            }
-            __syncthreads();
-        }
-        if (tid == 0) {
-            float y[kMaxFree];
-            solve_with_factor(s_L, n_free, [&](int i) { return s_g[i]; }, y);
-            int ok = 1;
-            for (int i = 0; i < n_free; ++i) {
-                s_delta[i] = y[i];
-                ok &= isfinite(y[i]) ? 1 : 0;
-            }
-            s_solve_ok = ok;
-        }
+        // ---- damped Cholesky solve of the carried H/g (warp 0) ----
+        if (tid < 32)
+            warp_factor_solve_any(s_h, s_g, lam, n_free, s_delta,
+                                  &s_solve_ok, &s_pred);
         __syncthreads();
 
         // ---- predicted-decrease exit, before the trial is paid for ----
         const bool solve_ok = s_solve_ok != 0;
-        float pred = 0.f;
-        for (int i = 0; i < n_free; ++i)
-            pred = __fadd_rn(pred,
-                             __fmul_rn(s_g[i], solve_ok ? s_delta[i] : 0.f));
-        const float pred_rel = __fdiv_rn(pred, fmaxf(cost, 1e-30f));
+        const float pred_rel = __fdiv_rn(s_pred, fmaxf(cost, 1e-30f));
         if (pred_rel >= 0.f && pred_rel <= kEps64 && lam < lam0 && solve_ok) {
             done = true;
             break;  // the trial could not be accepted: the state is final

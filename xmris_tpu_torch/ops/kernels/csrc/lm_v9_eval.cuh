@@ -88,19 +88,20 @@ __device__ __forceinline__ int pair_index(int k, int kp, int n_peaks) {
 // The tables of the block-factored basis (the reference's factored form,
 // lm_pallas.py:988-1026 and :1680-1727).  On a uniform axis with
 // n_t % 128 == 0, t[q*128 + r] = t[r] + t_q with t_q = t[q*128] - t[0], so
-// peak k's basis is F_q[k] * G_r[k] (complex), written here by all kThreads
-// threads of the block (the caller syncs after):
+// peak k's basis is F_q[k] * G_r[k] (complex), written here by the caller's
+// threads `tid` of `n_threads` (the caller syncs after):
 //   gr (K x 128): e^{-d t_r} e^{i (w t_r + phi)} if g_zero[k], else
 //                 e^{i (w t_r + phi)} (the envelope stays per sample);
 //   fq (K x n_q): a e^{-d t_q} e^{i w t_q} if g_zero[k], else e^{i w t_q};
 // with d = pi lw and w = 2 pi MHz cs.  `t` may be shared or global memory.
+// Each entry's arithmetic is the same whatever the split (K2 passes the
+// block, the explicit-Jacobian kernel one warp).
 __device__ __forceinline__ void factored_tables(
     const float* s_par, const float* t, const int* g_zero, int n_peaks,
     int n_q, float w_cs_unit, float* s_gr_re, float* s_gr_im,
-    float* s_fq_re, float* s_fq_im) {
-    const int tid = threadIdx.x;
+    float* s_fq_re, float* s_fq_im, int tid, int n_threads) {
     const float t0 = t[0];
-    for (int idx = tid; idx < n_peaks * kBlockT; idx += kThreads) {
+    for (int idx = tid; idx < n_peaks * kBlockT; idx += n_threads) {
         const int k = idx / kBlockT;
         const int r = idx % kBlockT;
         const float d = kPi * s_par[k * 5 + 2];
@@ -117,7 +118,7 @@ __device__ __forceinline__ void factored_tables(
             s_gr_im[idx] = sn;
         }
     }
-    for (int idx = tid; idx < n_peaks * n_q; idx += kThreads) {
+    for (int idx = tid; idx < n_peaks * n_q; idx += n_threads) {
         const int k = idx / n_q;
         const int q = idx % n_q;
         const float tq = t[q * kBlockT] - t0;
@@ -179,7 +180,7 @@ __device__ __forceinline__ void v9_eval(
     // ---- 1. bases, model, residual, cost ----
     if (factored) {
         factored_tables(s_par, s_t, st.g_zero, n_peaks, n_q, w_cs_unit,
-                        s_gr_re, s_gr_im, s_fq_re, s_fq_im);
+                        s_gr_re, s_gr_im, s_fq_re, s_fq_im, tid, kThreads);
         __syncthreads();
     }
 

@@ -6,7 +6,12 @@ Replaces ``xmris_tpu/ops/kernels/dft_pallas.py::spectrum_pallas`` (with
 the design.  It holds two kernels for one function: a shared-memory
 Stockham FFT for power-of-two ``n_out`` (256..8192) and the reference's
 Cooley-Tukey split for the other lengths :func:`pallas_split_ok` accepts;
-:func:`route` names the one a shape takes, and both count as ``spectrum``.
+both count as ``spectrum``.  :func:`route` names the route a shape takes,
+from the shapes alone: ``"fft"``, ``"split"``, or ``"dense"`` for every
+other zero-fill.  The dense route (:func:`spectrum_dense`, its own counter
+``spectrum_dense``) is plain PyTorch, as the reference computes those
+shapes outside any Pallas kernel (its XLA DFT, ``ops/kernels/dft.py``): one
+float32 matmul against the rectangular fftshifted ortho DFT matrix.
 :func:`spectrum_plain` is the same function in plain PyTorch
 (``torch.fft``), used for CPU tensors and as the reference on the card.
 """
@@ -44,11 +49,19 @@ FFT_MIN, FFT_MAX = 256, 8192
 
 
 def route(n_in: int, n_out: int) -> str:
-    """The kernel a CUDA call takes for (n_in, n_out): ``"fft"`` when n_out
-    is a power of two in [256, 8192], else ``"split"``."""
+    """The route a CUDA call takes for (n_in, n_out), n_out >= n_in:
+    ``"fft"`` when n_out is a power of two in [256, 8192] (split or not),
+    else ``"split"`` when :func:`pallas_split_ok`, else ``"dense"``.
+    Raises ``ValueError`` when ``n_out < n_in``."""
+    if n_out < n_in:
+        raise ValueError(
+            f"(n_in={n_in}, n_out={n_out}): n_out < n_in; the spectrum only "
+            "zero-fills, and no route (FFT, Cooley-Tukey split or dense) "
+            "truncates")
     pow2 = n_out > 0 and n_out & (n_out - 1) == 0
-    return "fft" if pow2 and FFT_MIN <= n_out <= FFT_MAX and n_in <= n_out \
-        else "split"
+    if pow2 and FFT_MIN <= n_out <= FFT_MAX:
+        return "fft"
+    return "split" if pallas_split_ok(n_in, n_out) else "dense"
 
 
 def fft_plan(n_out: int) -> tuple[int, ...]:
@@ -112,6 +125,8 @@ def _tables_on(device, kind: str, *shape: int):
     if key not in _device_tables:
         if kind == "split":
             tables = _factor_tables(*shape)
+        elif kind == "dense":
+            tables = (_dense_matrix(*shape),)
         else:  # one (n_out, 2) table of interleaved (cos, sin) pairs
             tables = (np.stack(fft_twiddles(*shape), axis=1),)
         _device_tables[key] = tuple(torch.as_tensor(a, device=device)
@@ -119,7 +134,7 @@ def _tables_on(device, kind: str, *shape: int):
     return _device_tables[key]
 
 
-def _check_inputs(xr, xi, n_out, window):
+def _check_inputs(xr, xi, n_out, window, stacked_out=False):
     if xr.dim() != 2 or xi.shape != xr.shape:
         raise ValueError(
             f"xr/xi must be matching (B, n_in) planes, got {tuple(xr.shape)} "
@@ -130,10 +145,12 @@ def _check_inputs(xr, xi, n_out, window):
     if xi.device != xr.device:
         raise ValueError("xr and xi must be on the same device")
     n_in = xr.shape[1]
-    if not pallas_split_ok(n_in, n_out):
+    route(n_in, n_out)  # raises for n_out < n_in
+    if stacked_out and not pallas_split_ok(n_in, n_out):
         raise ValueError(
-            f"(n_in={n_in}, n_out={n_out}) has no Cooley-Tukey split: "
-            "need n_out >= n_in and an even n2 >= 8 dividing both"
+            f"the stacked layout needs a Cooley-Tukey split of (n_in={n_in}, "
+            f"n_out={n_out}): an even n2 >= 8 dividing both; use the flat "
+            "layout"
         )
     if window is not None:
         if window.shape != (n_in,) or window.dtype != torch.float32:
@@ -159,7 +176,7 @@ def spectrum_plain(xr, xi, n_out: int, window=None, with_maxmag=False,
     (B,) float32 and its first flat index (B,) int32.
     """
     _counters.PLAIN_CALLS["spectrum"] += 1
-    n_in = _check_inputs(xr, xi, n_out, window)
+    n_in = _check_inputs(xr, xi, n_out, window, stacked_out)
     if window is not None:
         xr = xr * window
         xi = xi * window
@@ -174,9 +191,53 @@ def spectrum_plain(xr, xi, n_out: int, window=None, with_maxmag=False,
     return shaped + (mv, mi.to(torch.int32))
 
 
+def _dense_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Block-complex (2 n_in, 2 n_out) float32 matrix of the zero-filled
+    ortho DFT with fftshifted columns, computed in float64: ``[x_re | x_im]
+    @ M = [S_re | S_im]`` (the reference's ``_rect_shifted_block_matrix``;
+    :func:`_tables_on` keeps it on the device)."""
+    j = np.arange(n_in)[:, None]
+    k = (np.arange(n_out)[None, :] - n_out // 2) % n_out
+    ang = -2.0 * np.pi * j * k / n_out
+    scale = 1.0 / math.sqrt(n_out)
+    fr, fi = np.cos(ang) * scale, np.sin(ang) * scale
+    top = np.concatenate([fr, fi], axis=1)
+    bot = np.concatenate([-fi, fr], axis=1)
+    return np.concatenate([top, bot], axis=0).astype(np.float32)
+
+
+def spectrum_dense(xr, xi, n_out: int, window=None, with_maxmag=False,
+                   stacked_out=False):
+    """The dense route: window, zero-fill, ortho DFT and fftshift as one
+    float32 matmul (no TF32) against :func:`_dense_matrix`, then each
+    voxel's max |X|^2 and its first index.  Plain PyTorch on any device;
+    :func:`spectrum` takes it on the card for the shapes :func:`route`
+    names ``"dense"``.  Same contract as :func:`spectrum_plain`."""
+    n_in = _check_inputs(xr, xi, n_out, window, stacked_out)
+    if window is not None:
+        xr = xr * window
+        xi = xi * window
+    (matrix,) = _tables_on(xr.device, "dense", n_in, n_out)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = torch.matmul(torch.cat([xr, xi], dim=1), matrix)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _counters.LAUNCHES["spectrum_dense"] += 1
+    out_re = out[:, :n_out].contiguous()
+    out_im = out[:, n_out:].contiguous()
+    shaped = _shape_outputs(out_re, out_im, n_in, n_out, stacked_out)
+    if not with_maxmag:
+        return shaped
+    mv, mi = torch.max(out_re * out_re + out_im * out_im, dim=1)
+    return shaped + (mv, mi.to(torch.int32))
+
+
 def spectrum(xr, xi, n_out: int, window=None, with_maxmag=False,
              stacked_out=False):
-    """K1: the plain version for CPU tensors, the CUDA kernel for CUDA ones.
+    """K1: the plain version for CPU tensors; on CUDA tensors the kernel of
+    the shape's :func:`route`, or the dense route (not a K1 launch).
 
     Same contract as :func:`spectrum_plain`.
     """
@@ -184,7 +245,10 @@ def spectrum(xr, xi, n_out: int, window=None, with_maxmag=False,
         return spectrum_plain(xr, xi, n_out, window, with_maxmag, stacked_out)
     if xr.device.type != "cuda":
         raise ValueError(f"spectrum: unsupported device {xr.device}")
-    n_in = _check_inputs(xr, xi, n_out, window)
+    n_in = _check_inputs(xr, xi, n_out, window, stacked_out)
+    kind = route(n_in, n_out)
+    if kind == "dense":
+        return spectrum_dense(xr, xi, n_out, window, with_maxmag, stacked_out)
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError("spectrum: planes must be contiguous")
     b = xr.shape[0]
@@ -198,7 +262,7 @@ def spectrum(xr, xi, n_out: int, window=None, with_maxmag=False,
     lib = _build.library()
     outs = (out_re.data_ptr(), out_im.data_ptr(), mv.data_ptr(), mi.data_ptr())
     stream = _build.stream_ptr(xr.device)
-    if route(n_in, n_out) == "fft":
+    if kind == "fft":
         # 16-byte loads need 16-byte aligned rows of the planes and window.
         vec = n_in % 4 == 0 and all(
             t.data_ptr() % 16 == 0 for t in (xr, xi, window))

@@ -38,10 +38,43 @@ from xmris_tpu_torch.ops.kernels import _build, _counters
 
 MAX_PEAKS = 8
 MAX_ROWS = 5 * MAX_PEAKS
-_CHUNK = 128
-_PITCH = _CHUNK + 1
+_BLOCK_T = 128  # the factored basis's block length
+_CHUNK = 32     # the kernel's samples per chunk, one per lane
+_TILE = 4       # a lane's tile of Gram entries is _TILE x _TILE
+_VOXELS = 4     # voxels (warps) per block
 _SMEM_LIMIT = 232448  # bytes a block may use on sm_90
 _DEG = math.pi / 180.0
+
+
+def row_groups(n_rows: int) -> int:
+    """Groups of ``_TILE`` rows that hold the R Jacobian rows and the
+    residual (row R) in the kernel's chunk table."""
+    return (n_rows + _TILE) // _TILE
+
+
+def sample_pitch(n_rows: int) -> int:
+    """Words between two samples of the chunk table: the re row groups,
+    the im row groups and 4 words, so that the 8 lanes of a 16-byte store
+    phase start in 8 distinct 16-byte bank groups."""
+    return 2 * _TILE * row_groups(n_rows) + 4
+
+
+def voxel_floats(n_rows: int, n_peaks: int, n_t: int, factored: bool) -> int:
+    """Floats of one voxel's shared area (``voxel_floats`` in lm_jac.cu)."""
+    tables = n_peaks * (2 * _BLOCK_T + 2 * (n_t // _BLOCK_T)) if factored else 0
+    n = _CHUNK * sample_pitch(n_rows) + 2 * n_peaks * _CHUNK + tables
+    return (n + 3) & ~3
+
+
+def tile_map(n_rows: int) -> list[tuple[int, int, int, int]]:
+    """The kernel's tiles as ``(lane, round, row group, column group)``:
+    tile e of the row-group upper triangle (row-major) goes to lane e % 32
+    in round e // 32.  Tile (a, b) holds the Gram entries of rows
+    ``4a..4a+3`` against ``4b..4b+3``; row R is the residual (g's column),
+    rows past it are zero padding."""
+    nb = row_groups(n_rows)
+    pairs = [(a, b) for a in range(nb) for b in range(a, nb)]
+    return [(e % 32, e // 32, a, b) for e, (a, b) in enumerate(pairs)]
 
 
 def t_is_uniform(t) -> bool:
@@ -83,7 +116,7 @@ def _check_v7(t, n_t, validate):
     """The reference v7 wrapper's refusals: n_t % 128 != 0 always, a
     non-uniform axis when ``validate`` (the LM driver checks its axis once
     at its entry and passes ``validate=False``)."""
-    if n_t % _CHUNK:
+    if n_t % _BLOCK_T:
         raise ValueError("v7 requires n_t % 128 == 0; use kernel_version=6")
     if validate and not t_is_uniform(t):
         raise ValueError(
@@ -97,8 +130,8 @@ def _factored_basis(amp, cs, lw, ph, gg, t, w_cs_unit, fast):
     """(B, n_t) planes of one peak's block-factored basis and its damp
     profile, in the reference v7 kernel's op order (lm_pallas.py:988-1026)."""
     n_t = t.shape[0]
-    t_r = t[:_CHUNK]
-    t_q = t[::_CHUNK] - t[0]  # (n_q,)
+    t_r = t[:_BLOCK_T]
+    t_q = t[::_BLOCK_T] - t[0]  # (n_q,)
     d = math.pi * lw
     w = w_cs_unit * cs  # (B, 1)
     ang_r = w * t_r + ph * _DEG  # (B, 128)
@@ -247,9 +280,7 @@ def _launch(params, y_re, y_im, t, n_peaks, mhz, rows, counter,
         raise ValueError(f"prior too large for the kernel: peaks {n_peaks} "
                          f"(max {MAX_PEAKS}), rows {n_rows} (max {MAX_ROWS})")
     factored = env_fast is not None
-    tables = n_peaks * (2 * _CHUNK + 2 * (n_t // _CHUNK)) if factored else 0
-    smem = 4 * (2 * n_rows * _PITCH + 2 * n_peaks * _CHUNK + 2 * _CHUNK
-                + tables)
+    smem = 4 * _VOXELS * voxel_floats(n_rows, n_peaks, n_t, factored)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{n_rows} rows need {smem} B of shared memory")
     dev = y_re.device

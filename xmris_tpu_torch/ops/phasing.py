@@ -419,6 +419,12 @@ def autophase(
         raise ValueError("Mode must be 'single' or 'all'.")
     if method not in ("acme", "peak_minima", "positivity"):
         raise ValueError("Method must be 'acme', 'peak_minima', or 'positivity'")
+    if mode == "all" and optimizer not in ("de", "grid"):
+        raise ValueError(
+            "mode='all' supports optimizer='de' (per-voxel differential "
+            "evolution) or optimizer='grid' (candidate grid + gradient "
+            "polish); the scipy path is single-mode only."
+        )
     if method != "acme":
         raise NotImplementedError(f"method={method!r} is {_UNPORTED}")
     if optimizer in ("de", "scipy"):

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
-from xmris_tpu_torch.ops.kernels.dft_cuda import pallas_split_ok
 from xmris_tpu_torch.ops.phasing import (
     _grid_phase_search,
     grid_phase_search_graphed,
@@ -117,14 +116,12 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
     (p0, p1, pivot))`` — spectra (B, n_out), or (B, n2, n1) with
     ``spec_layout="stacked"`` (flat k = k1 + n1*k2) — with 0-dim phase
     tensors (zeros for ``autophase="none"``), or (B,) per-voxel phases and
-    pivots for ``autophase="all"``.
+    pivots for ``autophase="all"``.  Every zero-fill runs (K1's FFT or split
+    kernel, or the dense route; ``dft_cuda.route``); the stacked layout
+    needs a Cooley-Tukey split and ``zero_fill_to < n_time`` raises
+    ``ValueError``, as in the reference.
     """
     b, n_time = fids_re.shape
-    if not pallas_split_ok(n_time, cfg.zero_fill_to):
-        raise ValueError(
-            f"n_time={n_time} -> zero_fill_to={cfg.zero_fill_to} has no "
-            "Cooley-Tukey split for the spectrum kernel"
-        )
     want_peak = cfg.autophase in ("single", "all")
     out = kernels.spectrum(
         fids_re, fids_im, cfg.zero_fill_to,
