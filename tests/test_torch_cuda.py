@@ -150,8 +150,9 @@ def test_spectrum_split_route_matches_plain(dev):
     (500, 1500, "dense")])
 def test_spectrum_without_a_split_matches_plain(dev, n_in, n_out, want):
     """Zero-fills that have no Cooley-Tukey split: a power-of-two output on
-    K1's FFT kernel, the others on the dense route (a float32 matmul, its
-    own counter, no K1 launch), each against the plain version."""
+    K1's FFT kernel, the others on the dense route (a matmul summed in
+    float64, its own counter, no K1 launch), each against the plain
+    version."""
     assert dft_cuda.route(n_in, n_out) == want
     assert not dft_cuda.pallas_split_ok(n_in, n_out)
     re, im, win = _random_planes(dev, 37, n_in)

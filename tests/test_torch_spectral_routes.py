@@ -3,9 +3,9 @@
 The port takes each (n_time, zero_fill_to) by one of three routes, chosen
 from the shapes alone (``dft_cuda.route``): K1's FFT kernel for a
 power-of-two output (256..8192), K1's split kernel for the other lengths
-with a Cooley-Tukey split, and the dense route (one float32 matmul against
-the fftshifted ortho DFT matrix, plain PyTorch as the reference's XLA DFT
-is) for the rest.  On the CPU the spectrum is ``spectrum_plain`` whatever
+with a Cooley-Tukey split, and the dense route (one matmul against the
+fftshifted ortho DFT matrix, summed in float64, plain PyTorch as the
+reference's XLA DFT is) for the rest.  On the CPU the spectrum is ``spectrum_plain`` whatever
 the route; the dense route's own function is held here too.  Spectra are
 held to 1e-6 * max|S| of the reference's (which runs its XLA DFT on the
 CPU; with ``autophase="single"``, after rotating the reference's onto the
@@ -148,6 +148,22 @@ def test_dense_route_matches_plain_and_reference(n_in, n_out):
                                atol=1e-6 * scale)
     np.testing.assert_allclose(d_im.numpy(), np.asarray(ref[1]), rtol=0,
                                atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(500, 1500), (1000, 1500)])
+def test_dense_route_holds_the_parity_bar_on_white_noise(n_in, n_out):
+    """White noise has no peak to set a large max|S|: the dense route's
+    sums (2 n_in terms) must still land within 1e-6 max|S| of the FFT."""
+    rng = np.random.default_rng(7)
+    xr, xi = (_t(rng.normal(size=(512, n_in)).astype(np.float32))
+              for _ in range(2))
+    w = _t(rng.uniform(0.5, 1.0, n_in).astype(np.float32))
+    got = dft_cuda.spectrum_dense(xr, xi, n_out, window=w, with_maxmag=True)
+    want = dft_cuda.spectrum_plain(xr, xi, n_out, window=w, with_maxmag=True)
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * scale)
+    assert torch.equal(got[3], want[3])
 
 
 @pytest.mark.parametrize("n_in,n_out", [(500, 1024), (500, 1500)])
