@@ -10,7 +10,9 @@ and the script exits non-zero):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
 2. build the fifteen CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel), and print ptxas's registers and
+   spills of K2 and K9 (one warp per voxel, the moments in registers;
+   their bench-shape instantiations, K = 5 and q_n = 1);
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
@@ -196,6 +198,23 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_summary(log, source, name_part):
+    """ptxas's registers and spills of the kernels of ``source`` whose
+    mangled name contains ``name_part``, from the build's ptxas log."""
+    if not log.exists():
+        raise AssertionError(f"no ptxas log at {log}")
+    text = log.read_text().split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    lines = text.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and name_part in ln:
+            out += [x.split(" : ", 1)[-1].strip() for x in lines[i + 1:i + 5]
+                    if "registers" in x or "spill" in x]
+    if not out:
+        raise AssertionError(f"{source}: no ptxas lines for {name_part}")
+    return " / ".join(out)
+
+
 def _wrapped(a):
     """Phase difference in degrees wrapped into [-180, 180)."""
     import torch
@@ -298,6 +317,11 @@ def main(argv) -> int:
     print(f"   kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds else 0:.1f} s)",
           flush=True)
+    log = _build.BUILD_DIR / "ptxas.log"
+    for tag, src in (("K2", "lm_v9.cu"), ("K9", "lm_v8.cu")):
+        print(f"   {tag} ({src}, K=5, q_n=1): "
+              f"{_ptxas_summary(log, src, 'normal_eq_warp_kernelILi5ELi1E')}",
+              flush=True)
 
     # ---- inputs: the bench phantom and prior ----
     fids, weight, freqs = bi.make_inputs()

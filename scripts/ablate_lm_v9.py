@@ -72,12 +72,12 @@ _WARP = {
                        "constexpr bool kSlabH = false;")],
     "moments skipped": [(
         "lm_v9_warp.cuh",
-        "            moment_pass<K, QN, kPassStart[P], kPassStart[P + 1]>(",
-        "            if (P == 0 && fuse_cost) moment_pass<K, QN, 0, 0>(")],
+        "        moment_pass<K, QN, pass_start(K, QN, P), pass_start(K, QN, P + 1)>(",
+        "        if (P == 0 && fuse_cost) moment_pass<K, QN, 0, 0>(")],
     "assembly skipped": [(
         "lm_v9_warp.cuh",
         "    // ---- 3a. per-row coefficient terms",
-        "    return;\n    // ---- 3a. per-row coefficient terms")],
+        "    return false;\n    // ---- 3a. per-row coefficient terms")],
     "4 voxels a block": [("lm_v9_warp.cuh", "constexpr int kVox = 8;",
                           "constexpr int kVox = 4;")],
     "pass budget 64": [("lm_v9_warp.cuh", "constexpr int kPassBudget = 112;",

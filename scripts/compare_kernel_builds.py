@@ -12,7 +12,12 @@ process that evaluates, on seeded bench inputs (16x16x16 voxels, the bench
 prior, parameters within 20 % of its initial values):
 
 * K2 (``lm_cuda.eq6_normal_equations``) with the factored and the direct
-  basis, with and without a voxel mask (masked voxels are not compared);
+  basis, with and without a voxel mask (masked voxels are not compared),
+  and with the accept gate (``cost_prev`` just above the cost on even
+  voxels, just below it on odd ones: the cost on every voxel, g and H on
+  the improving ones);
+* K9 (``lm_cuda.eq6_normal_equations_v8``, the direct basis) with and
+  without a voxel mask;
 * K7 and K12 (``lm_jac_cuda.eq6_normal_equations_v3`` / ``_v5``);
 * K8 (``lm_loop_cuda.lm_loop_v10``, 24 iterations).
 
@@ -80,7 +85,24 @@ def _dump(repo: str, out: str) -> None:
             outs[f"{tag} cost"] = c[keep]
             outs[f"{tag} g"] = g[keep]
             outs[f"{tag} H"] = h[:, keep]
-    k, active = pk.n_peaks, normal_eq_plan(ps, nf, bi.MHZ, True).active
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
+    c, _, _ = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan)
+    factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
+    c_prev = (c * factor).contiguous()
+    c, g, h = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan,
+                                           cost_prev=c_prev)
+    better = c < c_prev
+    outs["K2 gated cost"] = c
+    outs["K2 gated g"] = g[better]
+    outs["K2 gated H"] = h[:, better]
+    k, active = pk.n_peaks, plan.active
+    for masked in (False, True):
+        c, g, h = lm_cuda.eq6_normal_equations_v8(
+            grids, re, im, t, k, bi.MHZ, active, validate=False,
+            voxel_mask=mask if masked else None)
+        keep = mask if masked else torch.ones_like(mask)
+        for name, val in (("cost", c), ("g", g), ("H", h)):
+            outs[f"K9 masked={masked} {name}"] = val[keep]
     for tag, res in (
         ("K7", lm_jac_cuda.eq6_normal_equations_v3(grids, re, im, t, k,
                                                    bi.MHZ)),

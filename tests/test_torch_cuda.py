@@ -666,6 +666,93 @@ def test_normal_equations_gate_skips_only_rejected_voxels(dev):
     assert torch.equal(h2[:, better], h[:, better])
 
 
+def _prior_csv(n_peaks, free_g):
+    """A seeded-shape prior of ``n_peaks`` peaks; with ``free_g`` every g is
+    free (the t^2 rows, q_n = 2).  Phases are fixed where the free count
+    would pass the kernels' 32."""
+    shifts = np.linspace(-16.0, 5.0, n_peaks) if n_peaks > 1 else [0.0]
+
+    def row(name, vals):
+        return name + "," + ",".join(str(v) for v in vals)
+
+    phase = ("fixed" if n_peaks * (4 + free_g) > lm_cuda.MAX_FREE
+             else '"(-180, 180)"')
+    return "\n".join([
+        "Index," + ",".join(f"P{i}" for i in range(n_peaks)),
+        "Initial Values" + "," * n_peaks,
+        row("amplitude", [10.0 - i for i in range(n_peaks)]),
+        row("chemicalshift", [round(float(x), 2) for x in shifts]),
+        row("linewidth", [15.0 + 2 * i for i in range(n_peaks)]),
+        row("phase", [0] * n_peaks),
+        row("g", [0.1 if free_g else 0] * n_peaks),
+        "Bounds" + "," * n_peaks,
+        row("amplitude", ['"(0, "'] * n_peaks),
+        row("chemicalshift",
+            [f'"({x - 0.5:.2f}, {x + 0.5:.2f})"' for x in shifts]),
+        row("linewidth", ['"(5.0, 45.0)"'] * n_peaks),
+        row("phase", [phase] * n_peaks),
+        row("g", ['"(0, 1)"' if free_g else "fixed"] * n_peaks),
+    ]) + "\n"
+
+
+def _shape_inputs(dev, csv_text, n_t, b=37):
+    """``_normal_eq_inputs`` for the first ``b`` voxels (a partial last
+    block of 8) and the first ``n_t`` samples."""
+    ps, nf, ins = _normal_eq_inputs(dev, csv_text)
+    grids, re, im, t, dxdu = ins
+    return ps, nf, (grids[:b].contiguous(), re[:b, :n_t].contiguous(),
+                    im[:b, :n_t].contiguous(), t[:n_t].contiguous(),
+                    dxdu[:b].contiguous())
+
+
+@pytest.mark.parametrize("n_peaks,free_g,factored,n_t", [
+    (1, True, True, 1024), (1, False, False, 1000), (8, True, True, 1024),
+    (8, True, False, 1000), (8, False, False, 1000), (5, True, False, 1000),
+])
+def test_normal_equations_shapes_mask_gate(dev, n_peaks, free_g, factored,
+                                           n_t):
+    """K2 at K = 1 and 8, with a g row (q_n = 2: up to four moment passes)
+    and n_t = 1000 on the direct basis, against its plain version per
+    entry; masked voxels skipped and the rest bit for bit; the gate's cost
+    bit for bit on every voxel, g and H on the improving ones."""
+    ps, nf, ins = _shape_inputs(dev, _prior_csv(n_peaks, free_g), n_t)
+    plan = normal_eq_plan(ps, nf, bi.MHZ, factored)
+    assert plan.q_n == (2 if free_g else 1) and plan.n_peaks == n_peaks
+    c, g, h = lm_cuda.eq6_normal_equations(*ins, plan)
+    c2, g2, h2 = lm_cuda.eq6_normal_equations_plain(*ins, plan)
+    _assert_normal_eq_close((c, g, slab_to_bff(h, nf)),
+                            (c2, g2, slab_to_bff(h2, nf)))
+    b = c.shape[0]
+    mask = torch.arange(b, device=dev) % 3 != 0
+    cm, gm, hm = lm_cuda.eq6_normal_equations(*ins, plan, voxel_mask=mask)
+    assert torch.equal(cm[mask], c[mask]) and torch.equal(gm[mask], g[mask])
+    assert torch.equal(hm[:, mask], h[:, mask])
+    factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
+    c_prev = (c * factor).contiguous()
+    cg, gg, hg = lm_cuda.eq6_normal_equations(*ins, plan, cost_prev=c_prev)
+    better = cg < c_prev
+    assert torch.equal(cg, c) and 0 < int(better.sum()) < b
+    assert torch.equal(gg[better], g[better])
+    assert torch.equal(hg[:, better], h[:, better])
+
+
+@pytest.mark.parametrize("n_peaks,n_t", [(1, 1024), (8, 1000), (5, 1000)])
+def test_v8_kernel_shapes_match_plain(dev, n_peaks, n_t):
+    """K9 at K = 1 and 8 (three passes, each re-forming the direct bases)
+    and n_t = 1000 against its plain version; masked voxels skipped."""
+    from xmris_tpu_torch.fitting.lm import active_param_rows
+
+    ps, _, ins = _shape_inputs(dev, _prior_csv(n_peaks, False), n_t)
+    active = active_param_rows(ps)
+    args = (*ins[:4], n_peaks, bi.MHZ, active)
+    got = lm_cuda.eq6_normal_equations_v8(*args)
+    _assert_normal_eq_close(got, lm_cuda.eq6_normal_equations_v8_plain(*args))
+    mask = torch.arange(ins[1].shape[0], device=dev) % 3 != 0
+    part = lm_cuda.eq6_normal_equations_v8(*args, voxel_mask=mask)
+    for a, p in zip(got, part):
+        assert torch.equal(p[mask], a[mask])
+
+
 @pytest.mark.parametrize("spd_pallas", [True, False])
 @pytest.mark.parametrize("version", [9, 10])
 def test_gated_lm_equals_the_open_lm(dev, version, spd_pallas):

@@ -4,9 +4,10 @@ complex moments.
 K2 replaces ``xmris_tpu/ops/kernels/lm_pallas.py::eq6_normal_equations_pallas_v9``
 (with ``fold_slots``/``fold_scales``/``dxdu``, ``slab_h=True`` and the
 optional ``cost_prev`` accept gate): the free-space system.  The CUDA
-source is ``csrc/lm_v9.cu``; its header comment gives the bound on the
-H100 and the design.  :func:`eq6_normal_equations_plain` is the same
-function in plain PyTorch.
+source is ``csrc/lm_v9.cu`` on the warp evaluation of
+``csrc/lm_v9_warp.cuh``, whose header comment gives the bound on the H100
+and the design (one warp per voxel, the moments in registers).
+:func:`eq6_normal_equations_plain` is the same function in plain PyTorch.
 
 K9 replaces ``eq6_normal_equations_pallas_v8``: the physical active rows of
 a purely Lorentzian prior (every g fixed at 0) from three moments, which is
@@ -22,6 +23,11 @@ the direct ``exp``/``sin``/``cos`` per sample.
 Layouts: ``params`` (B, K*5) physical grid, ``y_re``/``y_im`` (B, n_t),
 ``t`` (n_t,), ``dxdu`` (B, F); outputs ``cost`` (B,), ``g`` (B, F) and H as
 the voxel-minor slab (F*F, B) — entry (f, h) of voxel v at ``[f*F + h, v]``.
+
+The warp evaluation's layout is mirrored here (:func:`moment_items`,
+:func:`moment_passes`, :func:`warp_stride`, :func:`warp_smem_bytes`), so
+that the wrappers refuse what it cannot take and the CPU tests can check
+its index algebra where there is no card.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ MAX_QN = 2
 _BLOCK_T = 128
 _SMEM_LIMIT = 232448  # bytes a block may use on sm_90
 _DEG = math.pi / 180.0
+# csrc/lm_v9_warp.cuh: voxels (warps) a block, accumulator floats a pass.
+WARP_VOXELS = 8
+PASS_BUDGET = 112
 
 
 def _row_degrees(ptype: int, g_zero: bool) -> tuple[int, ...]:
@@ -287,9 +296,53 @@ def normal_equations_plain_impl(params, y_re, y_im, t, dxdu, plan,
     return cost, g, h.reshape(n_free * n_free, b)
 
 
-def check_plan(plan: NormalEqPlan, n_t: int) -> None:
-    """Refuse a prior or a time axis that the v9 evaluation (K2, K8) cannot
-    take: its static bounds and its shared memory."""
+def moment_items(n_peaks: int, q_n: int) -> list[tuple[int, int, int]]:
+    """The warp evaluation's moment items in its order, as ``(k, k', powers)``:
+    the residual moments N_k (``k' == -1``, q_n + 1 powers), then the pair
+    moments M_kk' (k <= k', row-major; 2 q_n + 1 powers)."""
+    pairs = [(k, kp, 2 * q_n + 1) for k in range(n_peaks)
+             for kp in range(k, n_peaks)]
+    return [(k, -1, q_n + 1) for k in range(n_peaks)] + pairs
+
+
+def moment_passes(n_peaks: int, q_n: int,
+                  budget: int = PASS_BUDGET) -> list[tuple[int, int]]:
+    """Item ranges ``[i0, i1)`` of the sweeps over the samples: greedy, at
+    most ``budget`` accumulator floats (2 per power) a pass
+    (``pass_start`` in csrc/lm_v9_warp.cuh)."""
+    passes, start, used = [], 0, 0
+    for i, (_, _, n_pow) in enumerate(moment_items(n_peaks, q_n)):
+        if used and used + 2 * n_pow > budget:
+            passes.append((start, i))
+            start, used = i, 0
+        used += 2 * n_pow
+    passes.append((start, len(moment_items(n_peaks, q_n))))
+    return passes
+
+
+def warp_stride(n_t: int, n_peaks: int, q_n: int, n_free: int, n_rows: int,
+                factored: bool) -> int:
+    """Floats of one voxel's shared area (``warp_stride`` in
+    csrc/lm_v9_warp.cuh): parameters, dx/du, N and M moments, row terms,
+    8 cost partials a lane, then the basis tables or the staged H; rounded
+    up to 4 mod 32."""
+    k = n_peaks
+    head = (5 * k + n_free + 2 * k * (q_n + 1) + k * (k + 1) * (2 * q_n + 1)
+            + 7 * n_rows + 8 * 32)
+    tables = 2 * k * _BLOCK_T + 2 * k * (n_t // _BLOCK_T) if factored else 0
+    total = head + max(tables, n_free * n_free)
+    return total + (4 - total % 32) % 32
+
+
+def warp_smem_bytes(n_t: int, n_peaks: int, q_n: int, n_free: int,
+                    n_rows: int, factored: bool) -> int:
+    """Dynamic shared memory a K2/K9 block asks for: the time axis (padded
+    to 4 floats), then WARP_VOXELS voxel areas."""
+    return 4 * ((n_t + 3) // 4 * 4 + WARP_VOXELS * warp_stride(
+        n_t, n_peaks, q_n, n_free, n_rows, factored))
+
+
+def _check_bounds(plan: NormalEqPlan) -> None:
     n_rows = len(plan.active)
     if (plan.n_peaks > MAX_PEAKS or plan.n_free > MAX_FREE
             or n_rows > MAX_ROWS or plan.q_n > MAX_QN):
@@ -298,6 +351,27 @@ def check_plan(plan: NormalEqPlan, n_t: int) -> None:
             f"{MAX_PEAKS}), free {plan.n_free} (max {MAX_FREE}), rows "
             f"{n_rows} (max {MAX_ROWS})"
         )
+
+
+def check_warp_plan(plan: NormalEqPlan, n_t: int, q_n: int | None = None
+                    ) -> None:
+    """Refuse a prior or a time axis that the warp evaluation (K2, K9)
+    cannot take: its static bounds and its shared memory (K9 passes its
+    fixed ``q_n`` of 1)."""
+    _check_bounds(plan)
+    smem = warp_smem_bytes(n_t, plan.n_peaks,
+                           plan.q_n if q_n is None else q_n, plan.n_free,
+                           len(plan.active), plan.factored)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"n_t={n_t} needs {smem} B of shared memory "
+                         f"(max {_SMEM_LIMIT})")
+
+
+def check_plan(plan: NormalEqPlan, n_t: int) -> None:
+    """Refuse a prior or a time axis that the block evaluation of the
+    whole-loop kernel (K8, ``v9_eval``) cannot take: its static bounds and
+    its shared memory."""
+    _check_bounds(plan)
     n_pairs = plan.n_peaks * (plan.n_peaks + 1) // 2
     smem = 4 * (n_t * (3 + 2 * plan.n_peaks)
                 + plan.n_peaks * (2 * _BLOCK_T + 2 * (n_t // _BLOCK_T))
@@ -333,7 +407,7 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None,
     ):
         raise ValueError("cost_prev must be a contiguous (B,) float32 tensor "
                          "on the device")
-    check_plan(plan, n_t)
+    check_warp_plan(plan, n_t)
     n_rows = len(plan.active)
     ints, scales = _plan_tensors(plan, str(y_re.device))
     mask = voxel_mask.contiguous() if voxel_mask is not None else None
@@ -429,7 +503,7 @@ def eq6_normal_equations_v8(params, y_re, y_im, t, n_peaks, mhz, active,
     b, n_t = _check_inputs(params, y_re, y_im, t, None, plan, voxel_mask)
     if not all(x.is_contiguous() for x in (params, y_re, y_im, t)):
         raise ValueError("normal equations: inputs must be contiguous")
-    check_plan(plan, n_t)
+    check_warp_plan(plan, n_t, q_n=1)
     ints, scales = _plan_tensors(plan, str(y_re.device))
     mask = voxel_mask.contiguous() if voxel_mask is not None else None
     cost = torch.empty((b,), dtype=torch.float32, device=y_re.device)
