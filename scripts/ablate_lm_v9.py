@@ -25,8 +25,11 @@ warp redesign, one warp per voxel after it):
 * "moments skipped": no moment sums (the cost still runs);
 * "assembly skipped": no g and H assembly and no H store.
 
-The warp design adds "4 voxels a block" and "pass budget 64" (more passes
-over the samples, fewer accumulators live).  Variants that skip work
+The warp design adds "4 voxels a block"; "pass budget B, N blocks an SM"
+for both kernels (B accumulator floats a sweep over the samples, N blocks
+an SM as the register cap; as built, K2 takes 64 and 2, K9 112 and 1);
+and "slab store per warp" (each warp stores its own voxel's slab column,
+no block barrier).  Variants that skip work
 compute wrong outputs: they measure cost, not a candidate.
 
 For each checkout and source variant it prints the registers and spills
@@ -66,25 +69,41 @@ _BLOCK = {
         "    // ---- 3a. per-row coefficient terms",
         "    return;\n    // ---- 3a. per-row coefficient terms")],
 }
+
+
+def _budget(budget, blocks):
+    """K2 and K9 both at ``budget`` accumulator floats a moment pass and
+    ``blocks`` blocks an SM (as built: K2 64 and 2, K9 112 and 1)."""
+    return [(src, f"constexpr int {name} = {old};",
+             f"constexpr int {name} = {new};")
+            for src, olds in (("lm_v9.cu", (64, 2)), ("lm_v8.cu", (112, 1)))
+            for name, old, new in zip(("kPassBudget", "kMinBlocks"), olds,
+                                      (budget, blocks))]
+
+
 # The warp design (one warp per voxel, `lm_v9_warp.cuh`).
 _WARP = {
     "dense H store": [("lm_v9.cu", "constexpr bool kSlabH = true;",
                        "constexpr bool kSlabH = false;")],
     "moments skipped": [(
         "lm_v9_warp.cuh",
-        "        moment_pass<K, QN, pass_start(K, QN, P), pass_start(K, QN, P + 1)>(",
-        "        if (P == 0 && fuse_cost) moment_pass<K, QN, 0, 0>(")],
+        "        moment_pass<K, QN, i0, i1>(c, P == 0 && fuse_cost);",
+        "        if (P == 0 && fuse_cost) moment_pass<K, QN, 0, 0>(c, true);")],
     "assembly skipped": [(
         "lm_v9_warp.cuh",
         "    // ---- 3a. per-row coefficient terms",
         "    return false;\n    // ---- 3a. per-row coefficient terms")],
     "4 voxels a block": [("lm_v9_warp.cuh", "constexpr int kVox = 8;",
                           "constexpr int kVox = 4;")],
-    "pass budget 64": [("lm_v9_warp.cuh", "constexpr int kPassBudget = 112;",
-                        "constexpr int kPassBudget = 64;")],
+    **{f"pass budget {b}, {n} block{'s' * (n > 1)} an SM": _budget(b, n)
+       for b, n in ((112, 1), (112, 2), (64, 1), (64, 2), (40, 3))},
+    "slab store per warp": [("lm_v9_warp.cuh",
+                             "constexpr bool kSlabRows = true;",
+                             "constexpr bool kSlabRows = false;")],
 }
 # Variants of K2 alone (the first two are made by the call).
-K2_ONLY = ("direct basis", "gate, all rejected", "dense H store")
+K2_ONLY = ("direct basis", "gate, all rejected", "dense H store",
+           "slab store per warp")
 
 
 def _design(csrc: Path) -> dict:

@@ -13,9 +13,10 @@ prior, parameters within 20 % of its initial values):
 
 * K2 (``lm_cuda.eq6_normal_equations``) with the factored and the direct
   basis, with and without a voxel mask (masked voxels are not compared),
-  and with the accept gate (``cost_prev`` just above the cost on even
-  voxels, just below it on odd ones: the cost on every voxel, g and H on
-  the improving ones);
+  with the accept gate on both bases (``cost_prev`` just above the cost on
+  even voxels, just below it on odd ones: the cost on every voxel, g and H
+  on the improving ones), and on the bench prior with every g free (the
+  t^2 rows) on both bases;
 * K9 (``lm_cuda.eq6_normal_equations_v8``, the direct basis) with and
   without a voxel mask;
 * K7 and K12 (``lm_jac_cuda.eq6_normal_equations_v3`` / ``_v5``);
@@ -85,16 +86,34 @@ def _dump(repo: str, out: str) -> None:
             outs[f"{tag} cost"] = c[keep]
             outs[f"{tag} g"] = g[keep]
             outs[f"{tag} H"] = h[:, keep]
-    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
-    c, _, _ = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan)
     factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
-    c_prev = (c * factor).contiguous()
-    c, g, h = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan,
-                                           cost_prev=c_prev)
-    better = c < c_prev
-    outs["K2 gated cost"] = c
-    outs["K2 gated g"] = g[better]
-    outs["K2 gated H"] = h[:, better]
+    for factored in (True, False):
+        plan = normal_eq_plan(ps, nf, bi.MHZ, factored)
+        c, _, _ = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan)
+        c_prev = (c * factor).contiguous()
+        c, g, h = lm_cuda.eq6_normal_equations(grids, re, im, t, dxdu, plan,
+                                               cost_prev=c_prev)
+        better = c < c_prev
+        tag = f"K2 gated factored={factored}"
+        outs[f"{tag} cost"] = c
+        outs[f"{tag} g"] = g[better]
+        outs[f"{tag} H"] = h[:, better]
+    # The bench prior with every g free: Voigt rows, q_n = 2.
+    pk_g = prior_from_csv_text(bi.PK_CSV.replace(
+        "g,0,0,0,0,0", "g,0.1,0.1,0.1,0.1,0.1").replace(
+        "g,fixed,fixed,fixed,fixed,fixed",
+        'g,"(0, 1)","(0, 1)","(0, 1)","(0, 1)","(0, 1)"'))
+    ps_g, nf_g = hashable_pmap(pk_g.pmap), pk_g.n_free
+    x_g = np.clip(pk_g.init_free[None] * rng.uniform(0.8, 1.2, (b, nf_g)),
+                  pk_g.lower, pk_g.upper)
+    grids_g = expand_params_batched(f32(x_g), ps_g).contiguous()
+    dxdu_g = f32(rng.uniform(0.5, 1.5, (b, nf_g)))
+    for factored in (True, False):
+        plan = normal_eq_plan(ps_g, nf_g, bi.MHZ, factored)
+        res = lm_cuda.eq6_normal_equations(grids_g, re, im, t, dxdu_g, plan)
+        for name, val in zip(("cost", "g", "H"), res):
+            outs[f"K2 free g factored={factored} {name}"] = val
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
     k, active = pk.n_peaks, plan.active
     for masked in (False, True):
         c, g, h = lm_cuda.eq6_normal_equations_v8(
@@ -149,6 +168,11 @@ def main(argv) -> int:
             f" ({int((val != ref).sum())} of {val.numel()} entries differ)"
             if val.shape == ref.shape else " (shapes differ)")
         print(f"{name}: {'bit for bit' if same else 'DIFFERS'}{diff}")
+        if not same and val.shape == ref.shape:
+            # The first differing entries, by index, with both values.
+            for idx in (val != ref).nonzero()[:4].tolist():
+                a, r = val[tuple(idx)].item(), ref[tuple(idx)].item()
+                print(f"    at {idx}: {a!r} here, {r!r} there")
         failed += not same
     print(f"{len(dumps['this']) - failed} of {len(dumps['this'])} outputs "
           f"equal bit for bit to {other}'s build")

@@ -47,23 +47,25 @@ def _warp_sum(x):
     return x[0]
 
 
-def _header_int(name):
-    text = (CSRC / "lm_v9_warp.cuh").read_text()
+def _header_int(name, source="lm_v9_warp.cuh"):
+    text = (CSRC / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 def test_mirror_constants_are_the_header_s():
     assert L.WARP_VOXELS == _header_int("kVox")
-    assert L.PASS_BUDGET == _header_int("kPassBudget")
+    assert L.K2_PASS_BUDGET == _header_int("kPassBudget", "lm_v9.cu")
+    assert L.K9_PASS_BUDGET == _header_int("kPassBudget", "lm_v8.cu")
     eval_text = (CSRC / "lm_v9_eval.cuh").read_text()
     for name, val in (("kMaxPeaks", L.MAX_PEAKS), ("kMaxFree", L.MAX_FREE),
                       ("kMaxQn", L.MAX_QN), ("kBlockT", L._BLOCK_T)):
         assert re.search(rf"constexpr int {name} = {val};", eval_text), name
 
 
+@pytest.mark.parametrize("budget", [L.K2_PASS_BUDGET, L.K9_PASS_BUDGET])
 @pytest.mark.parametrize("q_n", [0, 1, 2])
 @pytest.mark.parametrize("n_peaks", range(1, L.MAX_PEAKS + 1))
-def test_every_item_power_owned_once(n_peaks, q_n):
+def test_every_item_power_owned_once(n_peaks, q_n, budget):
     items = L.moment_items(n_peaks, q_n)
     # The block kernel's items: N_k, then pair p = pair_index(k, k').
     assert [(k, kp) for k, kp, _ in items[:n_peaks]] == [
@@ -71,12 +73,12 @@ def test_every_item_power_owned_once(n_peaks, q_n):
     for p, (k, kp, n_pow) in enumerate(items[n_peaks:]):
         assert k <= kp and n_pow == 2 * q_n + 1
         assert p == k * n_peaks - k * (k - 1) // 2 + (kp - k)
-    passes = L.moment_passes(n_peaks, q_n)
+    passes = L.moment_passes(n_peaks, q_n, budget)
     owned = {}
     for n, (i0, i1) in enumerate(passes):
         assert i0 < i1
         width = sum(2 * items[i][2] for i in range(i0, i1))
-        assert width <= L.PASS_BUDGET
+        assert width <= budget or i1 == i0 + 1
         for i in range(i0, i1):
             for q in range(items[i][2]):
                 assert (i, q) not in owned
@@ -86,10 +88,11 @@ def test_every_item_power_owned_once(n_peaks, q_n):
     # Greedy: a pass ends only where the next item does not fit.
     for i0, i1 in passes[:-1]:
         width = sum(2 * items[i][2] for i in range(i0, i1))
-        assert width + 2 * items[i1][2] > L.PASS_BUDGET
-    # The bench shape (K = 5, q_n = 1) is one pass of 110 accumulators.
+        assert width + 2 * items[i1][2] > budget
+    # The bench shape (K = 5, q_n = 1): 110 accumulators, two passes for
+    # K2, one for K9.
     if (n_peaks, q_n) == (5, 1):
-        assert L.moment_passes(5, 1) == [(0, 20)]
+        assert len(passes) == (2 if budget == L.K2_PASS_BUDGET else 1)
 
 
 @pytest.mark.parametrize("n_t", [96, 1000, 1020, 1024])
@@ -160,7 +163,7 @@ def test_pass_sums_are_the_block_order(n_peaks, q_n, n_t):
     # The warp kernel: per pass, each lane sweeps its samples once and
     # updates every item of the pass at each sample.
     new = {}
-    for i0, i1 in L.moment_passes(n_peaks, q_n):
+    for i0, i1 in L.moment_passes(n_peaks, q_n, L.K2_PASS_BUDGET):
         acc = {(it, q): np.zeros((2, 32), np.float32)
                for it in range(i0, i1) for q in range(items[it][2])}
         for lane in range(32):

@@ -5,8 +5,9 @@
 // Cholesky solve of the carried (accepted) H/g (K3's arithmetic in K3's
 // order), the predicted-decrease exit, the bound transform of the trial
 // point and its expansion to the physical grid, the v9 evaluation of the
-// trial (K2's body, `v9_eval`), and the accept/reject, lambda, plateau-streak
-// and done rules of the reference.  Trip 0 is the initial evaluation: the
+// trial (the block evaluation `v9_eval`, bit for bit K2's warp evaluation),
+// and the accept/reject, lambda, plateau-streak and done rules of the
+// reference.  Trip 0 is the initial evaluation: the
 // accepted cost starts at +inf with H = 0 and g = 0, so its step is exactly
 // zero and the trial at the seed is always taken; lambda is pinned to lam0
 // on that trip and the accepted-step count starts after it.

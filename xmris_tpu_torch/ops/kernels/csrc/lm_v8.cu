@@ -27,6 +27,13 @@
 
 #include "lm_v9_warp.cuh"
 
+namespace {
+
+constexpr int kPassBudget = 112;  // accumulator floats a moment pass keeps
+constexpr int kMinBlocks = 1;     // blocks an SM must hold (register cap)
+
+}  // namespace
+
 extern "C" int xmt_eq6_normal_eq_v8(
     const float* params, const float* y_re, const float* y_im, const float* t,
     const unsigned char* mask, const int* ints, const float* row_scale,
@@ -39,6 +46,7 @@ extern "C" int xmt_eq6_normal_eq_v8(
                      unpack_structure(ints, n_rows, n_rows), row_scale, cost,
                      g, h, b, n_t, n_rows, n_rows, /*factored=*/0, 0,
                      w_cs_unit};
-    return launch_warp_any</*kSlab=*/false, 1, 1>(a, n_peaks, 1,
-                                                   (cudaStream_t)stream);
+    return launch_warp_any<WarpConfig</*slab H=*/false, kPassBudget,
+                                      kMinBlocks>, 1, 1>(a, n_peaks, 1,
+                                                         (cudaStream_t)stream);
 }

@@ -11,8 +11,10 @@
 // bench grid) and writes 1.6 KB of H (26 MB); the work is, per sample, the
 // K factored bases and ~55 complex moment updates (~250 fp32 instructions
 // at K = 5, q_n = 1) — fp32 issue-bound, not memory-bound.  Design: one
-// warp per voxel, 8 voxels a block, the moments accumulated in registers in
-// one sweep over the samples (lm_v9_warp.cuh).  H is written in the port's
+// warp per voxel, 8 voxels a block, the moments accumulated in registers
+// (lm_v9_warp.cuh), 64 accumulator floats a pass (two sweeps over the
+// samples at the bench shape, each re-forming the cheap factored bases) so
+// that 2 blocks fit an SM.  H is written in the port's
 // voxel-minor slab layout (F*F, B), so the SPD kernels read it coalesced:
 // the block stages its voxels' H in shared memory and stores each slab row
 // of its 8 voxels as one 32-byte sector.  Voxels whose mask entry is 0
@@ -28,7 +30,9 @@
 
 namespace {
 
-constexpr bool kSlabH = true;  // H as the voxel-minor slab (F*F, B)
+constexpr bool kSlabH = true;    // H as the voxel-minor slab (F*F, B)
+constexpr int kPassBudget = 64;  // accumulator floats a moment pass keeps
+constexpr int kMinBlocks = 2;    // blocks an SM must hold (register cap)
 
 }  // namespace
 
@@ -44,6 +48,6 @@ extern "C" int xmt_eq6_normal_eq_v9(
                      unpack_structure(ints, n_rows, n_free), row_scale,
                      cost, g, h, b, n_t, n_free, n_rows, factored, 0,
                      w_cs_unit};
-    return launch_warp_any<kSlabH, 0, kMaxQn>(a, n_peaks, q_n,
-                                              (cudaStream_t)stream);
+    return launch_warp_any<WarpConfig<kSlabH, kPassBudget, kMinBlocks>, 0,
+                           kMaxQn>(a, n_peaks, q_n, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
-// The v9 evaluation of one voxel (K2's body), shared by K2 (lm_v9.cu), the
-// whole-loop LM kernel K8 (lm_v10.cu) and the moment kernel K9 (lm_v8.cu);
-// the explicit-Jacobian kernels (lm_jac.cu) take its constants and the
-// block-factored basis tables (`factored_tables`).
+// The block evaluation of one voxel (`v9_eval`), the body of the whole-loop
+// LM kernel K8 (lm_v10.cu).  Its constants, `Structure`, the block-factored
+// basis tables (`factored_tables`), `warp_sum` and `pair_index` are shared
+// with the warp evaluation of K2 and K9 (lm_v9_warp.cuh) and with the
+// explicit-Jacobian kernels (lm_jac.cu).
 //
 // Every Jacobian row of the Eq.6 model is (z_0 + z_1 t + z_2 t^2) * B_k with
 // per-voxel complex coefficients z_d, so the Gram matrix J^T J collapses to
@@ -14,10 +15,17 @@
 //   2. reduces the moments N_q (q <= q_n) and M_q (k <= k', q <= 2 q_n);
 //   3. assembles g and H from the reference's coefficient rules, folded by
 //      free slot, scatter scale and the bound-transform diagonal dx/du.
-// Design: the bases, residual and time axis stay in shared memory (53 KB at
-// the bench shape, K = 5 and n_t = 1024); each warp reduces whole moment
-// groups (one peak or peak pair, all powers of t at once) with shuffles; a
-// thread per H entry assembles the F x F system.
+//
+// What bounds it on the H100: fp32 issue (~250 instructions a sample at the
+// bench shape, K = 5 and q_n = 1), and in this design the shared memory
+// around it.  Design: one block of 256 threads per voxel, which K8 keeps
+// for the voxel's whole LM loop; the bases, residual and time axis stay in
+// shared memory (53 KB at the bench shape, 4 voxels an SM); each warp
+// reduces whole moment groups (one peak or peak pair, all powers of t at
+// once) with shuffles, reading every basis value back once per group; a
+// thread per H entry assembles the F x F system.  The warp evaluation of
+// lm_v9_warp.cuh keeps the moments in registers instead and computes the
+// same outputs bit for bit; K8 has not taken it yet.
 //
 // The prior's static structure (active rows, slots, scales, g == 0 flags)
 // arrives as small device arrays; kMaxPeaks, kMaxFree and kMaxRows bound it

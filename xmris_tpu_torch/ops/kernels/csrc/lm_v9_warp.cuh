@@ -24,8 +24,12 @@
 //   tables, K x 128 + K x n_q complex per voxel in shared memory, or the
 //   direct exp/sincos), the model, the residual, t^q once, and updates the
 //   accumulators of every moment item of the pass.  The items (N_0..N_K-1,
-//   then the pairs row-major) are cut into passes of at most kPassBudget
+//   then the pairs row-major) are cut into passes of at most a budget of
 //   accumulator floats (`pass_start`, greedy); a pass re-forms the bases.
+//   Each kernel sets its budget and register cap (`WarpConfig`): K2's
+//   factored bases are cheap to re-form, so it takes two passes at the
+//   bench shape and 2 blocks an SM; K9's direct exp/sincos are not, so it
+//   takes one pass and 1 block an SM.
 //   K and q_n are template parameters so every accumulator is a register.
 // * Assembly by the warp: the lanes run over the rows (3a), the g entries
 //   (3b) and the upper-H entries (3c); H is staged in the voxel's shared
@@ -51,7 +55,17 @@
 namespace {
 
 constexpr int kVox = 8;           // voxels (one warp each) a block
-constexpr int kPassBudget = 112;  // accumulator floats a moment pass keeps
+constexpr bool kSlabRows = true;  // slab H stored by rows of the block
+
+// A kernel's build: H as the slab (K2) or dense (K9), the accumulator
+// floats a moment pass keeps, and the blocks an SM must hold (which caps
+// the registers a thread).
+template <bool kSlabH, int kPassBudget, int kMinBlocks>
+struct WarpConfig {
+    static constexpr bool slab = kSlabH;
+    static constexpr int budget = kPassBudget;
+    static constexpr int blocks = kMinBlocks;
+};
 
 // ---- the moment items: N_k (k < K), then pair p = (k <= k') row-major ----
 
@@ -68,13 +82,14 @@ __host__ __device__ constexpr int items_width(int K, int QN, int i0, int i1) {
     return w;
 }
 
-// First item of pass p (greedy, kPassBudget floats a pass; n_items(K) for
+// First item of pass p (greedy, `budget` floats a pass; n_items(K) for
 // p == the number of passes).
-__host__ __device__ constexpr int pass_start(int K, int QN, int p) {
+__host__ __device__ constexpr int pass_start(int K, int QN, int p,
+                                             int budget) {
     int pass = 0, used = 0;
     for (int it = 0; it < n_items(K); ++it) {
         const int w = item_width(K, QN, it);
-        if (used > 0 && used + w > kPassBudget) {
+        if (used > 0 && used + w > budget) {
             if (++pass == p) return it;
             used = 0;
         }
@@ -83,9 +98,9 @@ __host__ __device__ constexpr int pass_start(int K, int QN, int p) {
     return p == 0 ? 0 : n_items(K);
 }
 
-__host__ __device__ constexpr int n_passes(int K, int QN) {
+__host__ __device__ constexpr int n_passes(int K, int QN, int budget) {
     int p = 1;
-    while (pass_start(K, QN, p) < n_items(K)) ++p;
+    while (pass_start(K, QN, p, budget) < n_items(K)) ++p;
     return p;
 }
 
@@ -188,6 +203,70 @@ struct PassCtx {
     float w_cs_unit;
 };
 
+// The accumulator updates of one sample for items [IT, I1), item IT's at
+// acc[O..]: by compile-time recursion, so that every index is a constant
+// and every accumulator a register.
+template <int K, int QN, int IT, int I1, int O, int W>
+__device__ __forceinline__ void update_items(float (&acc)[W],
+                                             const float (&b_re)[K],
+                                             const float (&b_im)[K],
+                                             float r_re, float r_im,
+                                             const float (&tp)[2 * QN + 1]) {
+    if constexpr (IT < I1) {
+        if constexpr (IT < K) {
+            const float br = b_re[IT], bi = b_im[IT];
+            const float pr = br * r_re + bi * r_im;
+            const float pi = br * r_im - bi * r_re;
+#pragma unroll
+            for (int q = 0; q <= QN; ++q) {
+                acc[O + 2 * q] += tp[q] * pr;
+                acc[O + 2 * q + 1] += tp[q] * pi;
+            }
+        } else {
+            constexpr int k = pair_first(K, IT - K);
+            constexpr int kp = pair_second(K, IT - K);
+            const float ar = b_re[k], ai = b_im[k];
+            const float br = b_re[kp], bi = b_im[kp];
+            // cr = ar br + ai bi, ci = ai br - ar bi, contracted as the
+            // block evaluation's build does.  Pinned: with k == k' known
+            // here, ci's two products are one value and would cancel to
+            // an exact 0 where the block kernel keeps the fma's residual.
+            const float cr = __fmaf_rn(ar, br, __fmul_rn(ai, bi));
+            const float ci = __fmaf_rn(ai, br, -__fmul_rn(ar, bi));
+#pragma unroll
+            for (int q = 0; q <= 2 * QN; ++q) {
+                acc[O + 2 * q] += tp[q] * cr;
+                acc[O + 2 * q + 1] += tp[q] * ci;
+            }
+        }
+        update_items<K, QN, IT + 1, I1, O + item_width(K, QN, IT)>(
+            acc, b_re, b_im, r_re, r_im, tp);
+    }
+}
+
+// Items [IT, I1): each power's warp_sum, written by lane 0 in the block
+// layout.
+template <int K, int QN, int IT, int I1, int O, int W>
+__device__ __forceinline__ void reduce_items(const float (&acc)[W],
+                                             const VoxelSmem& s, int lane) {
+    if constexpr (IT < I1) {
+        constexpr int n_pow = item_width(K, QN, IT) / 2;
+        float* dst = IT < K ? s.nm + IT * (QN + 1) * 2
+                            : s.mm + (IT - K) * (2 * QN + 1) * 2;
+#pragma unroll
+        for (int q = 0; q < n_pow; ++q) {
+            const float sr = warp_sum(acc[O + 2 * q]);
+            const float si = warp_sum(acc[O + 2 * q + 1]);
+            if (lane == 0) {
+                dst[q * 2 + 0] = sr;
+                dst[q * 2 + 1] = si;
+            }
+        }
+        reduce_items<K, QN, IT + 1, I1, O + item_width(K, QN, IT)>(acc, s,
+                                                                  lane);
+    }
+}
+
 // One sweep over the lane's samples: the bases, model and residual; with
 // `with_cost` the cost partials; the accumulators of items [I0, I1), which
 // are then reduced (warp_sum) and written by lane 0 in the block layout:
@@ -204,7 +283,13 @@ __device__ __forceinline__ void moment_pass(const PassCtx& c, bool with_cost) {
     float acc[kW + 1];
 #pragma unroll
     for (int j = 0; j <= kW; ++j) acc[j] = 0.f;
+    // y of the lane's next sample is loaded one sample ahead.
+    float y_re = c.lane < c.n_t ? c.y_re[c.lane] : 0.f;
+    float y_im = c.lane < c.n_t ? c.y_im[c.lane] : 0.f;
     for (int i = c.lane; i < c.n_t; i += 32) {
+        const bool more = i + 32 < c.n_t;
+        const float y_re_next = more ? c.y_re[i + 32] : 0.f;
+        const float y_im_next = more ? c.y_im[i + 32] : 0.f;
         const float ti = c.s_t[i];
         float b_re[K], b_im[K];
         float m_re = 0.f, m_im = 0.f;
@@ -247,71 +332,36 @@ __device__ __forceinline__ void moment_pass(const PassCtx& c, bool with_cost) {
                                   s_par[k * 5 + 3] * kDeg;
                 float sn, cs;
                 sincosf(ang, &sn, &cs);
-                b_re[k] = env * cs;
-                b_im[k] = env * sn;
+                // Rounded products, as where they feed the moments too: a
+                // cost-only pass must not fuse them into the model sum.
+                b_re[k] = __fmul_rn(env, cs);
+                b_im[k] = __fmul_rn(env, sn);
                 m_re += b_re[k];
                 m_im += b_im[k];
             }
         }
-        const float r_re = c.y_re[i] - m_re;
-        const float r_im = c.y_im[i] - m_im;
+        const float r_re = y_re - m_re;
+        const float r_im = y_im - m_im;
+        y_re = y_re_next;
+        y_im = y_im_next;
         if (with_cost)
             s.cp[((i >> 5) & 7) * 32 + c.lane] += r_re * r_re + r_im * r_im;
         float tp[kQm + 1];
         tp[0] = 1.f;
 #pragma unroll
         for (int q = 1; q <= kQm; ++q) tp[q] = tp[q - 1] * ti;
-#pragma unroll
-        for (int it = I0; it < I1; ++it) {
-            const int o = items_width(K, QN, I0, it);
-            if (it < K) {
-                const float br = b_re[it], bi = b_im[it];
-                const float pr = br * r_re + bi * r_im;
-                const float pi = br * r_im - bi * r_re;
-#pragma unroll
-                for (int q = 0; q <= QN; ++q) {
-                    acc[o + 2 * q] += tp[q] * pr;
-                    acc[o + 2 * q + 1] += tp[q] * pi;
-                }
-            } else {
-                const int k = pair_first(K, it - K);
-                const int kp = pair_second(K, it - K);
-                const float ar = b_re[k], ai = b_im[k];
-                const float br = b_re[kp], bi = b_im[kp];
-                const float cr = ar * br + ai * bi;
-                const float ci = ai * br - ar * bi;
-#pragma unroll
-                for (int q = 0; q <= kQm; ++q) {
-                    acc[o + 2 * q] += tp[q] * cr;
-                    acc[o + 2 * q + 1] += tp[q] * ci;
-                }
-            }
-        }
+        update_items<K, QN, I0, I1, 0>(acc, b_re, b_im, r_re, r_im, tp);
     }
-#pragma unroll
-    for (int it = I0; it < I1; ++it) {
-        const int o = items_width(K, QN, I0, it);
-        const int n_pow = item_width(K, QN, it) / 2;
-        float* dst = it < K ? s.nm + it * (QN + 1) * 2
-                            : s.mm + (it - K) * (kQm + 1) * 2;
-#pragma unroll
-        for (int q = 0; q < n_pow; ++q) {
-            const float sr = warp_sum(acc[o + 2 * q]);
-            const float si = warp_sum(acc[o + 2 * q + 1]);
-            if (c.lane == 0) {
-                dst[q * 2 + 0] = sr;
-                dst[q * 2 + 1] = si;
-            }
-        }
-    }
+    reduce_items<K, QN, I0, I1, 0>(acc, s, c.lane);
 }
 
-template <int K, int QN, int P>
+template <int K, int QN, int kBudget, int P>
 __device__ __forceinline__ void run_passes(const PassCtx& c, bool fuse_cost) {
-    if constexpr (P < n_passes(K, QN)) {
-        moment_pass<K, QN, pass_start(K, QN, P), pass_start(K, QN, P + 1)>(
-            c, P == 0 && fuse_cost);
-        run_passes<K, QN, P + 1>(c, fuse_cost);
+    if constexpr (P < n_passes(K, QN, kBudget)) {
+        constexpr int i0 = pass_start(K, QN, P, kBudget);
+        constexpr int i1 = pass_start(K, QN, P + 1, kBudget);
+        moment_pass<K, QN, i0, i1>(c, P == 0 && fuse_cost);
+        run_passes<K, QN, kBudget, P + 1>(c, fuse_cost);
     }
 }
 
@@ -326,7 +376,7 @@ __device__ __forceinline__ float warp_cost(const VoxelSmem& s, int lane) {
 // One voxel by one warp: writes its cost and g, stages H (F x F, row-major)
 // in s.work and returns true; with the gate, a rejected voxel writes its
 // cost only and returns false.
-template <int K, int QN>
+template <int K, int QN, int kBudget>
 __device__ __forceinline__ bool warp_eval(const WarpArgs& a,
                                           const VoxelSmem& s,
                                           const float* s_t, long long v,
@@ -359,7 +409,7 @@ __device__ __forceinline__ bool warp_eval(const WarpArgs& a,
     }
 
     // ---- 2. moments, in passes ----
-    run_passes<K, QN, 0>(c, !gate);
+    run_passes<K, QN, kBudget, 0>(c, !gate);
     if (!gate) {
         const float cost = warp_cost(s, lane);
         if (lane == 0) a.cost[v] = cost;
@@ -470,8 +520,8 @@ __device__ __forceinline__ bool warp_eval(const WarpArgs& a,
 }
 
 // K2 (kSlab: H as the voxel-minor slab (F*F, B)) and K9 (dense (B, F, F)).
-template <int K, int QN, bool kSlab>
-__global__ void __launch_bounds__(kVox * 32)
+template <int K, int QN, class C>
+__global__ void __launch_bounds__(kVox * 32, C::blocks)
     normal_eq_warp_kernel(const WarpArgs a) {
     extern __shared__ float smem[];
     __shared__ int s_ok[kVox];
@@ -497,10 +547,14 @@ __global__ void __launch_bounds__(kVox * 32)
         s.dx[f] = a.dxdu != nullptr ? a.dxdu[v * n_free + f] : 1.f;
     live_barrier(n_live);
 
-    const bool ok = warp_eval<K, QN>(a, s, s_t, v, lane);
+    const bool ok = warp_eval<K, QN, C::budget>(a, s, s_t, v, lane);
 
     const int ff = n_free * n_free;
-    if constexpr (kSlab) {
+    if constexpr (C::slab && !kSlabRows) {
+        if (ok)
+            for (int e = lane; e < ff; e += 32)
+                a.h[(long long)e * a.b + v] = s.work[e];
+    } else if constexpr (C::slab) {
         const int work_off = (int)(s.work - (areas + w * a.stride));
         if (lane == 0) s_ok[w] = ok;
         live_barrier(n_live);
@@ -517,45 +571,45 @@ __global__ void __launch_bounds__(kVox * 32)
     }
 }
 
-template <int K, int QN, bool kSlab>
+template <int K, int QN, class C>
 int launch_warp(WarpArgs a, cudaStream_t stream) {
     a.stride = warp_stride(a.n_t, K, QN, a.n_free, a.n_rows, a.factored);
     const size_t smem =
         warp_smem_bytes(a.n_t, K, QN, a.n_free, a.n_rows, a.factored);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            normal_eq_warp_kernel<K, QN, kSlab>,
+            normal_eq_warp_kernel<K, QN, C>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     if (a.b > 0) {
         const long long blocks = (a.b + kVox - 1) / kVox;
-        normal_eq_warp_kernel<K, QN, kSlab>
+        normal_eq_warp_kernel<K, QN, C>
             <<<(unsigned)blocks, kVox * 32, smem, stream>>>(a);
     }
     return (int)cudaGetLastError();
 }
 
-template <bool kSlab, int K, int QN, int QN_MAX>
+template <class C, int K, int QN, int QN_MAX>
 int launch_warp_qn(const WarpArgs& a, int q_n, cudaStream_t stream) {
     if constexpr (QN > QN_MAX) {
         return (int)cudaErrorInvalidValue;
     } else {
-        if (q_n == QN) return launch_warp<K, QN, kSlab>(a, stream);
-        return launch_warp_qn<kSlab, K, QN + 1, QN_MAX>(a, q_n, stream);
+        if (q_n == QN) return launch_warp<K, QN, C>(a, stream);
+        return launch_warp_qn<C, K, QN + 1, QN_MAX>(a, q_n, stream);
     }
 }
 
 // The instantiation for (n_peaks, q_n), q_n in [QN_MIN, QN_MAX].
-template <bool kSlab, int QN_MIN, int QN_MAX, int K = 1>
+template <class C, int QN_MIN, int QN_MAX, int K = 1>
 int launch_warp_any(const WarpArgs& a, int n_peaks, int q_n,
                     cudaStream_t stream) {
     if constexpr (K > kMaxPeaks) {
         return (int)cudaErrorInvalidValue;
     } else {
         if (n_peaks == K)
-            return launch_warp_qn<kSlab, K, QN_MIN, QN_MAX>(a, q_n, stream);
-        return launch_warp_any<kSlab, QN_MIN, QN_MAX, K + 1>(a, n_peaks, q_n,
+            return launch_warp_qn<C, K, QN_MIN, QN_MAX>(a, q_n, stream);
+        return launch_warp_any<C, QN_MIN, QN_MAX, K + 1>(a, n_peaks, q_n,
                                                              stream);
     }
 }

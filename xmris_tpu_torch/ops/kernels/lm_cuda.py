@@ -48,9 +48,11 @@ MAX_QN = 2
 _BLOCK_T = 128
 _SMEM_LIMIT = 232448  # bytes a block may use on sm_90
 _DEG = math.pi / 180.0
-# csrc/lm_v9_warp.cuh: voxels (warps) a block, accumulator floats a pass.
+# csrc/lm_v9_warp.cuh: voxels (warps) a block; accumulator floats a moment
+# pass of K2 (csrc/lm_v9.cu) and of K9 (csrc/lm_v8.cu).
 WARP_VOXELS = 8
-PASS_BUDGET = 112
+K2_PASS_BUDGET = 64
+K9_PASS_BUDGET = 112
 
 
 def _row_degrees(ptype: int, g_zero: bool) -> tuple[int, ...]:
@@ -306,10 +308,11 @@ def moment_items(n_peaks: int, q_n: int) -> list[tuple[int, int, int]]:
 
 
 def moment_passes(n_peaks: int, q_n: int,
-                  budget: int = PASS_BUDGET) -> list[tuple[int, int]]:
+                  budget: int) -> list[tuple[int, int]]:
     """Item ranges ``[i0, i1)`` of the sweeps over the samples: greedy, at
-    most ``budget`` accumulator floats (2 per power) a pass
-    (``pass_start`` in csrc/lm_v9_warp.cuh)."""
+    most ``budget`` accumulator floats (2 per power) a pass, or one item
+    where an item alone is wider (``pass_start`` in csrc/lm_v9_warp.cuh;
+    ``K2_PASS_BUDGET``, ``K9_PASS_BUDGET``)."""
     passes, start, used = [], 0, 0
     for i, (_, _, n_pow) in enumerate(moment_items(n_peaks, q_n)):
         if used and used + 2 * n_pow > budget:

@@ -2,8 +2,9 @@
 
 Replaces ``xmris_tpu/ops/kernels/lm_pallas.py::lm_loop_pallas_v10``.  The
 CUDA source is ``csrc/lm_v10.cu`` (its header comment gives the bound on the
-H100 and the design); it evaluates through K2's body (``csrc/lm_v9_eval.cuh``)
-and solves with K3's arithmetic in K3's order, in one warp's registers.
+H100 and the design); it evaluates through the block evaluation of
+``csrc/lm_v9_eval.cuh`` (bit for bit K2's warp evaluation) and solves with
+K3's arithmetic in K3's order, in one warp's registers.
 :func:`lm_loop_v10_plain` repeats its trips with the plain K2 evaluation and
 the plain K3 solve.
 
