@@ -27,9 +27,7 @@ warp redesign, one warp per voxel after it):
 
 The warp design adds "4 voxels a block"; "pass budget B, N blocks an SM"
 for both kernels (B accumulator floats a sweep over the samples, N blocks
-an SM as the register cap; as built, K2 takes 64 and 2, K9 112 and 1);
-and "slab store per warp" (each warp stores its own voxel's slab column,
-no block barrier).  Variants that skip work
+an SM as the register cap; as built, K2 takes 64 and 2, K9 112 and 1).  Variants that skip work
 compute wrong outputs: they measure cost, not a candidate.
 
 For each checkout and source variant it prints the registers and spills
@@ -97,13 +95,9 @@ _WARP = {
                           "constexpr int kVox = 4;")],
     **{f"pass budget {b}, {n} block{'s' * (n > 1)} an SM": _budget(b, n)
        for b, n in ((112, 1), (112, 2), (64, 1), (64, 2), (40, 3))},
-    "slab store per warp": [("lm_v9_warp.cuh",
-                             "constexpr bool kSlabRows = true;",
-                             "constexpr bool kSlabRows = false;")],
 }
 # Variants of K2 alone (the first two are made by the call).
-K2_ONLY = ("direct basis", "gate, all rejected", "dense H store",
-           "slab store per warp")
+K2_ONLY = ("direct basis", "gate, all rejected", "dense H store")
 
 
 def _design(csrc: Path) -> dict:

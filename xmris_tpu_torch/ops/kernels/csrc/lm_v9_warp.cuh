@@ -46,7 +46,11 @@
 // item's order.  The cost keeps the block's 256-thread order: lane l's
 // partial m mod 8 takes the samples the block's thread 32 (m mod 8) + l
 // took, and the 8 warp sums are added in that order.  3a-3c are the
-// block's expressions, entry for entry.
+// block's expressions, entry for entry.  Where this code shape would let
+// the compiler round otherwise than the block build did (a diagonal pair,
+// whose two products of ci are one value; a direct basis product that feeds
+// only the model sum in a cost-only pass), the rounding is pinned with
+// __fmaf_rn/__fmul_rn to the block build's.
 
 #pragma once
 
@@ -54,8 +58,7 @@
 
 namespace {
 
-constexpr int kVox = 8;           // voxels (one warp each) a block
-constexpr bool kSlabRows = true;  // slab H stored by rows of the block
+constexpr int kVox = 8;  // voxels (one warp each) a block
 
 // A kernel's build: H as the slab (K2) or dense (K9), the accumulator
 // floats a moment pass keeps, and the blocks an SM must hold (which caps
@@ -550,11 +553,7 @@ __global__ void __launch_bounds__(kVox * 32, C::blocks)
     const bool ok = warp_eval<K, QN, C::budget>(a, s, s_t, v, lane);
 
     const int ff = n_free * n_free;
-    if constexpr (C::slab && !kSlabRows) {
-        if (ok)
-            for (int e = lane; e < ff; e += 32)
-                a.h[(long long)e * a.b + v] = s.work[e];
-    } else if constexpr (C::slab) {
+    if constexpr (C::slab) {
         const int work_off = (int)(s.work - (areas + w * a.stride));
         if (lane == 0) s_ok[w] = ok;
         live_barrier(n_live);
