@@ -12,7 +12,8 @@ and the script exits non-zero):
 2. build the fifteen CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
    (one nvcc per source, in parallel), and print ptxas's registers and
    spills of K2 and K9 (one warp per voxel, the moments in registers;
-   their bench-shape instantiations, K = 5 and q_n = 1);
+   their bench-shape instantiations, K = 5 and q_n = 1), K6a and K6b (one
+   warp per voxel, the factor in registers; F = 20) and K8;
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
@@ -21,7 +22,8 @@ and the script exits non-zero):
    bench shape and at 500 -> 1024, which has no split, the split kernel at
    768 -> 1536; the dense route, not a kernel, at 1000 -> 1500 against the
    plain version with its own counter; K6a bit for bit against
-   its twin and K3; K8
+   its twin and K3, K6b against its twin and K4, both beside the cuSOLVER
+   composition of the same functions as a yardstick; K8
    by the share of voxels within the reference's tolerances; K13 and K14
    bit for bit K7, K11 K12 on its unmasked voxels, K10 against K11 per
    entry; K2's accept gate: the cost bit for bit, g and H on the improving
@@ -215,6 +217,16 @@ def _ptxas_summary(log, source, name_part):
     return " / ".join(out)
 
 
+def _same_bits(a, b):
+    """Equal bit for bit: NaN at the same places, every other float32 entry
+    with the same bits (the sign of a zero included)."""
+    import torch
+
+    nan = torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
 def _wrapped(a):
     """Phase difference in degrees wrapped into [-180, 180)."""
     import torch
@@ -322,6 +334,12 @@ def main(argv) -> int:
         print(f"   {tag} ({src}, K=5, q_n=1): "
               f"{_ptxas_summary(log, src, 'normal_eq_warp_kernelILi5ELi1E')}",
               flush=True)
+    for tag, name in (("K6a", "spd_solve_damped_dense_kernelILi20E"),
+                      ("K6b", "spd_inverse_diag_dense_kernelILi20E")):
+        print(f"   {tag} (spd.cu, F=20): {_ptxas_summary(log, 'spd.cu', name)}",
+              flush=True)
+    print(f"   K8 (lm_v10.cu): {_ptxas_summary(log, 'lm_v10.cu', 'lm_loop')}",
+          flush=True)
 
     # ---- inputs: the bench phantom and prior ----
     fids, weight, freqs = bi.make_inputs()
@@ -517,6 +535,13 @@ def main(argv) -> int:
             and torch.equal(a_k[~bad], d_k[~bad])):
         raise AssertionError("K6a differs from its plain version or from K3")
     print("   K6a equals its plain version, and K3 on the slab form, bit for bit")
+    i0_k = spd.spd_inverse_diag(h_sp, 0.0)
+    _sync()
+    if not (_same_bits(j_k[~bad], j_p[~bad])
+            and _same_bits(j_k[~bad], i0_k[~bad])):
+        raise AssertionError("K6b differs from its plain version or from K4")
+    print("   K6b equals its plain version, and K4 on the slab form, bit for bit")
+    del i0_k
     e6a = _assert_close("K6a solve (dense)", a_k, a_p, 2e-6, 1e-7, mask=~bad)
     e3 = _assert_close("K3 solve", d_k, d_p, 2e-6, 1e-7, mask=~bad)
     e4 = _assert_close("K4 inverse diag", i_k, i_p, 2e-4, 0.0, mask=~bad)
@@ -555,6 +580,29 @@ def main(argv) -> int:
         bound=_bound(b * 4 * (n_free ** 2 + 2 * n_free + 1),
                      spd_flops + b * 2 * n_free ** 2),
     )
+    # Yardstick, not a single call (library_ms stays null): the cuSOLVER
+    # composition of the same functions, the damping done beforehand.
+    diag = torch.diagonal(h_bff, dim1=1, dim2=2)
+    damped = h_bff.clone()
+    torch.diagonal(damped, dim1=1, dim2=2).copy_(
+        diag + lam[:, None] * torch.clamp(diag, min=1e-12) + 1e-12)
+
+    def chol_solve():
+        fac, _ = torch.linalg.cholesky_ex(damped)
+        return torch.cholesky_solve(g_k[:, :, None], fac)
+
+    def chol_inverse_diag():
+        fac, _ = torch.linalg.cholesky_ex(h_bff)
+        return torch.diagonal(torch.cholesky_inverse(fac), dim1=1, dim2=2)
+
+    composition = {"K6a": _time_ms(chol_solve, 10),
+                   "K6b": _time_ms(chol_inverse_diag, 10)}
+    print(f"   cuSOLVER composition (cholesky_ex + cholesky_solve; "
+          f"cholesky_ex + cholesky_inverse + diagonal) at B={b}, F={n_free}: "
+          f"{composition['K6a']:.4f} / {composition['K6b']:.4f} ms; "
+          f"K6a {report['spd_solve_damped_dense']['ms']:.4f} ms, K6b "
+          f"{report['spd_inverse_diag_dense']['ms']:.4f} ms", flush=True)
+    del damped, diag
     del c_p, g_p, h_p, h_sp, h_dense, d_k, d_p, i_k, i_p, j_k, j_p, h_bff
     del a_k, a_p
 

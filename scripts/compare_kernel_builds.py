@@ -20,11 +20,16 @@ prior, parameters within 20 % of its initial values):
 * K9 (``lm_cuda.eq6_normal_equations_v8``, the direct basis) with and
   without a voxel mask;
 * K7 and K12 (``lm_jac_cuda.eq6_normal_equations_v3`` / ``_v5``);
-* K8 (``lm_loop_cuda.lm_loop_v10``, 24 iterations).
+* K8 (``lm_loop_cuda.lm_loop_v10``, 24 iterations);
+* K3, K4 (with the 1e-12 ridge and without), K6a and K6b (``spd``) on K2's
+  H of the bench prior (F = 20) and of the free-g prior (F = 25), in slab
+  and in dense form, with three planted non-SPD voxels (H[0, 0] = -1) and
+  ``lam = logspace(-5, -1)``.
 
 Only entry points both checkouts have are called.  Every output must be
-equal bit for bit; the script prints one line per output and exits
-non-zero on any difference.
+equal bit for bit (NaN at the same places, the float32 bits of every other
+entry the same); the script prints one line per output and exits non-zero
+on any difference.
 """
 
 from __future__ import annotations
@@ -48,10 +53,16 @@ def _dump(repo: str, out: str) -> None:
         external_to_internal,
         hashable_pmap,
         normal_eq_plan,
+        slab_to_bff,
     )
     from xmris_tpu_torch.fitting.prior import prior_from_csv_text
     from xmris_tpu_torch.ops.bounds import expand_params_batched
-    from xmris_tpu_torch.ops.kernels import lm_cuda, lm_jac_cuda, lm_loop_cuda
+    from xmris_tpu_torch.ops.kernels import (
+        lm_cuda,
+        lm_jac_cuda,
+        lm_loop_cuda,
+        spd,
+    )
 
     assert Path(lm_cuda.__file__).resolve().is_relative_to(Path(repo).resolve())
     dev = torch.device("cuda", 0)
@@ -113,6 +124,21 @@ def _dump(repo: str, out: str) -> None:
         res = lm_cuda.eq6_normal_equations(grids_g, re, im, t, dxdu_g, plan)
         for name, val in zip(("cost", "g", "H"), res):
             outs[f"K2 free g factored={factored} {name}"] = val
+    lam = torch.logspace(-5, -1, b, device=dev)
+    planted = torch.tensor([5, 777, b - 3], device=dev)
+    for f_free, args in ((nf, (grids, re, im, t, dxdu)),
+                         (nf_g, (grids_g, re, im, t, dxdu_g))):
+        pss = ps if f_free == nf else ps_g
+        _, g_s, h_s = lm_cuda.eq6_normal_equations(
+            *args, normal_eq_plan(pss, f_free, bi.MHZ, True))
+        h_s[0, planted] = -1.0  # H[0, 0] < 0: not SPD
+        dense = slab_to_bff(h_s, f_free).contiguous()
+        tag = f"F={f_free}"
+        outs[f"K3 {tag}"] = spd.spd_solve_damped(h_s, g_s, lam)
+        outs[f"K4 ridge 1e-12 {tag}"] = spd.spd_inverse_diag(h_s, 1e-12)
+        outs[f"K4 no ridge {tag}"] = spd.spd_inverse_diag(h_s, 0.0)
+        outs[f"K6a {tag}"] = spd.spd_solve_damped_dense(dense, g_s, lam)
+        outs[f"K6b {tag}"] = spd.spd_inverse_diag_dense(dense)
     plan = normal_eq_plan(ps, nf, bi.MHZ, True)
     k, active = pk.n_peaks, plan.active
     for masked in (False, True):
@@ -139,6 +165,20 @@ def _dump(repo: str, out: str) -> None:
     torch.save({n: v.cpu() for n, v in outs.items()}, out)
 
 
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit: for float32, NaN at the same places and the bits
+    of every other entry (the sign of a zero included) the same."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--dump":
         _dump(argv[1], argv[2])
@@ -163,7 +203,7 @@ def main(argv) -> int:
     failed = 0
     for name, val in dumps["this"].items():
         ref = dumps["other"][name]
-        same = val.shape == ref.shape and torch.equal(val, ref)
+        same = _same_bits(val, ref)
         diff = "" if same else (
             f" ({int((val != ref).sum())} of {val.numel()} entries differ)"
             if val.shape == ref.shape else " (shapes differ)")

@@ -504,6 +504,78 @@ def test_spd_solve_damped_dense_kernel_matches_plain(dev):
     assert torch.equal(x[~bad], spd.spd_solve_damped(h, g, lam)[~bad])
 
 
+def _spd_dense_case(dev, b, f, seed):
+    """b seeded SPD (F, F) matrices (rows six orders of magnitude apart on
+    every third voxel, as a Gauss-Newton H), two of them made non-SPD (a
+    negative first pivot at voxel 1, a negative last pivot at voxel b - 1),
+    with g, lam = logspace(-5, -1) and the slab form (F*F, B)."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(b, f, f))
+    h = m @ m.transpose(0, 2, 1) + 0.1 * f * np.eye(f)
+    d = np.logspace(-3, 3, f)
+    h[::3] = d[:, None] * h[::3] * d[None, :]
+    h = h.astype(np.float32)
+    bad = np.zeros(b, bool)
+    bad[[1, b - 1]] = True
+    h[1, 0, 0] = -1.0
+    h[b - 1, f - 1, f - 1] = -4.0 * abs(h[b - 1, f - 1, f - 1]) - 1.0
+    dense = torch.as_tensor(h, device=dev)
+    slab = dense.permute(1, 2, 0).reshape(f * f, b).contiguous()
+    g = torch.as_tensor(rng.normal(size=(b, f)).astype(np.float32), device=dev)
+    lam = torch.logspace(-5, -1, b, device=dev)
+    return dense, slab, g, lam, torch.as_tensor(bad, device=dev)
+
+
+def _assert_bits(got, ref):
+    """Equal bit for bit: NaN exactly where ``ref`` is NaN, every other
+    entry's float32 bits (the sign of a zero included) the same."""
+    assert got.shape == ref.shape
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("f", [1, 3, 20, 21, 32])
+def test_spd_dense_warp_kernels_match_plain_and_slab(dev, f):
+    """K6a and K6b (one warp a voxel, rows padded to a multiple of 4) at
+    B = 37, not a multiple of the 4 voxels a block: bit for bit their plain
+    versions and K3/K4 on the slab form, NaN rows exactly at the non-SPD
+    voxels, one launch each."""
+    dense, slab, g, lam, bad = _spd_dense_case(dev, 37, f, seed=f)
+    K.reset_counters()
+    x = spd.spd_solve_damped_dense(dense, g, lam)
+    d = spd.spd_inverse_diag_dense(dense)
+    torch.cuda.synchronize()
+    launches = K.counters()["launches"]
+    assert launches["spd_solve_damped_dense"] == 1
+    assert launches["spd_inverse_diag_dense"] == 1
+    for out in (x, d):
+        assert torch.equal(torch.isnan(out).all(1), bad)
+        assert not torch.isnan(out[~bad]).any()
+    _assert_bits(x, spd.spd_solve_damped_dense_plain(dense, g, lam))
+    _assert_bits(d, spd.spd_inverse_diag_dense_plain(dense))
+    _assert_bits(x[~bad], spd.spd_solve_damped(slab, g, lam)[~bad])
+    _assert_bits(d[~bad], spd.spd_inverse_diag(slab, 0.0)[~bad])
+
+
+def test_spd_dense_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
+    for f in (1, 20, 32):
+        dense = torch.zeros((0, f, f), device=dev)
+        K.reset_counters()
+        x = spd.spd_solve_damped_dense(dense, torch.zeros((0, f), device=dev),
+                                       torch.zeros(0, device=dev))
+        d = spd.spd_inverse_diag_dense(dense)
+        torch.cuda.synchronize()
+        assert x.shape == d.shape == (0, f)
+        assert not any(K.counters()["launches"].values())
+    dense = torch.eye(33, device=dev).repeat(2, 1, 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        spd.spd_solve_damped_dense(dense, torch.ones((2, 33), device=dev),
+                                   torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        spd.spd_inverse_diag_dense(dense)
+
+
 @pytest.mark.parametrize("b", [37, 64])
 def test_jac_normal_equations_kernels_match_plain(dev, b):
     """K7 and K12 against their plain twins, each entry at its own rows'

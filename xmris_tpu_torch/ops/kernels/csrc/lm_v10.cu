@@ -48,18 +48,12 @@ namespace {
 
 constexpr int kBoth = 0, kLower = 1, kUpper = 2;  // bound kinds; 3 is free
 constexpr float kEps64 = 64.f * 1.1920928955078125e-07f;  // 64 * FLT_EPSILON
-constexpr unsigned kFull = 0xffffffffu;
 
 // The damped Cholesky solve of the carried system by one warp (K3's
-// arithmetic in K3's order; see the header), on kF >= n_free rows: lane i
-// holds row i of L(i, j) = A[j][i], j <= i, the diagonal damped; rows
-// n_free..kF-1 are the identity and their right-hand side 0, which leaves
-// every operation on the first n_free rows as it is (their updates come
-// after, and subtract exact zeros).  Every loop has kF trips, with no
-// branch, so the independent shuffles of a column issue together.  Writes
-// the step to s_delta, whether it is finite to *s_ok, and the predicted
-// decrease sum_i g_i delta_i (in order; 0 terms for a failed solve) to
-// *s_pred.
+// arithmetic in K3's order: spd_factor.cuh's warp factor and
+// substitutions, rows padded to kF), then the step to s_delta, whether it
+// is finite to *s_ok, and the predicted decrease sum_i g_i delta_i (in
+// order; 0 terms for a failed solve) to *s_pred.
 template <int kF>
 __device__ __forceinline__ void warp_factor_solve(
     const float* s_h, const float* s_g, float lam, int n_free, float* s_delta,
@@ -67,45 +61,11 @@ __device__ __forceinline__ void warp_factor_solve(
     const int lane = threadIdx.x & 31;
     const bool real = lane < n_free;
     float a[kF];
-#pragma unroll
-    for (int j = 0; j < kF; ++j) {
-        const float x = (j <= lane && real) ? s_h[j * n_free + lane] : 0.f;
-        a[j] = (j == lane) ? (real ? damp(x, lam) : 1.f) : x;
-    }
-    // Factor: column k scaled by 1/sqrt(pivot), then the trailing update.
-#pragma unroll
-    for (int k = 0; k < kF; ++k) {
-        float dk = __shfl_sync(kFull, a[k], k);
-        dk = dk > 0.f ? dk : NAN;
-        const float inv = __fdiv_rn(1.f, __fsqrt_rn(dk));
-        if (lane >= k) a[k] = __fmul_rn(a[k], inv);
-#pragma unroll
-        for (int j = k + 1; j < kF; ++j) {
-            const float ljk = __shfl_sync(kFull, a[k], j);
-            if (lane >= j) a[j] = __fsub_rn(a[j], __fmul_rn(a[k], ljk));
-        }
-    }
-    // Forward substitution L y = g, by columns.
+    warp_factor<kF>(
+        n_free, [s_h, n_free](int j, int i) { return s_h[j * n_free + i]; },
+        [lam](float x) { return damp(x, lam); }, a);
     const float g_own = real ? s_g[lane] : 0.f;
-    float acc = g_own, y = 0.f;
-#pragma unroll
-    for (int j = 0; j < kF; ++j) {
-        if (lane == j) y = __fdiv_rn(acc, a[j]);
-        const float yj = __shfl_sync(kFull, y, j);
-        if (lane > j) acc = __fsub_rn(acc, __fmul_rn(a[j], yj));
-    }
-    // Back substitution L^T x = y in K3's order: lane j > i forms
-    // L(j, i) x_j, lane i subtracts them for j = i+1, i+2, ...
-    float x = 0.f;
-#pragma unroll
-    for (int i = kF - 1; i >= 0; --i) {
-        const float p = __fmul_rn(a[i], x);
-        float acc_b = y;
-#pragma unroll
-        for (int j = i + 1; j < kF; ++j)
-            acc_b = __fsub_rn(acc_b, __shfl_sync(kFull, p, j));
-        if (lane == i) x = __fdiv_rn(acc_b, a[i]);
-    }
+    const float x = warp_back<kF>(a, warp_forward<kF>(a, g_own), n_free);
     const int ok = __all_sync(kFull, !real || isfinite(x)) ? 1 : 0;
     const float pg = __fmul_rn(g_own, ok ? x : 0.f);
     float pred = 0.f;
@@ -123,17 +83,8 @@ __device__ __forceinline__ void warp_factor_solve(
 __device__ __forceinline__ void warp_factor_solve_any(
     const float* s_h, const float* s_g, float lam, int n_free, float* s_delta,
     int* s_ok, float* s_pred) {
-    switch ((n_free + 3) / 4) {
-#define XMT_SOLVE_CASE(q)                                                  \
-    case q:                                                                \
-        warp_factor_solve<4 * q>(s_h, s_g, lam, n_free, s_delta, s_ok,     \
-                                 s_pred);                                  \
-        break;
-        XMT_SOLVE_CASE(1) XMT_SOLVE_CASE(2) XMT_SOLVE_CASE(3)
-        XMT_SOLVE_CASE(4) XMT_SOLVE_CASE(5) XMT_SOLVE_CASE(6)
-        XMT_SOLVE_CASE(7) XMT_SOLVE_CASE(8)
-#undef XMT_SOLVE_CASE
-    }
+    XMT_WARP_ROWS(n_free, warp_factor_solve<kF>(s_h, s_g, lam, n_free,
+                                                s_delta, s_ok, s_pred))
 }
 
 // External value and dx/du of internal u (ops.bounds.internal_to_external

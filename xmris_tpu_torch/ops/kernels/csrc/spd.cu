@@ -14,17 +14,28 @@
 //
 // What bounds them on the H100: each reads the Hessians once (26 MB per
 // bench grid of 16 384 voxels at F = 20, ~8 us at 3.35 TB/s) and does
-// ~F^3/3 = 2.7 kFLOP per voxel, sequentially dependent.  Design: one thread
-// per voxel.  K3/K4 read the voxel-minor (F*F, B) slab, so every load is
-// coalesced across a warp.  K6a/K6b's row-major matrices are 1.6 KB apart,
-// so a block of 32 voxels first copies its contiguous 51 KB tile into shared
-// memory with coalesced loads (row pitch F*F | 1, an odd number of words,
-// so the per-thread reads hit 32 distinct banks), then factors from there.
-// Every kernel reads A[j][i] for i >= j through the same `load_and_factor`
-// and solves through the same `solve_with_factor`, so K6a equals K3, and
-// K6b K4, bit for bit on the same matrices.
-// The packed lower triangle (F(F+1)/2 floats) lives in thread-local memory
-// (it spills out of registers at F = 20; L1 keeps it close).
+// ~F^3/3 = 2.7 kFLOP per voxel, sequentially dependent.
+// K3/K4: one thread per voxel on the voxel-minor (F*F, B) slab, so every
+// load is coalesced across a warp; the packed lower triangle (F(F+1)/2
+// floats) lives in thread-local memory (it spills out of registers at
+// F = 20; L1 keeps it close).
+// K6a/K6b: one warp per voxel, 8 voxels a block, no shared memory.  A
+// thread per voxel gave 16 384 threads, 512 warps: ~4 an SM, each thread's
+// factor serial in local memory (the design this replaced also staged a
+// block's 51 KB tile in shared memory, which took most of L1 from that
+// local memory: K6a/K6b 0.45 / 0.53 ms on an H100 against 0.14 / 0.17
+// without the tile, scripts/ablate_spd.py).  Here lane i loads column i of row j (the upper
+// triangle, j <= i), contiguous across the lanes, and holds row i of the
+// Cholesky factor in registers (spd_factor.cuh's warp factor and
+// substitutions, as K8 runs them, unrolled over F rounded up to a multiple
+// of 4); each column step is a few shuffles, and 16 384 warps fill the
+// card.  K6b then forms column c of L^-1 in lane c (warp_inverse_diag):
+// every lane divides at once, where a lane per row of L^-1 left each
+// row's divisions to one lane (2.2x slower, and 72 registers with spills).
+// Every kernel reads A[j][i] for i >= j and factors, substitutes and forms
+// the inverse diagonal in the same sequence of correctly rounded operations
+// (K3's and K4's order), so K6a equals K3, and K6b K4, bit for bit on the
+// same matrices.
 //
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn/
 // __fsub_rn, no fused multiply-add) in the order of the plain PyTorch
@@ -39,7 +50,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxF = 32;
-constexpr int kDenseVoxels = 32;  // K6a/K6b voxels (threads) per block
+constexpr int kWarpVoxels = 8;  // K6a/K6b voxels (warps) per block
 
 // Loads A (upper triangle, row-major rows A[k][i] for i >= k, which is
 // column k by symmetry; `load(k * f + i)` reads it) into packed-lower L,
@@ -88,19 +99,31 @@ __device__ __forceinline__ void inverse_diag_from_factor(const float* L, int f,
     }
 }
 
-// Coalesced copy of a block's contiguous (n_vox, F, F) tile of dense
-// row-major matrices into shared memory at row pitch F*F | 1; returns the
-// block's voxel count.
-__device__ __forceinline__ int stage_dense_tile(const float* __restrict__ h,
-                                                float* tile, long long v0,
-                                                int b, int f) {
-    const int ff = f * f;
-    const int pitch = ff | 1;
-    const int n_vox = min(kDenseVoxels, (int)(b - v0));
-    for (int k = threadIdx.x; k < n_vox * ff; k += blockDim.x)
-        tile[(k / ff) * pitch + k % ff] = h[v0 * ff + k];
-    __syncthreads();
-    return n_vox;
+// diag(A^-1) from the warp factor in K4's order (inverse_diag_from_factor):
+// lane c forms column c of X = L^-1, x[i] = X(i, c) = (delta_ic -
+// sum_{j=c}^{i-1} L(i, j) X(j, c)) / L(i, i), each L(i, j) and L(i, i)
+// broadcast from lane i, and adds X(i, c)^2 to its sum for i = c..n-1 in
+// ascending i from 0.  Every lane divides at once (kF divisions a lane).
+// Rows n..kF-1 are padding: they come after every real row and are not
+// summed, so they add nothing to a real column.  Returns lane c's out_c.
+template <int kF>
+__device__ __forceinline__ float warp_inverse_diag(const float (&a)[kF],
+                                                   int n) {
+    const int lane = threadIdx.x & 31;
+    float x[kF];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kF; ++i) {
+        float acc = (i == lane) ? 1.f : 0.f;
+#pragma unroll
+        for (int j = 0; j < i; ++j) {
+            const float lij = __shfl_sync(kFull, a[j], i);
+            if (j >= lane) acc = __fsub_rn(acc, __fmul_rn(lij, x[j]));
+        }
+        x[i] = __fdiv_rn(acc, __shfl_sync(kFull, a[i], i));
+        if (i >= lane && i < n) sum = __fadd_rn(sum, __fmul_rn(x[i], x[i]));
+    }
+    return sum;
 }
 
 __global__ void __launch_bounds__(kThreads) spd_solve_damped_kernel(
@@ -118,22 +141,25 @@ __global__ void __launch_bounds__(kThreads) spd_solve_damped_kernel(
     for (int i = 0; i < f; ++i) out[(long long)v * f + i] = y[i];
 }
 
-__global__ void __launch_bounds__(kDenseVoxels) spd_solve_damped_dense_kernel(
-    const float* __restrict__ h, const float* __restrict__ g,
-    const float* __restrict__ lam, float* __restrict__ out, int b, int f) {
-    extern __shared__ float tile[];
-    const long long v0 = (long long)blockIdx.x * kDenseVoxels;
-    const int n_vox = stage_dense_tile(h, tile, v0, b, f);
-    if ((int)threadIdx.x >= n_vox) return;
-    const long long v = v0 + threadIdx.x;
-    const float* a = tile + threadIdx.x * ((f * f) | 1);
-    float L[kMaxF * (kMaxF + 1) / 2];
-    float y[kMaxF];
+// K6a: one warp per voxel, the damped factor and both substitutions; a
+// warp past the last voxel returns.
+template <int kF>
+__global__ void __launch_bounds__(32 * kWarpVoxels)
+    spd_solve_damped_dense_kernel(const float* __restrict__ h,
+                                  const float* __restrict__ g,
+                                  const float* __restrict__ lam,
+                                  float* __restrict__ out, int b, int f) {
+    const long long v = (long long)blockIdx.x * kWarpVoxels + threadIdx.x / 32;
+    if (v >= b) return;
+    const int lane = threadIdx.x & 31;
+    const float* hv = h + v * f * f;
     const float lv = lam[v];
-    load_and_factor(f, L, [a](int k) { return a[k]; },
-                    [lv](float x) { return damp(x, lv); });
-    solve_with_factor(L, f, [g, v, f](int i) { return g[v * f + i]; }, y);
-    for (int i = 0; i < f; ++i) out[v * f + i] = y[i];
+    float a[kF];
+    warp_factor<kF>(f, [hv, f](int j, int i) { return hv[j * f + i]; },
+                    [lv](float x) { return damp(x, lv); }, a);
+    const float rhs = lane < f ? g[v * f + lane] : 0.f;
+    const float x = warp_back<kF>(a, warp_forward<kF>(a, rhs), f);
+    if (lane < f) out[v * f + lane] = x;
 }
 
 __global__ void __launch_bounds__(kThreads) spd_inverse_diag_kernel(
@@ -148,17 +174,21 @@ __global__ void __launch_bounds__(kThreads) spd_inverse_diag_kernel(
     inverse_diag_from_factor(L, f, out + (long long)v * f);
 }
 
-__global__ void __launch_bounds__(kDenseVoxels) spd_inverse_diag_dense_kernel(
-    const float* __restrict__ h, float* __restrict__ out, int b, int f) {
-    extern __shared__ float tile[];
-    const long long v0 = (long long)blockIdx.x * kDenseVoxels;
-    const int n_vox = stage_dense_tile(h, tile, v0, b, f);
-    if ((int)threadIdx.x >= n_vox) return;
-    const float* a = tile + threadIdx.x * ((f * f) | 1);
-    float L[kMaxF * (kMaxF + 1) / 2];
-    load_and_factor(f, L, [a](int k) { return a[k]; },
-                    [](float x) { return x; });
-    inverse_diag_from_factor(L, f, out + (v0 + threadIdx.x) * f);
+// K6b: one warp per voxel, the factor without damping, then the inverse
+// diagonal; a warp past the last voxel returns.
+template <int kF>
+__global__ void __launch_bounds__(32 * kWarpVoxels)
+    spd_inverse_diag_dense_kernel(const float* __restrict__ h,
+                                  float* __restrict__ out, int b, int f) {
+    const long long v = (long long)blockIdx.x * kWarpVoxels + threadIdx.x / 32;
+    if (v >= b) return;
+    const int lane = threadIdx.x & 31;
+    const float* hv = h + v * f * f;
+    float a[kF];
+    warp_factor<kF>(f, [hv, f](int j, int i) { return hv[j * f + i]; },
+                    [](float x) { return x; }, a);
+    const float d = warp_inverse_diag<kF>(a, f);
+    if (lane < f) out[v * f + lane] = d;
 }
 
 }  // namespace
@@ -184,30 +214,15 @@ extern "C" int xmt_spd_inverse_diag(const float* h, float* out, int b, int f,
     return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a dense kernel's tile; raises the kernel's limit
-// above the 48 KB default where needed.
-template <typename Kernel>
-static cudaError_t dense_tile_smem(Kernel kernel, int f, int* smem) {
-    *smem = kDenseVoxels * ((f * f) | 1) * (int)sizeof(float);
-    if (*smem > 48 * 1024)
-        return cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-    return cudaSuccess;
-}
-
 extern "C" int xmt_spd_solve_damped_dense(const float* h, const float* g,
                                           const float* lam, float* out, int b,
                                           int f, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        int smem = 0;
-        const cudaError_t e =
-            dense_tile_smem(spd_solve_damped_dense_kernel, f, &smem);
-        if (e != cudaSuccess) return (int)e;
-        const int blocks = (b + kDenseVoxels - 1) / kDenseVoxels;
-        spd_solve_damped_dense_kernel<<<blocks, kDenseVoxels, smem,
-                                        (cudaStream_t)stream>>>(h, g, lam, out,
-                                                                b, f);
+        const int blocks = (b + kWarpVoxels - 1) / kWarpVoxels;
+        XMT_WARP_ROWS(f, spd_solve_damped_dense_kernel<kF>
+                      <<<blocks, 32 * kWarpVoxels, 0, (cudaStream_t)stream>>>(
+                          h, g, lam, out, b, f))
     }
     return (int)cudaGetLastError();
 }
@@ -216,13 +231,10 @@ extern "C" int xmt_spd_inverse_diag_dense(const float* h, float* out, int b,
                                           int f, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        int smem = 0;
-        const cudaError_t e =
-            dense_tile_smem(spd_inverse_diag_dense_kernel, f, &smem);
-        if (e != cudaSuccess) return (int)e;
-        const int blocks = (b + kDenseVoxels - 1) / kDenseVoxels;
-        spd_inverse_diag_dense_kernel<<<blocks, kDenseVoxels, smem,
-                                        (cudaStream_t)stream>>>(h, out, b, f);
+        const int blocks = (b + kWarpVoxels - 1) / kWarpVoxels;
+        XMT_WARP_ROWS(f, spd_inverse_diag_dense_kernel<kF>
+                      <<<blocks, 32 * kWarpVoxels, 0, (cudaStream_t)stream>>>(
+                          h, out, b, f))
     }
     return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@ the two agree to the last bits on the card.
 Layouts: K3/K4 take H as the voxel-minor slab (F*F, B) of
 :func:`xmris_tpu_torch.ops.kernels.lm_cuda.eq6_normal_equations`, with ``g``
 (B, F), ``lam`` (B,) and outputs (B, F); K6a/K6b take dense row-major
-(B, F, F) matrices.  A non-positive pivot gives a NaN row.
+(B, F, F) matrices, one warp a voxel, and launch nothing for B = 0.  A
+non-positive pivot gives a NaN row.
 
 :func:`spd_solve_small` and :func:`spd_inverse_diag_small` are the
 reference's XLA forms (``spd_solve_small``, ``spd_inverse_diag``: no Pallas
@@ -50,7 +51,10 @@ def _cholesky_cols(a, rsqrt=False):
     NaN, which spreads through the rest of the factor.  The pivot's
     reciprocal square root is two correctly rounded steps, the kernels'
     arithmetic, or with ``rsqrt`` one ``torch.rsqrt``, the reference's XLA
-    form."""
+    form.  The square root is taken in float64 and rounded once: PyTorch's
+    vectorised float32 sqrt on the CPU misrounds ~0.6 % of its inputs,
+    where the kernels' ``__fsqrt_rn`` (and ``torch.sqrt`` on the card) is
+    correctly rounded."""
     b, f, _ = a.shape
     idx = torch.arange(f, device=a.device)
     cols = []
@@ -58,7 +62,8 @@ def _cholesky_cols(a, rsqrt=False):
         row_k = a[:, k, :]  # == column k by symmetry
         dk = row_k[:, k]
         safe = torch.where(dk > 0, dk, torch.full_like(dk, math.nan))
-        inv = torch.rsqrt(safe) if rsqrt else 1.0 / torch.sqrt(safe)
+        inv = (torch.rsqrt(safe) if rsqrt
+               else 1.0 / torch.sqrt(safe.double()).to(safe.dtype))
         l_k = torch.where(idx >= k, row_k * inv[:, None], torch.zeros_like(row_k))
         a = a - l_k[:, :, None] * l_k[:, None, :]
         cols.append(l_k)
@@ -218,6 +223,8 @@ def spd_solve_damped_dense(h, g, lam):
         raise ValueError("g must be (B, F) and lam (B,)")
     _launch_checks(h, f, g, lam)
     out = torch.empty((b, f), dtype=torch.float32, device=h.device)
+    if b == 0:
+        return out
     err = _build.library().xmt_spd_solve_damped_dense(
         h.data_ptr(), g.data_ptr(), lam.data_ptr(), out.data_ptr(), b, f,
         _build.stream_ptr(h.device),
@@ -237,6 +244,8 @@ def spd_inverse_diag_dense(h):
     _launch_checks(h, f)
     b = h.shape[0]
     out = torch.empty((b, f), dtype=torch.float32, device=h.device)
+    if b == 0:
+        return out
     err = _build.library().xmt_spd_inverse_diag_dense(
         h.data_ptr(), out.data_ptr(), b, f, _build.stream_ptr(h.device),
     )
