@@ -22,8 +22,8 @@
 // K6a/K6b: one warp per voxel, 8 voxels a block, no shared memory.  A
 // thread per voxel gave 16 384 threads, 512 warps: ~4 an SM, each thread's
 // factor serial in local memory (the design this replaced also staged a
-// block's 51 KB tile in shared memory, which took most of L1 from that
-// local memory: K6a/K6b 0.45 / 0.53 ms on an H100 against 0.14 / 0.17
+// block's 51 KB tile in shared memory, which likely took most of L1 from
+// that local memory: K6a/K6b 0.45 / 0.53 ms on an H100 against 0.14 / 0.17
 // without the tile, scripts/ablate_spd.py).  Here lane i loads column i of row j (the upper
 // triangle, j <= i), contiguous across the lanes, and holds row i of the
 // Cholesky factor in registers (spd_factor.cuh's warp factor and
