@@ -12,8 +12,8 @@ and the script exits non-zero):
 2. build the fifteen CUDA kernels from ``xmris_tpu_torch/ops/kernels/csrc``
    (one nvcc per source, in parallel), and print ptxas's registers and
    spills of K2 and K9 (one warp per voxel, the moments in registers;
-   their bench-shape instantiations, K = 5 and q_n = 1), K6a and K6b (one
-   warp per voxel, the factor in registers; F = 20) and K8;
+   their bench-shape instantiations, K = 5 and q_n = 1), K3, K4, K6a and
+   K6b (one warp per voxel, the factor in registers; F = 20) and K8;
 3. each kernel against its plain PyTorch version at the bench shapes
    (32x32x16 voxels, 1024 -> 2048 points, the 5-peak 31P prior), with the
    tolerance printed beside the error, and each one's time, its plain
@@ -21,9 +21,10 @@ and the script exits non-zero):
    and its bound on the card (K1 on both routes: the FFT kernel at the
    bench shape and at 500 -> 1024, which has no split, the split kernel at
    768 -> 1536; the dense route, not a kernel, at 1000 -> 1500 against the
-   plain version with its own counter; K6a bit for bit against
-   its twin and K3, K6b against its twin and K4, both beside the cuSOLVER
-   composition of the same functions as a yardstick; K8
+   plain version with its own counter; K3, K4 (with the CRLB's 1e-12
+   ridge and without), K6a and K6b each bit for bit against its twin, K3
+   against K6a and K4 without the ridge against K6b, the dense pair beside
+   the cuSOLVER composition of the same functions as a yardstick; K8
    by the share of voxels within the reference's tolerances; K13 and K14
    bit for bit K7, K11 K12 on its unmasked voxels, K10 against K11 per
    entry; K2's accept gate: the cost bit for bit, g and H on the improving
@@ -200,20 +201,22 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ptxas_summary(log, source, name_part):
+def _ptxas_summary(log, source, *name_parts):
     """ptxas's registers and spills of the kernels of ``source`` whose
-    mangled name contains ``name_part``, from the build's ptxas log."""
+    mangled name contains every one of ``name_parts``, from the build's
+    ptxas log."""
     if not log.exists():
         raise AssertionError(f"no ptxas log at {log}")
     text = log.read_text().split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
     lines = text.splitlines()
     out = []
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and name_part in ln:
+        if "Compiling entry function" in ln and all(
+                part in ln for part in name_parts):
             out += [x.split(" : ", 1)[-1].strip() for x in lines[i + 1:i + 5]
                     if "registers" in x or "spill" in x]
     if not out:
-        raise AssertionError(f"{source}: no ptxas lines for {name_part}")
+        raise AssertionError(f"{source}: no ptxas lines for {name_parts}")
     return " / ".join(out)
 
 
@@ -334,10 +337,13 @@ def main(argv) -> int:
         print(f"   {tag} ({src}, K=5, q_n=1): "
               f"{_ptxas_summary(log, src, 'normal_eq_warp_kernelILi5ELi1E')}",
               flush=True)
-    for tag, name in (("K6a", "spd_solve_damped_dense_kernelILi20E"),
-                      ("K6b", "spd_inverse_diag_dense_kernelILi20E")):
-        print(f"   {tag} (spd.cu, F=20): {_ptxas_summary(log, 'spd.cu', name)}",
-              flush=True)
+    for tag, name, layout in (
+            ("K3", "spd_solve_damped_kernelILi20E", "SlabTile"),
+            ("K4", "spd_inverse_diag_kernelILi20E", "SlabTile"),
+            ("K6a", "spd_solve_damped_kernelILi20E", "Dense"),
+            ("K6b", "spd_inverse_diag_kernelILi20E", "Dense")):
+        print(f"   {tag} (spd.cu, F=20): "
+              f"{_ptxas_summary(log, 'spd.cu', name, layout)}", flush=True)
     print(f"   K8 (lm_v10.cu): {_ptxas_summary(log, 'lm_v10.cu', 'lm_loop')}",
           flush=True)
 
@@ -531,17 +537,21 @@ def main(argv) -> int:
         if not torch.equal(rows_nan, bad) or torch.isnan(out[~bad]).any():
             raise AssertionError(f"{name}: NaN rows are not the planted ones")
     print("   K3/K4/K6a/K6b NaN rows exactly at the planted non-SPD voxels")
-    if not (torch.equal(a_k[~bad], a_p[~bad])
-            and torch.equal(a_k[~bad], d_k[~bad])):
-        raise AssertionError("K6a differs from its plain version or from K3")
-    print("   K6a equals its plain version, and K3 on the slab form, bit for bit")
     i0_k = spd.spd_inverse_diag(h_sp, 0.0)
+    i0_p = spd.spd_inverse_diag_plain(h_sp, 0.0)
     _sync()
-    if not (_same_bits(j_k[~bad], j_p[~bad])
-            and _same_bits(j_k[~bad], i0_k[~bad])):
-        raise AssertionError("K6b differs from its plain version or from K4")
-    print("   K6b equals its plain version, and K4 on the slab form, bit for bit")
-    del i0_k
+    for name, got, ref in (
+            ("K3 against its plain version", d_k, d_p),
+            ("K4 (ridge 1e-12) against its plain version", i_k, i_p),
+            ("K4 (no ridge) against its plain version", i0_k, i0_p),
+            ("K6a against its plain version", a_k, a_p),
+            ("K6b against its plain version", j_k, j_p),
+            ("K3 against K6a", d_k, a_k),
+            ("K4 (no ridge) against K6b", i0_k, j_k)):
+        if not _same_bits(got, ref):
+            raise AssertionError(f"{name}: not bit for bit")
+        print(f"   {name}: bit for bit (NaN rows included)")
+    del i0_k, i0_p
     e6a = _assert_close("K6a solve (dense)", a_k, a_p, 2e-6, 1e-7, mask=~bad)
     e3 = _assert_close("K3 solve", d_k, d_p, 2e-6, 1e-7, mask=~bad)
     e4 = _assert_close("K4 inverse diag", i_k, i_p, 2e-4, 0.0, mask=~bad)

@@ -1,48 +1,51 @@
 #!/usr/bin/env python3
-"""Where the dense SPD kernels K6a (damped solve) and K6b (inverse
-diagonal) of ``spd.cu`` spend their time: time them with one thing changed,
-and K8, which shares their warp factor, as built.
+"""Where the SPD kernels of ``spd.cu`` spend their time: K3 (slab damped
+solve), K4 (slab inverse diagonal), K6a and K6b (their dense forms) timed
+with one thing changed, and K8, which shares their warp factor, as built.
 
 Usage, on a machine with a CUDA card and nvcc, from the root of a checkout:
 
-    python3 scripts/ablate_spd.py [OTHER_CHECKOUT ...] [--rounds N]
+    python3 scripts/ablate_spd.py [OTHER_CHECKOUT ...] [--rounds N] [--paths]
 
 Each variant is a copy of a checkout's ``csrc`` (this one, then each
 OTHER_CHECKOUT, e.g. the parent commit unpacked with ``git archive``) with
 text substitutions, built by nvcc into ``build/ablate_spd/`` and called
-through this checkout's wrappers (``spd.spd_solve_damped_dense`` and
-``spd_inverse_diag_dense``, whose C entries every checkout shares) on the
-bench grid's Hessians: K2's H and g of the bench prior (16 384 voxels,
+through this checkout's wrappers (``spd.spd_solve_damped``,
+``spd_inverse_diag`` with the CRLB's 1e-12 ridge, ``spd_solve_damped_dense``
+and ``spd_inverse_diag_dense``, whose C entries every checkout shares) on
+the bench grid's Hessians: K2's H and g of the bench prior (16 384 voxels,
 F = 20, parameters within 20 % of their initial values, ``dxdu`` in
-[0.5, 1.5]) in dense form, ``lam = logspace(-5, -1)``.  The substitutions
-follow the source's design:
+[0.5, 1.5]) as K2's slab and in dense form, ``lam = logspace(-5, -1)``.
+The substitutions follow the source's design:
 
-* a thread per voxel, a block's 32 matrices staged in a shared tile (the
-  design before the warp redesign): "no tile" (each thread reads its matrix
-  from device memory, no dynamic shared memory), "staging only" (the tile's
-  diagonal written out, no factor), "factor only" (no substitution or
-  inverse diagonal: the factor's diagonal written out);
-* a warp per voxel, the factor in registers: "loads only" (no factor, no
-  substitution, no inverse diagonal), "factor only", "factor skipped" (the
-  substitutions or the inverse diagonal on the loaded matrix), "row of
-  L^-1 per lane" (K6b's first warp build: lane i forms row i of L^-1,
-  lane j divides its row at step j, each X(j, c) is broadcast and lane c
-  picks up its square), the same "with sums by a shared transpose" (the
-  squares through a per-warp shared tile), and "4 / 16 voxels a block".
-  The two row variants are K6b's operations in K6b's order, bit for bit.
+* K3/K4 a thread per voxel, the packed factor in local memory (the design
+  before the warp redesign of the slab kernels): "loads only" (the
+  matrix into the thread's factor array, no factor, no substitution),
+  "factor only" (no substitution or inverse diagonal); both write each
+  row's sum of the array, so that no load is dead code;
+* one warp per voxel, the factor in registers, for all four kernels:
+  "loads only" (no factor, no substitution, no inverse diagonal),
+  "factor only"; for K3/K4 the slab loaders: "direct slab loads" (lane i
+  reads h[(j*f + i)*b + v] where it lies, 8 voxels a block) and its
+  "loads only"; the other tile sizes of each (8, 16 or 32 voxels a block,
+  32 meaning 16 where kF > 24 so that the static tile stays under 48 KB);
+  and K4's tile of 8 held to 64 registers (4 blocks an SM), which the
+  shared template gives K6b too.
 
-Variants that skip work compute wrong outputs: they measure cost, not a
-candidate.  K8 (``lm_v10.cu``) is built as it is in each checkout, and in
-the warp design also with its back substitution's padding select taken
-out ("back substitution without the padding select"), and run through
-``lm_loop_cuda.lm_loop_v10`` on the seeds of ``seed_grid`` at the bench
-grid (``max_iter=24``, as ``chip_smoke.py`` phase 3 runs it).
+Variants that skip work ("... only") compute wrong outputs: they measure
+cost, not a candidate.  Every other variant's outputs are held bit for bit
+against this checkout's as-built ones (NaN at the same places), and the
+script stops if one differs.  K8 (``lm_v10.cu``) is built as it is in each
+checkout and run through ``lm_loop_cuda.lm_loop_v10`` on the seeds of
+``seed_grid`` at the bench grid (``max_iter=24``, as ``chip_smoke.py``
+phase 3 runs it).
 
 With ``--paths`` it then times, in the same N rounds and orders, the paths
-that launch K6a, K6b or K8 with the first OTHER_CHECKOUT's as-built K6a,
-K6b and K8 against this checkout's (this checkout's host code, the C
-entries swapped): the bench grid at ``kernel_version`` 8 and 10 and
-``fit_amares`` at 9 and 8, each on the host clock after a synchronize.
+that launch K3 and K4 with the first OTHER_CHECKOUT's as-built K3 and K4
+against this checkout's (this checkout's host code, the two C entries
+swapped): the bench grid at the default ``kernel_version`` 9 (median of 3
+grids a round) and ``fit_amares`` at 9 (one call a round), each on the
+host clock after a synchronize.
 
 For each checkout and source variant it prints the registers and spills
 (the F = 20 instantiation where the kernel is a template); then, in N
@@ -67,35 +70,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 REL_CSRC = Path("xmris_tpu_torch") / "ops" / "kernels" / "csrc"
 
-_K6A_THREAD = """    load_and_factor(f, L, [a](int k) { return a[k]; },
-                    [lv](float x) { return damp(x, lv); });
-    solve_with_factor(L, f, [g, v, f](int i) { return g[v * f + i]; }, y);
-    for (int i = 0; i < f; ++i) out[v * f + i] = y[i];"""
-_K6B_THREAD = """    load_and_factor(f, L, [a](int k) { return a[k]; },
-                    [](float x) { return x; });
-    inverse_diag_from_factor(L, f, out + (v0 + threadIdx.x) * f);"""
-
-# The thread design (one thread per voxel, a block's tile in shared memory).
+# The thread design of K3/K4 (one thread per voxel, its packed factor L
+# in local memory): each row's sum of L in place of the solve or the
+# inverse diagonal.
+_ROW_SUMS = """    for (int i = 0; i < f; ++i) {
+        float s = 0.f;
+        for (int j = 0; j <= i; ++j) s = __fadd_rn(s, L[tri(i, j)]);
+        out[(long long)v * f + i] = s;
+    }"""
+_K3_THREAD_SOLVE = """    solve_with_factor(
+        L, f, [g, v, f](int i) { return g[(long long)v * f + i]; }, y);
+    for (int i = 0; i < f; ++i) out[(long long)v * f + i] = y[i];"""
+_K4_THREAD_INVERSE = "    inverse_diag_from_factor(L, f, out + (long long)v * f);"
+_THREAD_NO_SOLVE = [("spd.cu", _K3_THREAD_SOLVE, _ROW_SUMS),
+                    ("spd.cu", _K4_THREAD_INVERSE, _ROW_SUMS)]
 _THREAD = {
-    "no tile": [
-        ("spd.cu", "const int n_vox = stage_dense_tile(h, tile, v0, b, f);",
-         "const int n_vox = min(kDenseVoxels, (int)(b - v0));"),
-        ("spd.cu", "const float* a = tile + threadIdx.x * ((f * f) | 1);",
-         "const float* a = h + (v0 + threadIdx.x) * f * f;"),
-        ("spd.cu", "*smem = kDenseVoxels * ((f * f) | 1) * (int)sizeof(float);",
-         "*smem = 0;")],
-    "staging only": [
-        ("spd.cu", _K6A_THREAD,
-         "    for (int i = 0; i < f; ++i) out[v * f + i] = a[i * f + i];"),
-        ("spd.cu", _K6B_THREAD,
-         "    for (int i = 0; i < f; ++i) out[(v0 + threadIdx.x) * f + i] = "
-         "a[i * f + i];")],
-    "factor only": [
-        ("spd.cu", _K6A_THREAD.split("\n", 2)[2],
-         "    for (int i = 0; i < f; ++i) out[v * f + i] = L[tri(i, i)];"),
-        ("spd.cu", _K6B_THREAD.split("\n", 2)[2],
-         "    for (int i = 0; i < f; ++i) out[(v0 + threadIdx.x) * f + i] = "
-         "L[tri(i, i)];")],
+    "loads only": ([("spd.cu", "    for (int k = 0; k < f; ++k) {\n"
+                     "        float dk = L[tri(k, k)];",
+                     "    for (int k = 0; k < 0; ++k) {\n"
+                     "        float dk = L[tri(k, k)];")] + _THREAD_NO_SOLVE,
+                   ("K3", "K4")),
+    "factor only": (_THREAD_NO_SOLVE, ("K3", "K4")),
 }
 
 # A cheap use of every loaded or factored register (kF adds), so that the
@@ -113,70 +108,69 @@ _NO_SOLVE = [
     ("spd.cu", "const float x = warp_back<kF>(a, warp_forward<kF>(a, rhs), f);",
      _SUM_A),
     ("spd.cu", "const float d = warp_inverse_diag<kF>(a, f);", _SUM_A_B)]
-_BY_ROW = """    float x[kF];
-#pragma unroll
-    for (int c = 0; c < kF; ++c) x[c] = (c == lane) ? 1.f : 0.f;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kF; ++j) {
-#pragma unroll
-        for (int c = 0; c <= j; ++c) {
-            if (lane == j) x[c] = __fdiv_rn(x[c], a[j]);
-            const float xjc = __shfl_sync(kFull, x[c], j);
-            if (lane > j) x[c] = __fsub_rn(x[c], __fmul_rn(a[j], xjc));
-            if (lane == c && j < n) sum = __fadd_rn(sum, __fmul_rn(xjc, xjc));
-        }
+_SLAB_DIRECT = """// The slab read where it lies: lane i of voxel v reads h[(j*f + i)*b + v].
+struct SlabDirect {
+    static constexpr int kVoxels = kWarpVoxels;
+    const float* h;
+    long long b;
+    int f;
+    __device__ SlabDirect(const float* h_, int b_, int f_)
+        : h(h_), b(b_), f(f_) {}
+    __device__ auto at(long long v) const {
+        const float* hv = h + v;
+        const long long bb = b;
+        const int n = f;
+        return [hv, bb, n](int j, int i) { return hv[(j * n + i) * bb]; };
     }
-    return sum;
-}"""
-_BY_ROW_TRANSPOSE = _BY_ROW.replace(
-    "            if (lane == c && j < n) sum = __fadd_rn(sum, "
-    "__fmul_rn(xjc, xjc));\n", "").replace("    return sum;\n}", """\
-    __shared__ float s_sq[kWarpVoxels][32][33];
-    float(*sq)[33] = s_sq[threadIdx.x / 32];
-#pragma unroll
-    for (int c = 0; c < kF; ++c) sq[lane][c] = __fmul_rn(x[c], x[c]);
-    __syncwarp();
-    for (int i = lane; i < n; ++i) sum = __fadd_rn(sum, sq[i][lane]);
-    __syncwarp();
-    return sum;
-}""")
+};
+
+"""
+_K3_TILE = "using SolveTile = SlabTile<kF, kWarpVoxels>;"
+_K4_TILE = "using InverseTile = SlabTile<kF, 16>;"
+_DIRECT = [("spd.cu", "template <int kF>\n" + _K3_TILE,
+            _SLAB_DIRECT + "template <int kF>\n" + _K3_TILE),
+           ("spd.cu", "SolveTile<kF>>(", "SlabDirect>("),
+           ("spd.cu", "InverseTile<kF>>(", "SlabDirect>(")]
 
 
-def _warp_body(text: str) -> str:
-    """warp_inverse_diag's body after its `lane`, up to its closing brace."""
-    head = text.split("float warp_inverse_diag(", 1)[1]
-    head = head.split("    const int lane = threadIdx.x & 31;\n", 1)[1]
-    return head.split("\n}\n", 1)[0] + "\n}"
+def _tile(kernel: str, voxels: str) -> list:
+    """K3's or K4's tile at ``voxels`` voxels a block."""
+    old = _K3_TILE if kernel == "K3" else _K4_TILE
+    return [("spd.cu", old, old.split("SlabTile<kF, ")[0]
+             + f"SlabTile<kF, {voxels}>;")]
 
+
+# K4 (and K6b, the same template) held to 64 registers: 4 blocks of 8
+# warps an SM.
+_CAP_64 = [("spd.cu", "__launch_bounds__(32 * Layout::kVoxels)\n"
+            "    spd_inverse_diag_kernel(",
+            "__launch_bounds__(32 * Layout::kVoxels, 4)\n"
+            "    spd_inverse_diag_kernel(")]
+_ALL = ("K3", "K4", "K6a", "K6b")
 
 # The warp design (one warp per voxel, the factor in registers).
 _WARP = {
-    "loads only": [_NO_FACTOR] + _NO_SOLVE,
-    "factor only": _NO_SOLVE,
-    "factor skipped": [_NO_FACTOR],
-    "row of L^-1 per lane": [("spd.cu", _warp_body, _BY_ROW)],
-    "row of L^-1 per lane, sums by a shared transpose": [
-        ("spd.cu", _warp_body, _BY_ROW_TRANSPOSE)],
-    "4 voxels a block": [("spd.cu", "constexpr int kWarpVoxels = 8;",
-                          "constexpr int kWarpVoxels = 4;")],
-    "16 voxels a block": [("spd.cu", "constexpr int kWarpVoxels = 8;",
-                           "constexpr int kWarpVoxels = 16;")],
+    "loads only": ([_NO_FACTOR] + _NO_SOLVE, _ALL),
+    "factor only": (_NO_SOLVE, _ALL),
+    "direct slab loads": (_DIRECT, ("K3", "K4")),
+    "direct slab loads, loads only": (
+        _DIRECT + [_NO_FACTOR] + _NO_SOLVE, ("K3", "K4")),
+    "K3 tile of 16 voxels": (_tile("K3", "16"), ("K3",)),
+    "K3 tile of 32 voxels": (_tile("K3", "(kF <= 24 ? 32 : 16)"), ("K3",)),
+    "K4 tile of 8 voxels": (_tile("K4", "kWarpVoxels"), ("K4",)),
+    "K4 tile of 32 voxels": (_tile("K4", "(kF <= 24 ? 32 : 16)"), ("K4",)),
+    "K4 tile of 8 voxels at 64 registers (K6b too)": (
+        _tile("K4", "kWarpVoxels") + _CAP_64, ("K4", "K6b")),
 }
-# K8 built with the warp design's header changed (lm_v10.cu only).
-_K8 = {
-    "back substitution without the padding select": [(
-        "spd_factor.cuh",
-        "const float p = real ? __fmul_rn(a[i], x) : 0.f;",
-        "const float p = __fmul_rn(a[i], x);")],
-}
-ENTRIES = {"K6a": "xmt_spd_solve_damped_dense",
+ENTRIES = {"K3": "xmt_spd_solve_damped",
+           "K4": "xmt_spd_inverse_diag",
+           "K6a": "xmt_spd_solve_damped_dense",
            "K6b": "xmt_spd_inverse_diag_dense",
            "K8": "xmt_lm_loop_v10"}
 
 
 def _design(csrc: Path) -> dict:
-    return _THREAD if "stage_dense_tile" in (csrc / "spd.cu").read_text() \
+    return _THREAD if "load_and_factor" in (csrc / "spd.cu").read_text() \
         else _WARP
 
 
@@ -190,13 +184,12 @@ def _nvcc(d: Path, src: str):
 
 
 def _build_all(label: str, csrc: Path, out: Path):
-    """One build of spd.cu per source variant and of lm_v10.cu as built
-    (and per K8 variant of the warp design), all nvcc processes started
-    together."""
+    """One build of spd.cu per source variant and one of lm_v10.cu as
+    built, all nvcc processes started together.  Returns {(variant, src):
+    (so, process, kernels)}."""
     procs = {}
-    design = _design(csrc)
-    k8 = _K8 if design is _WARP else {}
-    for name, subs in {"as built": [], **design, **k8}.items():
+    variants = {"as built": ([], _ALL), **_design(csrc)}
+    for name, (subs, kernels) in variants.items():
         d = out / label / re.sub(r"[^\w]+", "_", name)
         if d.exists():
             shutil.rmtree(d)
@@ -204,35 +197,37 @@ def _build_all(label: str, csrc: Path, out: Path):
         files = {p.name: p.read_text() for p in csrc.iterdir()
                  if p.suffix in (".cu", ".cuh")}
         for fname, old, new in subs:
-            if callable(old):
-                old = old(files[fname])
             if old not in files[fname]:
                 raise SystemExit(f"{label} {name}: {old!r} not in {fname}")
             files[fname] = files[fname].replace(old, new)
         for fname, text in files.items():
             (d / fname).write_text(text)
-        if name not in k8:
-            procs[(name, "spd.cu")] = _nvcc(d, "spd.cu")
-        if name == "as built" or name in k8:
-            procs[(name, "lm_v10.cu")] = _nvcc(d, "lm_v10.cu")
+        procs[(name, "spd.cu")] = _nvcc(d, "spd.cu") + (kernels,)
+        if name == "as built":
+            procs[(name, "lm_v10.cu")] = _nvcc(d, "lm_v10.cu") + (("K8",),)
     return procs
 
 
-def _ptxas_lines(err: str, src: str) -> str:
-    """Registers/spills of the dense kernels (their F = 20 instantiation
-    where they are templates) or of K8."""
+def _tag(fn: str) -> str:
+    """K3/K4/K6a/K6b/K8 of a kernel's mangled name, in either design."""
+    if "lm_loop" in fn:
+        return "K8"
+    dense = "dense" in fn or "Dense" in fn
+    if "solve" in fn:
+        return "K6a" if dense else "K3"
+    return "K6b" if dense else "K4"
+
+
+def _ptxas_lines(err: str) -> str:
+    """Registers/spills of every kernel of a build (the F = 20
+    instantiation where it is a template)."""
     lines = err.splitlines()
     want = []
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if not m:
+        if not m or ("ILi" in m.group(1) and "ILi20E" not in m.group(1)):
             continue
-        fn = m.group(1)
-        if src == "spd.cu" and ("dense" not in fn
-                                or ("ILi" in fn and "ILi20E" not in fn)):
-            continue
-        tag = "K6a" if "solve" in fn else "K6b" if "inverse" in fn else "K8"
-        want += [f"{tag} " + x.split(" : ", 1)[-1].strip()
+        want += [f"{_tag(m.group(1))} " + x.split(" : ", 1)[-1].strip()
                  for x in lines[i + 1:i + 5]
                  if "registers" in x or "spill" in x]
     return " / ".join(want)
@@ -267,6 +262,8 @@ def main(argv) -> int:
     from xmris_tpu_torch.ops.kernels import lm_cuda, lm_loop_cuda, spd
     from xmris_tpu_torch.parallel.process import grid_inputs_from_numpy
 
+    from compare_kernel_builds import _same_bits
+
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
@@ -279,13 +276,13 @@ def main(argv) -> int:
         for key, val in _build_all(label, root / REL_CSRC, out).items():
             procs[(label,) + key] = val
     libs = {}
-    for (label, name, src), (so, proc) in procs.items():
+    for (label, name, src), (so, proc, kernels) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{label} {name} {src}: nvcc failed\n{err[-3000:]}")
-        libs[(label, name, src)] = ctypes.CDLL(str(so))
+        libs[(label, name, src)] = (ctypes.CDLL(str(so)), kernels)
         print(f"{label} ({dict(roots)[label]}) {name}, {src}: "
-              f"{_ptxas_lines(err, src)}", flush=True)
+              f"{_ptxas_lines(err)}", flush=True)
 
     dev = torch.device("cuda", 0)
     pk = prior_from_csv_text(bi.PK_CSV, "bench PK_CSV")
@@ -319,15 +316,17 @@ def main(argv) -> int:
                    mhz=bi.MHZ, amp_slots=amp_slots, ls_plan=ls_plan)
     plan = normal_eq_plan(ps, nf, bi.MHZ, True)
     calls = {
+        "K3": (lambda: spd.spd_solve_damped(h, g, lam), 20, 2),
+        "K4": (lambda: spd.spd_inverse_diag(h, 1e-12), 20, 2),
         "K6a": (lambda: spd.spd_solve_damped_dense(dense, g, lam), 20, 2),
         "K6b": (lambda: spd.spd_inverse_diag_dense(dense), 20, 2),
         "K8": (lambda: lm_loop_cuda.lm_loop_v10(
             u0, re8, im8, t8, lower, upper, kind, plan, ps, max_iter=24),
             3, 1),
     }
-    cases = []  # (label, kernel, variant, library)
-    for (label, name, src), lib in libs.items():
-        for kern in (("K8",) if src == "lm_v10.cu" else ("K6a", "K6b")):
+    cases = []  # (label, kernel, variant, C entry)
+    for (label, name, src), (lib, kernels) in libs.items():
+        for kern in kernels:
             fn = getattr(lib, ENTRIES[kern])
             fn.argtypes = kb._SIGNATURES[ENTRIES[kern]]
             fn.restype = ctypes.c_int
@@ -335,6 +334,28 @@ def main(argv) -> int:
 
     lib = kb.library()
     entries = dict(vars(lib))
+
+    def swapped(kern, fn, call):
+        kb._lib = types.SimpleNamespace(**dict(entries, **{ENTRIES[kern]: fn}))
+        try:
+            return call()
+        finally:
+            kb._lib = lib
+
+    # Every variant that does all the work is bit for bit this checkout's
+    # as-built kernel.
+    ref = {kern: swapped(kern, fn, calls[kern][0]) for label, kern, name, fn
+           in cases if label == "this" and name == "as built" and kern != "K8"}
+    for label, kern, name, fn in cases:
+        if kern == "K8" or "only" in name:
+            continue
+        same = _same_bits(swapped(kern, fn, calls[kern][0]), ref[kern])
+        print(f"{label} {kern} {name}: "
+              f"{'bit for bit' if same else 'DIFFERS from'} this as built",
+              flush=True)
+        if not same:
+            raise SystemExit(f"{label} {kern} {name} differs")
+
     times = {c[:3]: [] for c in cases}
     try:
         for r in range(rounds):
@@ -379,16 +400,13 @@ def main(argv) -> int:
                       coords={"time": Coord("time", t_np.astype(np.float64))},
                       attrs={"MHz": bi.MHZ})
         runs = {
-            "grid v8 (ms)": (lambda: process_grid_planar_raw(
-                *grid_args, **fit_kw, kernel_version=8), 3),
-            "grid v10 (ms)": (lambda: process_grid_planar_raw(
-                *grid_args, **fit_kw, kernel_version=10), 3),
+            "grid v9 (ms)": (lambda: process_grid_planar_raw(
+                *grid_args, **fit_kw, kernel_version=9), 3),
             "fit_amares v9 (s)": (lambda: fit_amares(da, pk), 1),
-            "fit_amares v8 (s)": (lambda: fit_amares(da, pk,
-                                                     kernel_version=8), 1),
         }
         swaps = {lab: {ENTRIES[kern]: fn for lab2, kern, name, fn in cases
-                       if lab2 == lab and name == "as built"}
+                       if lab2 == lab and name == "as built"
+                       and kern in ("K3", "K4")}
                  for lab in ("this", "other0")}
         ptimes = {(lab, path): [] for path in runs for lab in swaps}
         try:

@@ -26,6 +26,11 @@ prior, parameters within 20 % of its initial values):
   and in dense form, with three planted non-SPD voxels (H[0, 0] = -1) and
   ``lam = logspace(-5, -1)``.
 
+Which pins cover which shared header: ``spd_factor.cuh`` (the warp factor
+and substitutions) K3, K4, K6a, K6b (``spd.cu``) and K8 (``lm_v10.cu``);
+``lm_v9_warp.cuh`` K2 (``lm_v9.cu``) and K9 (``lm_v8.cu``);
+``lm_v9_eval.cuh`` K2, K9, K7 and K12 (``lm_jac.cu``) and K8.
+
 Only entry points both checkouts have are called.  Every output must be
 equal bit for bit (NaN at the same places, the float32 bits of every other
 entry the same); the script prints one line per output and exits non-zero

@@ -253,11 +253,9 @@ def test_spd_kernels_match_plain(dev):
     h[0, 3] = -1.0  # voxel 3 is not SPD
     lam = torch.full((b,), 1e-3, device=dev)
     x = spd.spd_solve_damped(h, g, lam)
-    x2 = spd.spd_solve_damped_plain(h, g, lam)
-    torch.testing.assert_close(x, x2, rtol=2e-6, atol=1e-7, equal_nan=True)
+    _assert_bits(x, spd.spd_solve_damped_plain(h, g, lam))
     d = spd.spd_inverse_diag(h, 1e-12)
-    d2 = spd.spd_inverse_diag_plain(h, 1e-12)
-    torch.testing.assert_close(d, d2, rtol=2e-4, atol=0, equal_nan=True)
+    _assert_bits(d, spd.spd_inverse_diag_plain(h, 1e-12))
     bad = torch.zeros(b, dtype=torch.bool, device=dev)
     bad[3] = True
     assert torch.equal(torch.isnan(x).all(1), bad)
@@ -537,25 +535,35 @@ def _assert_bits(got, ref):
 
 @pytest.mark.parametrize("f", [1, 3, 20, 21, 32])
 def test_spd_dense_warp_kernels_match_plain_and_slab(dev, f):
-    """K6a and K6b (one warp a voxel, rows padded to a multiple of 4) at
-    B = 37, not a multiple of the 4 voxels a block: bit for bit their plain
-    versions and K3/K4 on the slab form, NaN rows exactly at the non-SPD
-    voxels, one launch each."""
+    """K6a/K6b (dense) and K3/K4 (slab, through the shared tile), one warp
+    a voxel, rows padded to a multiple of 4, at B = 37, not a multiple of
+    a block's 8 (K4: 16) voxels: bit for bit their plain versions and each other
+    (K4 with no Tikhonov term against K6b), K4 with the CRLB's 1e-12 ridge
+    against its plain version, NaN rows exactly at the non-SPD voxels, one
+    launch each."""
     dense, slab, g, lam, bad = _spd_dense_case(dev, 37, f, seed=f)
     K.reset_counters()
     x = spd.spd_solve_damped_dense(dense, g, lam)
     d = spd.spd_inverse_diag_dense(dense)
+    x3 = spd.spd_solve_damped(slab, g, lam)
+    d4 = spd.spd_inverse_diag(slab, 0.0)
     torch.cuda.synchronize()
     launches = K.counters()["launches"]
-    assert launches["spd_solve_damped_dense"] == 1
-    assert launches["spd_inverse_diag_dense"] == 1
-    for out in (x, d):
+    for name in ("spd_solve_damped_dense", "spd_inverse_diag_dense",
+                 "spd_solve_damped", "spd_inverse_diag"):
+        assert launches[name] == 1, name
+    for out in (x, d, x3, d4):
         assert torch.equal(torch.isnan(out).all(1), bad)
         assert not torch.isnan(out[~bad]).any()
     _assert_bits(x, spd.spd_solve_damped_dense_plain(dense, g, lam))
     _assert_bits(d, spd.spd_inverse_diag_dense_plain(dense))
-    _assert_bits(x[~bad], spd.spd_solve_damped(slab, g, lam)[~bad])
-    _assert_bits(d[~bad], spd.spd_inverse_diag(slab, 0.0)[~bad])
+    _assert_bits(x3, spd.spd_solve_damped_plain(slab, g, lam))
+    _assert_bits(d4, spd.spd_inverse_diag_plain(slab, 0.0))
+    _assert_bits(x3, x)
+    _assert_bits(d4, d)
+    d4r = spd.spd_inverse_diag(slab, 1e-12)
+    assert torch.equal(torch.isnan(d4r).all(1), bad)
+    _assert_bits(d4r, spd.spd_inverse_diag_plain(slab, 1e-12))
 
 
 def test_spd_dense_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
@@ -574,6 +582,24 @@ def test_spd_dense_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
                                    torch.ones(2, device=dev))
     with pytest.raises(ValueError, match="exceeds"):
         spd.spd_inverse_diag_dense(dense)
+
+
+def test_spd_slab_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
+    for f in (1, 20, 32):
+        slab = torch.zeros((f * f, 0), device=dev)
+        K.reset_counters()
+        x = spd.spd_solve_damped(slab, torch.zeros((0, f), device=dev),
+                                 torch.zeros(0, device=dev))
+        d = spd.spd_inverse_diag(slab, 1e-12)
+        torch.cuda.synchronize()
+        assert x.shape == d.shape == (0, f)
+        assert not any(K.counters()["launches"].values())
+    slab = torch.eye(33, device=dev).reshape(33 * 33, 1).repeat(1, 2)
+    with pytest.raises(ValueError, match="exceeds"):
+        spd.spd_solve_damped(slab, torch.ones((2, 33), device=dev),
+                             torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        spd.spd_inverse_diag(slab, 1e-12)
 
 
 @pytest.mark.parametrize("b", [37, 64])

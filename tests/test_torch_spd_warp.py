@@ -1,26 +1,33 @@
-"""The warp design of K6a and K6b (``csrc/spd.cu`` on ``spd_factor.cuh``),
-checked where there is no card.
+"""The warp design of K3, K4, K6a and K6b (``csrc/spd.cu`` on
+``spd_factor.cuh``), checked where there is no card.
 
 The CUDA kernels run only on the card (``test_torch_cuda.py`` holds them
-against their plain twins and against K3/K4 there, and
+against their plain twins and against each other there, and
 ``scripts/compare_kernel_builds.py`` against another build bit for bit).
 Here a NumPy float32 model of their warp schedule, every operation
 rounded on its own, runs the same sequence of operations:
 
+* the layout's loads: lane i reads A[j][i], j <= i, from the dense
+  (B, F, F) form (K6a/K6b) or from K2's voxel-minor slab (F*F, B) through
+  ``SlabTile``'s shared tile (K3/K4): the block's voxels' packed upper
+  rows staged by the source's walk, 32 rows a pass, into a tile poisoned
+  with NaN, then read back at the source's odd stride;
 * the warp factor: lane i holds row i of L, rows padded with the identity
-  to a multiple of 4 (``XMT_WARP_ROWS``), the damped diagonal for K6a;
-* the forward substitution by columns and the back substitution in K3's
+  to a multiple of 4 (``XMT_WARP_ROWS``), the damped diagonal for K3/K6a
+  and the diagonal plus the Tikhonov term for K4/K6b (0 for K6b);
+* the forward substitution by columns and the back substitution in the
   serial order, padding lanes forming +0;
-* K6b's inverse diagonal by columns: lane c forms column c of L^-1 from
-  the rows of L broadcast from their lanes, and sums its squares in
-  ascending i;
+* the inverse diagonal by columns: lane c forms column c of L^-1 from the
+  rows of L broadcast from their lanes, and sums its squares in ascending
+  i;
 
-and must equal ``spd_solve_damped_dense_plain`` and
-``spd_inverse_diag_dense_plain`` bit for bit, NaN rows exactly at the
-non-SPD voxels, for F = 1..32.  Poisoned padding rows leave every real
-output as it is: the padding adds nothing to a real row or column.  A
-source check pins what the model assumes of the kernels' source: no shared
-memory, the shared warp factor, and the padding switch.
+and must equal the plain versions bit for bit, NaN rows exactly at the
+non-SPD voxels, for F = 1..32, K3/K4 at a batch that is not a multiple of
+a block's voxels.  Poisoned padding rows leave every real output as it
+is: the padding adds nothing to a real row or column.  A source check pins
+what the model assumes of the kernels' source: the shared warp factor for
+all four, the tile's stride and size, shared memory in the slab layout
+only, and the padding switch.
 """
 
 import re
@@ -43,12 +50,66 @@ def _rows(n):
     return 4 * ((n + 3) // 4)
 
 
-def _warp_factor(h, lam, pad=None):
+def _packed(j, n):
+    """Row t of the packed upper triangle of (j, i), i >= j: j*n - j(j+1)/2 + i
+    (``SlabTile::at``), as an offset to add i to."""
+    return j * n - j * (j + 1) // 2
+
+
+def _stage_walk(n, kf):
+    """``SlabTile::stage``'s walk: for each of a pass's 32 rows (q) and each
+    trip p, the packed row t = q + 32 p and its (j, i), j = n past the last
+    row."""
+    rows = kf * (kf + 1) // 2
+    out = []
+    for q in range(LANES):
+        j, i = 0, q
+        for p in range((rows + 31) // 32):
+            while j < n and i >= n:
+                i -= n - 1 - j
+                j += 1
+            out.append((q + 32 * p, j, i))
+            i += 32
+    return out
+
+
+def _tile_loads(slab, n, kv):
+    """K3/K4's loads: each block of kv voxels stages its packed upper rows
+    into a tile poisoned with NaN (zeros for voxels past B), then voxel
+    v0 + u's lane i reads row j at tile[(packed(j) + i) * (kv + 1) + u]."""
+    b = slab.shape[1]
+    kf = _rows(n)
+    rows, stride = kf * (kf + 1) // 2, kv + 1
+    n_blocks = -(-b // kv)
+    padded = np.zeros((n * n, n_blocks * kv), F32)
+    padded[:, :b] = slab
+    tile = np.full((n_blocks, rows * stride), np.nan, F32)
+    for t, j, i in _stage_walk(n, kf):
+        if t >= rows:
+            continue
+        for u in range(kv):
+            tile[:, t * stride + u] = (
+                padded[j * n + i, u::kv] if j < n else F32(0))
+    v = np.arange(b)
+    blk, u = v // kv, v % kv
+
+    def load(j):
+        idx = (_packed(j, n) + np.arange(j, n)[None, :]) * stride + u[:, None]
+        return tile[blk[:, None], idx]
+    return load
+
+
+def _dense_loads(h):
+    return lambda j: h[:, j, j:]
+
+
+def _warp_factor(load, b, n, diag, pad=None):
     """Registers after ``warp_factor``: a[v, lane, j] = L(lane, j), j <= lane.
 
-    ``lam`` is None for K6b (no damping).  ``pad``, if given, overwrites
-    the padding lanes' rows after the load (a poisoned padding)."""
-    b, n, _ = h.shape
+    ``load(j)`` gives A[j][i] for i = j..n-1 (lanes j..n-1 load, as in the
+    kernel); ``diag`` maps a real lane's diagonal entry.  ``pad``, if given,
+    overwrites the padding lanes' rows after the load (a poisoned
+    padding)."""
     kf = _rows(n)
     lane = np.arange(LANES)
     real = lane < n
@@ -56,13 +117,9 @@ def _warp_factor(h, lam, pad=None):
     for j in range(kf):
         col = np.zeros((b, LANES), F32)  # load(j, lane) = A[j][lane]
         if j < n:
-            col[:, :n] = h[:, j, :]
+            col[:, j:n] = load(j)
         x = np.where((j <= lane) & real, col, F32(0))
-        if lam is not None:
-            damped = (x + lam[:, None] * np.maximum(x, TINY)) + TINY
-        else:
-            damped = x
-        a[:, :, j] = np.where(lane == j, np.where(real, damped, F32(1)), x)
+        a[:, :, j] = np.where(lane == j, np.where(real, diag(x), F32(1)), x)
     if pad is not None:
         a[:, n:, :] = pad
     for k in range(kf):
@@ -121,38 +178,51 @@ def _warp_inverse_diag(a, n):
     return s
 
 
-def model_solve_damped(h, g, lam, pad=None):
-    """K6a's schedule: out[v, i] = lane i's x_i."""
+def _loads(h, layout, kv):
+    """The kernel's loads of dense (B, n, n) ``h`` in ``layout``: "dense"
+    (K6a/K6b) or "slab" (K3/K4: the slab form through the tile)."""
     n = h.shape[1]
+    if layout == "dense":
+        return _dense_loads(h)
+    slab = np.ascontiguousarray(h.transpose(1, 2, 0).reshape(n * n, -1))
+    return _tile_loads(slab, n, kv)
+
+
+def model_solve_damped(h, g, lam, pad=None, layout="dense", kv=None):
+    """K3's/K6a's schedule: out[v, i] = lane i's x_i."""
+    b, n, _ = h.shape
     with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-        a = _warp_factor(h, lam, pad)
-        rhs = np.zeros((h.shape[0], LANES), F32)
+        def damp(x):
+            return (x + lam[:, None] * np.maximum(x, TINY)) + TINY
+        a = _warp_factor(_loads(h, layout, kv), b, n, damp, pad)
+        rhs = np.zeros((b, LANES), F32)
         rhs[:, :n] = g
         return _warp_back(a, _warp_forward(a, rhs), n)[:, :n]
 
 
-def model_inverse_diag(h, pad=None):
-    """K6b's schedule: out[v, c] = lane c's column sum."""
-    n = h.shape[1]
+def model_inverse_diag(h, tikhonov=0.0, pad=None, layout="dense", kv=None):
+    """K4's/K6b's schedule: out[v, c] = lane c's column sum."""
+    b, n, _ = h.shape
     with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-        return _warp_inverse_diag(_warp_factor(h, None, pad), n)[:, :n]
+        a = _warp_factor(_loads(h, layout, kv), b, n,
+                         lambda x: x + F32(tikhonov), pad)
+        return _warp_inverse_diag(a, n)[:, :n]
 
 
-def _case(f, seed):
-    """SPD matrices (one with rows six orders of magnitude apart, as a
-    Gauss-Newton H), and two planted non-SPD voxels: a negative first
-    pivot (voxel 1) and a negative last pivot (voxel 4)."""
+def _case(f, seed, b=6):
+    """b SPD matrices (voxel 5 with rows six orders of magnitude apart, as
+    a Gauss-Newton H), and two planted non-SPD voxels: a negative first
+    pivot (voxel 1) and a negative last pivot (voxel b - 2)."""
     rng = np.random.default_rng(seed)
-    b = 6
     m = rng.normal(size=(b, f, f))
     h = m @ m.transpose(0, 2, 1) + 0.1 * f * np.eye(f)
     d = np.logspace(-3, 3, f)
     h[5] = d[:, None] * h[5] * d[None, :]
     h = h.astype(F32)
     h[1, 0, 0] = -1.0
-    h[4, f - 1, f - 1] = -4.0 * abs(h[4, f - 1, f - 1]) - 1.0
+    h[b - 2, f - 1, f - 1] = -4.0 * abs(h[b - 2, f - 1, f - 1]) - 1.0
     bad = np.zeros(b, bool)
-    bad[[1, 4]] = True
+    bad[[1, b - 2]] = True
     g = rng.normal(size=(b, f)).astype(F32)
     lam = np.logspace(-5, -1, b).astype(F32)
     return h, g, lam, bad
@@ -169,21 +239,62 @@ def _assert_bits(got, ref):
     assert np.array_equal(got[~nan].view(np.int32), ref[~nan].view(np.int32))
 
 
-@pytest.mark.parametrize("kernel", ["K6a", "K6b"])
+# K3/K4 at B = 37: four blocks of 8 voxels and a fifth of 5.
+SLAB_B = 37
+
+
+def _slab(h):
+    return torch.from_numpy(np.ascontiguousarray(
+        h.transpose(1, 2, 0).reshape(h.shape[1] ** 2, -1)))
+
+
+@pytest.mark.parametrize("kernel", ["K6a", "K6b", "K3", "K4", "K4 ridge"])
 @pytest.mark.parametrize("f", range(1, 33))
 def test_model_equals_plain_bit_for_bit(f, kernel):
-    h, g, lam, bad = _case(f, seed=f)
+    if kernel.startswith("K6"):
+        h, g, lam, bad = _case(f, seed=f)
+    else:
+        h, g, lam, bad = _case(f, seed=1000 + f, b=SLAB_B)
     th = torch.from_numpy(h)
+    tg, tlam = torch.from_numpy(g), torch.from_numpy(lam)
+    kv = _source_voxels(kernel[:2])
     if kernel == "K6a":
         got = model_solve_damped(h, g, lam)
-        ref = spd.spd_solve_damped_dense_plain(
-            th, torch.from_numpy(g), torch.from_numpy(lam)).numpy()
-    else:
+        ref = spd.spd_solve_damped_dense_plain(th, tg, tlam).numpy()
+    elif kernel == "K6b":
         got = model_inverse_diag(h)
         ref = spd.spd_inverse_diag_dense_plain(th).numpy()
+    elif kernel == "K3":
+        got = model_solve_damped(h, g, lam, layout="slab", kv=kv)
+        ref = spd.spd_solve_damped_plain(_slab(h), tg, tlam).numpy()
+    else:
+        tik = 1e-12 if kernel == "K4 ridge" else 0.0
+        got = model_inverse_diag(h, tik, layout="slab", kv=kv)
+        ref = spd.spd_inverse_diag_plain(_slab(h), tik).numpy()
     _assert_bits(got, ref)
     assert np.array_equal(np.isnan(got).all(1), bad)
     assert not np.isnan(got[~bad]).any()
+
+
+@pytest.mark.parametrize("kv", [8, 32])
+@pytest.mark.parametrize("n", [1, 4, 5, 19, 20, 21, 31, 32])
+def test_stage_walk_covers_the_packed_upper_triangle(n, kv):
+    """The staging walk names every upper-triangle row (j <= i < n) once,
+    at its packed row t; the rest of the tile's rows stage zeros (j = n);
+    and a tile at any block size gives the same outputs bit for bit."""
+    kf = _rows(n)
+    walk = _stage_walk(n, kf)
+    upper = [(j, i) for j in range(n) for i in range(j, n)]
+    real = sorted((t, j, i) for t, j, i in walk if j < n)
+    assert real == [(t, j, i) for t, (j, i) in enumerate(upper)]
+    assert all(_packed(j, n) + i == t for t, j, i in real)
+    assert all(j == n for t, j, i in walk if t >= len(upper))
+    assert {t for t, _, _ in walk} >= set(range(kf * (kf + 1) // 2))
+    h, g, lam, _ = _case(n, seed=2000 + n, b=SLAB_B)
+    _assert_bits(model_solve_damped(h, g, lam, layout="slab", kv=kv),
+                 model_solve_damped(h, g, lam))
+    _assert_bits(model_inverse_diag(h, 1e-12, layout="slab", kv=kv),
+                 model_inverse_diag(h, 1e-12))
 
 
 @pytest.mark.parametrize("f", [1, 2, 3, 5, 18, 21, 30, 31])
@@ -216,20 +327,58 @@ def test_model_solves_and_inverts():
             d[v], np.diagonal(np.linalg.inv(a)), rtol=2e-3)
 
 
-def test_source_takes_no_shared_memory_and_shares_the_warp_factor():
+def _source_voxels(kernel):
+    """The voxels a block of K3's (``SolveTile``) or K4's (``InverseTile``)
+    tile, from the source."""
     text = (CSRC / "spd.cu").read_text()
+    name = "SolveTile" if kernel == "K3" else "InverseTile"
+    kv = re.search(rf"using {name} = SlabTile<kF, (\w+)>;", text).group(1)
+    if kv == "kWarpVoxels":
+        kv = re.search(r"constexpr int kWarpVoxels = (\d+);", text).group(1)
+    return int(kv)
+
+
+def test_source_takes_no_shared_memory_and_shares_the_warp_factor():
+    """What the model assumes of ``spd.cu``: the dense kernels take no
+    shared memory and only the slab layout stages a tile (static, sized by
+    kF, stride kV + 1, each size under 48 KB); all four kernels run one
+    template per function on ``warp_factor``; K3/K4 launch on the tile and
+    K6a/K6b on the dense layout, K6b with no Tikhonov term."""
+    text = (CSRC / "spd.cu").read_text()
+    assert text.count("__shared__") == 1
     assert "extern __shared__" not in text
-    assert "__shared__" not in text
     assert "cudaFuncSetAttribute" not in text
-    for name in ("spd_solve_damped_dense_kernel",
-                 "spd_inverse_diag_dense_kernel"):
-        launch = re.search(rf"{name}<kF>\s*<<<([^>]*)>>>", text)
-        assert launch, name
-        args = [x.strip() for x in launch.group(1).split(",")]
-        assert args[1] == "32 * kWarpVoxels" and args[2] == "0", args
+    tile = text.split("struct SlabTile {", 1)[1].split("\n};\n", 1)[0]
+    assert "__shared__ float s[kRows * kStride];" in tile
+    assert "static constexpr int kStride = kV + 1;" in tile
+    assert "static constexpr int kRows = kF * (kF + 1) / 2;" in tile
+    assert "__syncthreads();" in tile
+    assert "sv[(j * n - j * (j + 1) / 2 + i) * kStride]" in tile
+    for kernel in ("K3", "K4"):
+        kv = _source_voxels(kernel)
+        assert (kv + 1) % 2 == 1 and kv in (8, 16, 32)
+        assert 32 * 33 // 2 * (kv + 1) * 4 <= 48 * 1024
+    dense = text.split("struct Dense {", 1)[1].split("\n};\n", 1)[0]
+    assert "__shared__" not in dense and "__syncthreads" not in dense
+    for name in ("spd_solve_damped_kernel", "spd_inverse_diag_kernel"):
         body = text.split(f"    {name}(", 1)[1].split("\n}\n", 1)[0]
-        assert "if (v >= b) return;" in body
-        assert "warp_factor<kF>(" in body
+        assert body.index("const Layout layout(h, b, f);") < body.index(
+            "if (v >= b) return;")
+        assert "warp_factor<kF>(f, layout.at(v)," in body
+    launches = {
+        "xmt_spd_solve_damped": "launch_solve<kF, SolveTile<kF>>(",
+        "xmt_spd_inverse_diag": "launch_inverse_diag<kF, InverseTile<kF>>(",
+        "xmt_spd_solve_damped_dense": "launch_solve<kF, Dense>(",
+        "xmt_spd_inverse_diag_dense": "launch_inverse_diag<kF, Dense>(h, out, b, f, 0.f,",
+    }
+    for entry, launch in launches.items():
+        body = text.split(f'extern "C" int {entry}(', 1)[1].split("\n}\n", 1)[0]
+        assert "if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;" in body
+        assert "if (b > 0) {" in body
+        assert "XMT_WARP_ROWS(f, " + launch in body, entry
+    assert "load_and_factor" not in text and "tri(" not in text
+    factor = (CSRC / "spd_factor.cuh").read_text()
+    assert "solve_with_factor" not in factor and "tri(" not in factor
     k8 = (CSRC / "lm_v10.cu").read_text()
     assert "warp_factor<kF>(" in k8 and "XMT_WARP_ROWS(" in k8
     assert "__shfl_sync" not in k8.split("warp_factor_solve(", 1)[1].split(

@@ -1,9 +1,9 @@
 // Pieces of the damped SPD solve shared by K3, K4, K6a, K6b and the
 // whole-loop LM kernel K8, so that all of them run the same arithmetic in
-// the same order: packed-lower indexing, the LM damping of a diagonal
-// entry, the two triangular substitutions of one thread (K3), and the warp
-// factor and substitutions (K6a, K6b, K8).  Every product and sum is rounded
-// on its own (no fused multiply-add), as in the plain PyTorch versions.
+// the same order: the LM damping of a diagonal entry, and the warp factor
+// and substitutions (one warp per matrix, the factor in registers).  Every
+// product and sum is rounded on its own (no fused multiply-add), as in the
+// plain PyTorch versions.
 
 #pragma once
 
@@ -14,30 +14,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
-
 // The LM damping of a diagonal entry: a + lam*max(a, 1e-12) + 1e-12.
 __device__ __forceinline__ float damp(float a, float lam) {
     return __fadd_rn(__fadd_rn(a, __fmul_rn(lam, fmaxf(a, 1e-12f))), 1e-12f);
-}
-
-// Forward substitution L y = g (`rhs(i)` reads g_i), then back substitution
-// L^T x = y; x overwrites y from the end.
-template <typename Rhs>
-__device__ __forceinline__ void solve_with_factor(const float* L, int f,
-                                                  Rhs rhs, float* y) {
-    for (int i = 0; i < f; ++i) {
-        float acc = rhs(i);
-        for (int j = 0; j < i; ++j)
-            acc = __fsub_rn(acc, __fmul_rn(L[tri(i, j)], y[j]));
-        y[i] = __fdiv_rn(acc, L[tri(i, i)]);
-    }
-    for (int i = f - 1; i >= 0; --i) {
-        float acc = y[i];
-        for (int j = i + 1; j < f; ++j)
-            acc = __fsub_rn(acc, __fmul_rn(L[tri(j, i)], y[j]));
-        y[i] = __fdiv_rn(acc, L[tri(i, i)]);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -47,8 +26,10 @@ __device__ __forceinline__ void solve_with_factor(const float* L, int f,
 // the independent shuffles of a column issue together.  Rows n..kF-1 are
 // padding, the identity with a zero right-hand side: no lane of a real row
 // ever reads a padding lane's value except through a product that is an
-// exact +0 (warp_back), so every operation on the first n rows is K3's, in
-// K3's order.  Call them through XMT_WARP_ROWS.
+// exact +0 (warp_back), so every operation on the first n rows is the
+// plain version's, in its order (the factor column by column, each
+// substitution in the serial order of a single thread).  Call them through
+// XMT_WARP_ROWS.
 // ---------------------------------------------------------------------------
 
 // Runs STMT with `constexpr int kF` = n rounded up to a multiple of 4, for
@@ -110,7 +91,7 @@ __device__ __forceinline__ float warp_forward(const float (&a)[kF], float b) {
     return y;
 }
 
-// Back substitution L^T x = y in K3's serial order: lane j > i forms
+// Back substitution L^T x = y in the serial order: lane j > i forms
 // L(j, i) x_j, lane i subtracts them for j = i+1, i+2, ...  A padding lane
 // forms +0, which leaves every difference as it is (also -0, inf and NaN).
 // Returns lane i's x_i.

@@ -12,8 +12,8 @@ the two agree to the last bits on the card.
 Layouts: K3/K4 take H as the voxel-minor slab (F*F, B) of
 :func:`xmris_tpu_torch.ops.kernels.lm_cuda.eq6_normal_equations`, with ``g``
 (B, F), ``lam`` (B,) and outputs (B, F); K6a/K6b take dense row-major
-(B, F, F) matrices, one warp a voxel, and launch nothing for B = 0.  A
-non-positive pivot gives a NaN row.
+(B, F, F) matrices.  All four run one warp a voxel and launch nothing for
+an empty output.  A non-positive pivot gives a NaN row.
 
 :func:`spd_solve_small` and :func:`spd_inverse_diag_small` are the
 reference's XLA forms (``spd_solve_small``, ``spd_inverse_diag``: no Pallas
@@ -183,6 +183,8 @@ def spd_solve_damped(h, g, lam):
         raise ValueError("g must be (B, F) and lam (B,)")
     _launch_checks(h, f, g, lam)
     out = torch.empty((b, f), dtype=torch.float32, device=h.device)
+    if out.numel() == 0:
+        return out
     err = _build.library().xmt_spd_solve_damped(
         h.data_ptr(), g.data_ptr(), lam.data_ptr(), out.data_ptr(), b, f,
         _build.stream_ptr(h.device),
@@ -202,6 +204,8 @@ def spd_inverse_diag(h, tikhonov: float = 0.0):
     _launch_checks(h, f)
     b = h.shape[1]
     out = torch.empty((b, f), dtype=torch.float32, device=h.device)
+    if out.numel() == 0:
+        return out
     err = _build.library().xmt_spd_inverse_diag(
         h.data_ptr(), out.data_ptr(), b, f, float(tikhonov),
         _build.stream_ptr(h.device),
