@@ -27,10 +27,10 @@ The substitutions follow the source's design:
   "loads only" (no factor, no substitution, no inverse diagonal),
   "factor only"; for K3/K4 the slab loaders: "direct slab loads" (lane i
   reads h[(j*f + i)*b + v] where it lies, 8 voxels a block) and its
-  "loads only"; the other tile sizes of each (8, 16 or 32 voxels a block,
-  32 meaning 16 where kF > 24 so that the static tile stays under 48 KB);
-  and K4's tile of 8 held to 64 registers (4 blocks an SM), which the
-  shared template gives K6b too.
+  "loads only"; the slab tile at 8 or 32 voxels a block in place of 16
+  (32 meaning 16 where kF > 24, so that the static tile stays under 48
+  KB); and the tile of 8 with K4 held to 64 registers (4 blocks an SM),
+  which the shared template gives K6b too.
 
 Variants that skip work ("... only") compute wrong outputs: they measure
 cost, not a candidate.  Every other variant's outputs are held bit for bit
@@ -125,19 +125,15 @@ struct SlabDirect {
 };
 
 """
-_K3_TILE = "using SolveTile = SlabTile<kF, kWarpVoxels>;"
-_K4_TILE = "using InverseTile = SlabTile<kF, 16>;"
-_DIRECT = [("spd.cu", "template <int kF>\n" + _K3_TILE,
-            _SLAB_DIRECT + "template <int kF>\n" + _K3_TILE),
-           ("spd.cu", "SolveTile<kF>>(", "SlabDirect>("),
-           ("spd.cu", "InverseTile<kF>>(", "SlabDirect>(")]
+_SLAB = "SlabTile<kF, kSlabVoxels>>("  # both slab entries' layout
+_INVERSE = "// diag(A^-1) from the warp factor"
+_DIRECT = [("spd.cu", _INVERSE, _SLAB_DIRECT + _INVERSE),
+           ("spd.cu", _SLAB, "SlabDirect>(")]
 
 
-def _tile(kernel: str, voxels: str) -> list:
-    """K3's or K4's tile at ``voxels`` voxels a block."""
-    old = _K3_TILE if kernel == "K3" else _K4_TILE
-    return [("spd.cu", old, old.split("SlabTile<kF, ")[0]
-             + f"SlabTile<kF, {voxels}>;")]
+def _tile(voxels: str) -> list:
+    """K3's and K4's tile at ``voxels`` voxels a block."""
+    return [("spd.cu", _SLAB, f"SlabTile<kF, {voxels}>>(")]
 
 
 # K4 (and K6b, the same template) held to 64 registers: 4 blocks of 8
@@ -155,12 +151,10 @@ _WARP = {
     "direct slab loads": (_DIRECT, ("K3", "K4")),
     "direct slab loads, loads only": (
         _DIRECT + [_NO_FACTOR] + _NO_SOLVE, ("K3", "K4")),
-    "K3 tile of 16 voxels": (_tile("K3", "16"), ("K3",)),
-    "K3 tile of 32 voxels": (_tile("K3", "(kF <= 24 ? 32 : 16)"), ("K3",)),
-    "K4 tile of 8 voxels": (_tile("K4", "kWarpVoxels"), ("K4",)),
-    "K4 tile of 32 voxels": (_tile("K4", "(kF <= 24 ? 32 : 16)"), ("K4",)),
-    "K4 tile of 8 voxels at 64 registers (K6b too)": (
-        _tile("K4", "kWarpVoxels") + _CAP_64, ("K4", "K6b")),
+    "tile of 8 voxels": (_tile("kWarpVoxels"), ("K3", "K4")),
+    "tile of 32 voxels": (_tile("(kF <= 24 ? 32 : 16)"), ("K3", "K4")),
+    "tile of 8 voxels, 64 registers (K6b too)": (
+        _tile("kWarpVoxels") + _CAP_64, ("K4", "K6b")),
 }
 ENTRIES = {"K3": "xmt_spd_solve_damped",
            "K4": "xmt_spd_inverse_diag",

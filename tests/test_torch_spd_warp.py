@@ -24,7 +24,7 @@ rounded on its own, runs the same sequence of operations:
 and must equal the plain versions bit for bit, NaN rows exactly at the
 non-SPD voxels, for F = 1..32, K3/K4 at a batch that is not a multiple of
 a block's voxels.  Poisoned padding rows leave every real output as it
-is: the padding adds nothing to a real row or column.  A source check pins
+is: the padding adds nothing to a real row or column.  Source checks pin
 what the model assumes of the kernels' source: the shared warp factor for
 all four, the tile's stride and size, shared memory in the slab layout
 only, and the padding switch.
@@ -257,7 +257,7 @@ def test_model_equals_plain_bit_for_bit(f, kernel):
         h, g, lam, bad = _case(f, seed=1000 + f, b=SLAB_B)
     th = torch.from_numpy(h)
     tg, tlam = torch.from_numpy(g), torch.from_numpy(lam)
-    kv = _source_voxels(kernel[:2])
+    kv = _source_voxels()
     if kernel == "K6a":
         got = model_solve_damped(h, g, lam)
         ref = spd.spd_solve_damped_dense_plain(th, tg, tlam).numpy()
@@ -327,47 +327,30 @@ def test_model_solves_and_inverts():
             d[v], np.diagonal(np.linalg.inv(a)), rtol=2e-3)
 
 
-def _source_voxels(kernel):
-    """The voxels a block of K3's (``SolveTile``) or K4's (``InverseTile``)
-    tile, from the source."""
+def _source_voxels():
+    """The voxels a block of K3's and K4's tile (``kSlabVoxels``), from the
+    source."""
     text = (CSRC / "spd.cu").read_text()
-    name = "SolveTile" if kernel == "K3" else "InverseTile"
-    kv = re.search(rf"using {name} = SlabTile<kF, (\w+)>;", text).group(1)
-    if kv == "kWarpVoxels":
-        kv = re.search(r"constexpr int kWarpVoxels = (\d+);", text).group(1)
-    return int(kv)
+    return int(re.search(r"constexpr int kSlabVoxels = (\d+);", text).group(1))
 
 
 def test_source_takes_no_shared_memory_and_shares_the_warp_factor():
-    """What the model assumes of ``spd.cu``: the dense kernels take no
-    shared memory and only the slab layout stages a tile (static, sized by
-    kF, stride kV + 1, each size under 48 KB); all four kernels run one
-    template per function on ``warp_factor``; K3/K4 launch on the tile and
-    K6a/K6b on the dense layout, K6b with no Tikhonov term."""
+    """What the model assumes of the dense kernels K6a/K6b: their layout
+    takes no shared memory and no barrier, and they run the one template
+    per function on ``warp_factor`` that K3/K4 run too, K6b with no
+    Tikhonov term; K8 shares the warp factor."""
     text = (CSRC / "spd.cu").read_text()
-    assert text.count("__shared__") == 1
     assert "extern __shared__" not in text
     assert "cudaFuncSetAttribute" not in text
-    tile = text.split("struct SlabTile {", 1)[1].split("\n};\n", 1)[0]
-    assert "__shared__ float s[kRows * kStride];" in tile
-    assert "static constexpr int kStride = kV + 1;" in tile
-    assert "static constexpr int kRows = kF * (kF + 1) / 2;" in tile
-    assert "__syncthreads();" in tile
-    assert "sv[(j * n - j * (j + 1) / 2 + i) * kStride]" in tile
-    for kernel in ("K3", "K4"):
-        kv = _source_voxels(kernel)
-        assert (kv + 1) % 2 == 1 and kv in (8, 16, 32)
-        assert 32 * 33 // 2 * (kv + 1) * 4 <= 48 * 1024
     dense = text.split("struct Dense {", 1)[1].split("\n};\n", 1)[0]
     assert "__shared__" not in dense and "__syncthreads" not in dense
+    assert "static constexpr int kVoxels = kWarpVoxels;" in dense
     for name in ("spd_solve_damped_kernel", "spd_inverse_diag_kernel"):
         body = text.split(f"    {name}(", 1)[1].split("\n}\n", 1)[0]
         assert body.index("const Layout layout(h, b, f);") < body.index(
             "if (v >= b) return;")
         assert "warp_factor<kF>(f, layout.at(v)," in body
     launches = {
-        "xmt_spd_solve_damped": "launch_solve<kF, SolveTile<kF>>(",
-        "xmt_spd_inverse_diag": "launch_inverse_diag<kF, InverseTile<kF>>(",
         "xmt_spd_solve_damped_dense": "launch_solve<kF, Dense>(",
         "xmt_spd_inverse_diag_dense": "launch_inverse_diag<kF, Dense>(h, out, b, f, 0.f,",
     }
@@ -383,6 +366,35 @@ def test_source_takes_no_shared_memory_and_shares_the_warp_factor():
     assert "warp_factor<kF>(" in k8 and "XMT_WARP_ROWS(" in k8
     assert "__shfl_sync" not in k8.split("warp_factor_solve(", 1)[1].split(
         "warp_back<kF>", 1)[0]
+
+
+def test_source_stages_only_the_slab_tile():
+    """What the model assumes of the slab kernels K3/K4: the slab layout is
+    the only shared memory of ``spd.cu``, one static tile sized by kF at
+    the odd stride kV + 1, under 48 KB at kF = 32, filled before a barrier
+    that every thread reaches before any warp returns; both slab entries
+    launch the same template on it at ``kSlabVoxels`` voxels a block."""
+    text = (CSRC / "spd.cu").read_text()
+    assert text.count("__shared__") == 1
+    tile = text.split("struct SlabTile {", 1)[1].split("\n};\n", 1)[0]
+    assert "__shared__ float s[kRows * kStride];" in tile
+    assert "static constexpr int kStride = kV + 1;" in tile
+    assert "static constexpr int kRows = kF * (kF + 1) / 2;" in tile
+    assert "__syncthreads();" in tile
+    assert "sv[(j * n - j * (j + 1) / 2 + i) * kStride]" in tile
+    kv = _source_voxels()
+    assert (kv + 1) % 2 == 1 and kv in (8, 16, 32)
+    assert 32 * 33 // 2 * (kv + 1) * 4 <= 48 * 1024
+    launches = {
+        "xmt_spd_solve_damped": "launch_solve<kF, SlabTile<kF, kSlabVoxels>>(",
+        "xmt_spd_inverse_diag": (
+            "launch_inverse_diag<kF, SlabTile<kF, kSlabVoxels>>("),
+    }
+    for entry, launch in launches.items():
+        body = text.split(f'extern "C" int {entry}(', 1)[1].split("\n}\n", 1)[0]
+        assert "if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;" in body
+        assert "if (b > 0) {" in body
+        assert "XMT_WARP_ROWS(f, " + launch in body, entry
 
 
 def test_padding_switch_covers_every_row_count():

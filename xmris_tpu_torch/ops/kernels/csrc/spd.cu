@@ -13,29 +13,31 @@
 // which spreads to the whole output row, as in the reference (the LM reads
 // a NaN step as a rejected one).
 //
-// What bounds them on the H100: each reads the Hessians once (26 MB per
-// bench grid of 16 384 voxels at F = 20, ~8 us at 3.35 TB/s) and does
-// ~F^3/3 = 2.7 kFLOP per voxel, sequentially dependent.
+// What bounds them on the H100: each reads the upper triangle of the
+// Hessians once (13.8 MB per bench grid of 16 384 voxels at F = 20, ~4 us
+// at 3.35 TB/s) and does ~F^3/3 = 2.7 kFLOP per voxel, sequentially
+// dependent.
 //
 // Design: one kernel template per function, on the layout of A.  One warp
-// per voxel (8 voxels a block, K4 16); lane i reads A[j][i] for j <= i
-// (the upper triangle, column i by symmetry) through the layout, holds row
-// i of the Cholesky factor in registers (spd_factor.cuh's warp factor and
-// substitutions, as K8 runs them, unrolled over F rounded up to a multiple
-// of 4); each column step is a few shuffles, and 16 384 warps fill the
-// card.  The inverse diagonal then forms column c of L^-1 in lane c
-// (warp_inverse_diag): every lane divides at once, where a lane per row of
-// L^-1 left each row's divisions to one lane (2.2x slower, and 72
-// registers with spills).  The design this replaced ran a thread per voxel
-// with its packed factor in local memory: K6a/K6b 0.45 / 0.53 ms against
-// 0.059 / 0.074, K3/K4 0.092 / 0.125 against 0.062 / 0.074 (H100 80GB
-// HBM3, 700 W; scripts/ablate_spd.py).
+// per voxel (8 voxels a block on the dense layout, 16 on the slab); lane
+// i reads A[j][i] for j <= i (the upper triangle, column i by symmetry)
+// through the layout, holds row i of the Cholesky factor in registers
+// (spd_factor.cuh's warp factor and substitutions, as K8 runs them,
+// unrolled over F rounded up to a multiple of 4); each column step is a
+// few shuffles, and 16 384 warps fill the card.  The inverse diagonal
+// then forms column c of L^-1 in lane c (warp_inverse_diag): every lane
+// divides at once, where a lane per row of L^-1 left each row's divisions
+// to one lane (2.2x slower, and 72 registers with spills).  The design
+// this replaced ran a thread per voxel with its packed factor in local
+// memory: K6a/K6b 0.45 / 0.53 ms against 0.059 / 0.074, K3/K4 0.092 /
+// 0.125 against 0.063 / 0.074 (H100 80GB HBM3, 700 W;
+// scripts/ablate_spd.py).
 // Layouts: Dense reads a voxel's rows where they lie (row j of a voxel is
 // contiguous across the lanes).  K2's voxel-minor slab (F*F, B) puts entry
 // (j, i) of voxel v at h[(j*f + i)*b + v]: contiguous across voxels, not
 // lanes, so lane i of a warp would touch a sector of its own.  SlabTile
 // copies the block's voxels' upper-triangle rows into a shared tile first,
-// coalesced (a row's 8 voxels are one 32-byte sector), then each warp
+// coalesced (a row's 16 voxels are two 32-byte sectors), then each warp
 // reads its voxel from the tile at an odd stride, free of bank conflicts.
 // Every kernel factors, substitutes and forms the inverse diagonal in the
 // same sequence of correctly rounded operations whatever the layout, so
@@ -54,7 +56,14 @@
 namespace {
 
 constexpr int kMaxF = 32;
-constexpr int kWarpVoxels = 8;  // voxels (warps) per block
+constexpr int kWarpVoxels = 8;  // voxels (warps) per block, dense layout
+// Voxels per block of the slab layout, chosen by scripts/ablate_spd.py
+// (H100 80GB HBM3, 700 W): K4 0.0735 ms at 16 (8 voxels 0.0774 at 73
+// registers, 3 blocks an SM; 32 voxels 0.0744; direct slab loads 0.0787),
+// as its 16 warps a block at 60 registers keep 32 warps an SM resident;
+// K3 0.0629 at 16, within 1 % of its best (0.0622 at 8; 32 voxels 0.0672,
+// direct 0.0675).
+constexpr int kSlabVoxels = 16;
 
 // A layout is built by every thread of the block before any warp returns;
 // at(v) then gives voxel v's load(j, i) = A[j][i], j <= i < f.
@@ -125,16 +134,6 @@ struct SlabTile {
         };
     }
 };
-
-// K3's and K4's tiles, chosen by scripts/ablate_spd.py (H100 80GB HBM3,
-// 700 W): K3 at 8 voxels a block (0.0622 ms; 16 voxels 0.0629, 32 0.0672,
-// direct slab loads 0.0675), K4 at 16 (0.0735; 8 voxels 0.0774 at 73
-// registers, 3 blocks an SM; 32 voxels 0.0744; direct 0.0787): K4's 16
-// warps a block at 60 registers keep 32 warps an SM resident.
-template <int kF>
-using SolveTile = SlabTile<kF, kWarpVoxels>;
-template <int kF>
-using InverseTile = SlabTile<kF, 16>;
 
 // diag(A^-1) from the warp factor in K4's order: lane c forms column c of
 // X = L^-1, x[i] = X(i, c) = (delta_ic - sum_{j=c}^{i-1} L(i, j) X(j, c)) /
@@ -230,7 +229,7 @@ extern "C" int xmt_spd_solve_damped(const float* h, const float* g,
                                     void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_solve<kF, SolveTile<kF>>(
+        XMT_WARP_ROWS(f, launch_solve<kF, SlabTile<kF, kSlabVoxels>>(
                              h, g, lam, out, b, f, stream))
     }
     return (int)cudaGetLastError();
@@ -240,7 +239,7 @@ extern "C" int xmt_spd_inverse_diag(const float* h, float* out, int b, int f,
                                     float tikhonov, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_inverse_diag<kF, InverseTile<kF>>(
+        XMT_WARP_ROWS(f, launch_inverse_diag<kF, SlabTile<kF, kSlabVoxels>>(
                              h, out, b, f, tikhonov, stream))
     }
     return (int)cudaGetLastError();
