@@ -14,8 +14,8 @@ from test_fitting import PK_CSV as TEST_PK_CSV
 from xmris_tpu_torch.bench_inputs import FIXED_AMPS_31P, PEAKS_31P
 from xmris_tpu_torch.bench_inputs import PK_CSV as BENCH_PK_CSV
 
-# test_fitting's two-peak prior with g fixed at 0: the grid fit's VARPRO
-# override (free g) is not ported, so the fit parity runs on fixed-g priors.
+# test_fitting's two-peak prior with g fixed at 0 (the fixed-g fit parity;
+# the free-g prior is TEST_PK_CSV itself, held in test_torch_free_g.py).
 TEST_PK_CSV_FIXED_G = TEST_PK_CSV.replace('g,"(0, 1)","(0, 1)"', "g,fixed,fixed")
 
 N_VOX = 24

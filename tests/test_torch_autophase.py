@@ -291,9 +291,17 @@ def test_autophase_keeps_a_tensor_payload(phantom_grid):
         rtol=1e-12, atol=1e-12)
 
 
+def test_autophase_default_de_runs(phantom_grid):
+    """optimizer="de" (the default), which raised in
+    ``test_unported_autophase_options_raise``, runs."""
+    _, _, da = phantom_grid
+    out = tph.autophase(da, device="cpu")
+    assert np.isfinite(out.attrs["phase_p0"]) and out.shape == da.shape
+
+
 def test_unported_autophase_options_raise(phantom_grid):
     _, _, da = phantom_grid
-    for kw in (dict(optimizer="de"), dict(optimizer="scipy"),
+    for kw in (dict(optimizer="scipy"),
                dict(optimizer="grid", method="peak_minima"),
                dict(optimizer="grid", polish_optimizer="newton"),
                dict(optimizer="grid", mode="all", polish_optimizer="bfgs")):
@@ -396,10 +404,19 @@ def test_process_grid_per_voxel_fused_polish_scores(per_voxel_program):
            u_im.numpy().astype(np.float64), p, p_ref, piv.numpy())
 
 
+def test_per_voxel_pipeline_runs_the_default_de(per_voxel_program):
+    """ap_optimizer="de" (the default), which raised in
+    ``test_per_voxel_pipeline_unported_options_raise``: one DE per voxel."""
+    args = per_voxel_program[2]
+    _, _, (p0, p1, piv) = spectral_pipeline_planar_raw(
+        *args[:4], PipelineConfig(zero_fill_to=ZF, autophase="all"))
+    assert p0.shape == piv.shape == (args[0].shape[0],)
+    assert torch.isfinite(p0).all() and torch.isfinite(p1).all()
+
+
 def test_per_voxel_pipeline_unported_options_raise(per_voxel_program):
     args = per_voxel_program[2]
-    for kw in (dict(ap_optimizer="de"),
-               dict(ap_optimizer="grid", ap_polish="newton")):
-        cfg = PipelineConfig(zero_fill_to=ZF, autophase="all", **kw)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            spectral_pipeline_planar_raw(*args[:4], cfg)
+    cfg = PipelineConfig(zero_fill_to=ZF, autophase="all",
+                         ap_optimizer="grid", ap_polish="newton")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        spectral_pipeline_planar_raw(*args[:4], cfg)

@@ -22,9 +22,11 @@ from xmris_tpu_torch import bench_inputs as bi
 from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.fitting.amares import (
     fit_amares,
+    g_seed_plan,
     seed_grid,
     seed_plan,
     seeded_fit_grid_raw,
+    stage_device_fids,
 )
 from xmris_tpu_torch.fitting.lm import (
     crlb_batched_pallas,
@@ -47,6 +49,7 @@ from xmris_tpu_torch.ops.kernels import (
     lm_loop_cuda,
     spd,
 )
+from xmris_tpu_torch.ops import phasing as tph
 from xmris_tpu_torch.ops.phasing import (
     _grid_phase_search,
     grid_phase_search_graphed,
@@ -1046,3 +1049,85 @@ def test_crlb_batched_pallas_runs_on_the_kernels(dev, version):
                                       kernel_version=version, kernels=K.PLAIN)
     torch.testing.assert_close(s2, s2_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(sds, sds_p, rtol=1e-3, atol=0)
+
+
+def _free_g_array(dev):
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    return XmrArray(fids.reshape(GRID + (bi.N_TIME,)), dims=("x", "y", "z", "time"),
+                    coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+
+
+def test_free_g_fit_amares_runs_on_the_kernels(dev):
+    """A free-g prior (g scan, VARPRO override) through fit_amares: K2 at
+    q_n = 2, K3 and K6b launch, no plain version runs, the fit converges,
+    and staged planes (pinned memory, side stream, event) give the same
+    dataset bit for bit."""
+    da = _free_g_array(dev)
+    pk = prior_from_csv_text(FREE_G_CSV)
+    K.reset_counters()
+    ds = fit_amares(da, pk)
+    counts = K.counters()
+    for name in K.PATHS["fit_amares"]:
+        assert counts["launches"][name] > 0, name
+    assert not any(counts["plain_calls"].values())
+    assert ds["fit_converged"].values.mean() >= 0.95
+    staged = stage_device_fids(da)
+    assert staged.ready is not None and staged.re.is_cuda
+    ds2 = fit_amares(da, pk, device_fids=staged)
+    for name in ds.data_vars:
+        np.testing.assert_array_equal(ds2[name].values, ds[name].values)
+
+
+@pytest.mark.parametrize("version", [9, 10])
+def test_free_g_grid_runs_on_the_kernels(dev, version):
+    """seeded_fit_grid_raw with the g scan on the card: the v9 loop (K2 +
+    K3, never K8 at 10) and K4, converged, with the VARPRO override."""
+    pk = prior_from_csv_text(FREE_G_CSV)
+    fids, weight, freqs = bi.make_inputs(GRID)
+    t = (np.arange(bi.N_TIME) / bi.SW).astype(np.float32)
+    args = grid_inputs_from_numpy(fids, weight, freqs, t, pk.init_free, pk, dev)
+    amp_slots, ls_plan = seed_plan(pk)
+    K.reset_counters()
+    x, cost, conv, sds = seeded_fit_grid_raw(
+        args[0], args[1], *args[4:], pmap_static=hashable_pmap(pk.pmap),
+        mhz=bi.MHZ, amp_slots=amp_slots, ls_plan=ls_plan,
+        g_scan=(0.0, 0.2, 0.4, 0.6, 0.8), g_plan=g_seed_plan(pk),
+        uniform_t_ok=True, kernel_version=version)
+    counts = K.counters()
+    want = K.PATHS["seeded_fit"] if version == 9 else (
+        "eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag_dense")
+    assert {n for n, c in counts["launches"].items() if c} == set(want)
+    assert not any(counts["plain_calls"].values())
+    assert float(conv.float().mean()) >= 0.95
+    assert torch.isfinite(x).all() and torch.isfinite(cost).all()
+
+
+@pytest.mark.parametrize("mode", ["single", "all"])
+def test_de_autophase_runs_on_the_card(dev, mode):
+    """autophase's default DE on a CUDA tensor: finite phases, and the same
+    seed gives the same result twice on the card."""
+    fids, weight, freqs = bi.make_inputs(GRID)
+    spec = np.fft.fftshift(np.fft.fft(fids, n=bi.ZERO_FILL, axis=-1), axes=-1)
+    da = XmrArray(spec.reshape(GRID + (bi.ZERO_FILL,)),
+                  dims=("x", "y", "z", "frequency"),
+                  coords={"frequency": Coord("frequency", freqs.astype(np.float64))})
+    a = tph.autophase(da, mode=mode, seed=5)
+    b = tph.autophase(da, mode=mode, seed=5)
+    assert np.isfinite(np.asarray(a.attrs["phase_p0"])).all()
+    np.testing.assert_array_equal(a.values, b.values)
+
+
+def test_default_de_search_runs_on_the_card(dev):
+    """``differential_evolution`` with list bounds and no ``device`` searches
+    on the card, and the same seed gives the same result twice there."""
+    from xmris_tpu_torch.ops.optim import differential_evolution
+
+    def sphere(x):
+        return ((x - 0.3) ** 2).sum(-1)
+
+    a = differential_evolution(sphere, [(-2.0, 2.0), (-2.0, 2.0)], seed=0)
+    b = differential_evolution(sphere, [(-2.0, 2.0), (-2.0, 2.0)], seed=0)
+    assert a.x.device.type == "cuda" and a.fun.device.type == "cuda"
+    np.testing.assert_allclose(a.x.cpu().numpy(), 0.3, atol=1e-3)
+    np.testing.assert_array_equal(a.x.cpu().numpy(), b.x.cpu().numpy())

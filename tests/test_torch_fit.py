@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from xmris_tpu.fitting import amares as jam
 from xmris_tpu.fitting import lm as jlm
 
+from xmris_tpu_torch.core.array import XmrArray
 from xmris_tpu_torch.fitting import amares as tam
 from xmris_tpu_torch.fitting import lm as tlm
 from xmris_tpu_torch.fitting.prior import (
@@ -266,17 +267,32 @@ def test_lm_trip_count(tmp_path):
     assert trips_two == min(2, trips)
 
 
-def test_unported_fit_options_raise(tmp_path):
+def test_unported_fit_options_raise():
+    """What the fit API still lacks raises and names its ROADMAP item: a
+    mesh or device count (item 11).  The free-g prior that raised here
+    runs now (``test_free_g_grid_fit_runs_on_each_kernel_path``)."""
+    da = XmrArray(np.zeros((2, 8), np.complex64), dims=("x", "time"))
+    for mesh in (2, (0, 1)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tam.fit_amares(da, "unused.csv", device="cpu", mesh=mesh)
+
+
+def test_free_g_grid_fit_runs_on_each_kernel_path(tmp_path):
+    """The free-g prior (VARPRO) runs the grid fit on each path: the v9
+    slab (K2, K3, K4), v6 (K11, K6a, K6b) and the dense v9 path without the
+    SPD kernels (K2 and the plain solves) -- the kernels' plain versions on
+    the CPU."""
     pk, pkt = load_priors(TEST_PK_CSV, tmp_path)  # free g -> VARPRO
     fids, t, _ = bench_phantom(n_voxels=2)
     _, targs, kw = _fit_inputs(pk, pkt, fids, t)
-    with pytest.raises(NotImplementedError, match="VARPRO"):
-        tam.seeded_fit_grid_raw(*targs, **kw)
-    # Every kernel version is ported; the free-g prior still needs the
-    # VARPRO override at each of them.
-    with pytest.raises(NotImplementedError, match="VARPRO"):
-        tam.seeded_fit_grid_raw(*targs, **kw, kernel_version=6)
-    # The dense path (spd_pallas=False) is ported; the free-g prior still
-    # needs the VARPRO override there.
-    with pytest.raises(NotImplementedError, match="VARPRO"):
-        tam.seeded_fit_grid_raw(*targs, **kw, spd_pallas=False)
+    for extra, kernels in (
+            ({}, {"eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag"}),
+            ({"kernel_version": 6}, {"eq6_normal_eq_v6",
+                                     "spd_solve_damped_dense",
+                                     "spd_inverse_diag_dense"}),
+            ({"spd_pallas": False}, {"eq6_normal_eq_v9"})):
+        K.reset_counters()
+        x, cost, conv, sds = tam.seeded_fit_grid_raw(*targs, **kw, **extra)
+        calls = K.counters()["plain_calls"]
+        assert {n for n, c in calls.items() if c} == kernels
+        assert torch.isfinite(x).all() and torch.isfinite(cost).all()

@@ -30,7 +30,11 @@ from xmris_tpu.ops.kernels.spd import spd_inverse_diag_pallas
 from xmris_tpu_torch import bench_inputs as bi
 from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.fitting import lm as tlm
-from xmris_tpu_torch.fitting.amares import fit_amares, template_seeded_x0
+from xmris_tpu_torch.fitting.amares import (
+    fit_amares,
+    stage_device_fids,
+    template_seeded_x0,
+)
 from xmris_tpu_torch.fitting.prior import prior_from_csv_text
 from xmris_tpu_torch.ops import kernels as K
 from xmris_tpu_torch.ops.kernels import spd
@@ -240,20 +244,34 @@ def test_fit_amares_unported_options_raise(bench_fits, tmp_path):
     _, da = _grid_arrays()
     with pytest.raises(NotImplementedError, match="item 11"):
         fit_amares(da, path, device="cpu", mesh=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit_amares(da, path, device="cpu", device_fids=(None, None))
-    free_g = tmp_path / "free_g.csv"
-    free_g.write_text(TEST_PK_CSV)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit_amares(da, free_g, device="cpu")
-    # Every kernel version is ported: the free-g prior is what still raises.
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit_amares(da, free_g, device="cpu", engine="pallas", kernel_version=6)
     with pytest.raises(ValueError, match="mhz"):
         fit_amares(XmrArray(da.data, dims=da.dims, coords=da.coords), path,
                    device="cpu")
     with pytest.raises(ValueError, match="missing"):
         fit_amares(da, path, dim="t", device="cpu")
+
+
+def test_fit_amares_runs_staged_planes_and_free_g(bench_fits, tmp_path):
+    """Item 6, which raised in ``test_fit_amares_unported_options_raise``,
+    runs: staged planes give the unstaged dataset bit for bit, and a
+    free-g prior fits on the default path and at v6."""
+    _, path = bench_fits
+    _, da = _grid_arrays()
+    staged = stage_device_fids(da, device="cpu")
+    a = fit_amares(da, path, device="cpu", device_fids=staged,
+                   return_curves=False)
+    b = fit_amares(da, path, device="cpu", return_curves=False)
+    for name in b.data_vars:
+        np.testing.assert_array_equal(a[name].values, b[name].values)
+    free_g = tmp_path / "free_g.csv"
+    free_g.write_text(TEST_PK_CSV)
+    for kw in ({}, dict(engine="pallas", kernel_version=6)):
+        K.reset_counters()
+        ds = fit_amares(da, free_g, device="cpu", return_curves=False,
+                        max_iter=5, **kw)
+        assert np.isfinite(ds["amplitude"].values).all()
+        if kw:
+            assert K.counters()["plain_calls"]["eq6_normal_eq_v6"] > 0
 
 
 def test_template_seeded_x0_matches_reference(tmp_path):

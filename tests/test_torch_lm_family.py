@@ -290,8 +290,9 @@ def test_kernel_version_contract(tmp_path):
     driver, ``crlb_batched_pallas`` and ``seeded_fit_grid_raw``, each on
     its own normal-equations kernel; 0 and 4 raise the reference's
     ValueError; 11 is the whole-loop kernel, as the reference resolves
-    every version >= 10; ``gate_rejects`` runs.  The one refusal left is
-    the VARPRO override of a free-g prior (ROADMAP.md queue 1, item 6)."""
+    every version >= 10; ``gate_rejects`` runs; a free-g prior runs with
+    the VARPRO override at 6, 8 (K11, the v8 fallback) and 10 (the v9
+    loop: K2, never K8)."""
     pk, args, ps = _driver_inputs(tmp_path, n_voxels=2, n_points=128)
     targs = tuple(_t(a) for a in args)
     amp_slots, ls_plan = jam.seed_plan(pk)
@@ -335,10 +336,15 @@ def test_kernel_version_contract(tmp_path):
     assert gated.converged.all()
     free_g, args_g, ps_g = _driver_inputs(tmp_path, csv=FREE_G_CSV, n_voxels=2,
                                           n_points=128)
-    for v in (6, 8, 10):
-        with pytest.raises(NotImplementedError, match="VARPRO"):
-            tlm.lm_fit_batched_pallas(*(_t(a) for a in args_g), ps_g, MHZ,
-                                      kernel_version=v)
+    for v, kernel in ((6, "eq6_normal_eq_v6"), (8, "eq6_normal_eq_v6"),
+                      (10, "eq6_normal_eq_v9")):
+        K.reset_counters()
+        res = tlm.lm_fit_batched_pallas(*(_t(a) for a in args_g), ps_g, MHZ,
+                                        kernel_version=v)
+        plain = K.counters()["plain_calls"]
+        assert [n for n in _VERSION_KERNEL.values() if plain[n]] == [kernel]
+        assert plain["lm_loop_v10"] == 0
+        assert torch.isfinite(res.cost).all()
 
 
 def test_return_hessian_forms(tmp_path):

@@ -188,16 +188,24 @@ def test_v10_driver_matches_reference_v9_driver(tmp_path, case):
 
 
 def test_v10_refuses_the_varpro_prior(tmp_path):
-    """A free-g prior turns the VARPRO override on, which the reference runs
-    on its v9 launch loop; the port has no override yet and says so."""
+    """The v10 whole loop (K8) refuses a free-g prior: the VARPRO override
+    it turns on is a launch-loop step, so at 10 the fit goes to the v9 loop
+    as in the reference (``whole_loop`` is off): the port runs K2 and K3
+    (their plain versions here), never K8, and matches its own v9 fit bit
+    for bit."""
     pk, _ = load_priors(FREE_G_CSV, tmp_path)
     ps = jlm.hashable_pmap(pk.pmap)
     fids, t, _ = bench_phantom(n_voxels=2, n_t=128)
     u0 = jlm.external_to_internal(pk.init_free, pk.lower, pk.upper, pk.kind)
     args = (_t(fids.real), _t(fids.imag), _t(t), _t(u0), _t(pk.lower),
             _t(pk.upper), _t(pk.kind))
-    with pytest.raises(NotImplementedError, match="VARPRO"):
-        tlm.lm_fit_batched_pallas(*args, ps, MHZ, kernel_version=10)
+    K.reset_counters()
+    r10 = tlm.lm_fit_batched_pallas(*args, ps, MHZ, kernel_version=10)
+    plain = K.counters()["plain_calls"]
+    assert plain["lm_loop_v10"] == 0 and plain["eq6_normal_eq_v9"] > 0
+    r9 = tlm.lm_fit_batched_pallas(*args, ps, MHZ, kernel_version=9)
+    for a, b in zip(r10, r9):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -209,16 +209,21 @@ def test_process_grid_phases_score(whole_program, ref_unphased):
     assert math.isfinite(s_port) and s_port <= s_ref * (1 + 1e-5)
 
 
+def test_pipeline_runs_the_default_de(phantom):
+    """Item 7's DE, which raised in ``test_unported_options_raise``: both
+    autophase modes run at the default ap_optimizer="de"."""
+    fids = phantom[0]
+    args = (_t(fids.real), _t(fids.imag), _t(WEIGHT), _t(FREQS))
+    for autophase, shape in (("all", (len(fids),)), ("single", ())):
+        _, _, (p0, p1, piv) = spectral_pipeline_planar_raw(
+            *args, PipelineConfig(zero_fill_to=ZF, autophase=autophase))
+        assert p0.shape == piv.shape == shape
+        assert torch.isfinite(p0).all() and torch.isfinite(p1).all()
+
+
 def test_unported_options_raise(phantom):
     fids = phantom[0]
     args = (_t(fids.real), _t(fids.imag), _t(WEIGHT), _t(FREQS))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spectral_pipeline_planar_raw(
-            *args, PipelineConfig(zero_fill_to=ZF, autophase="all",
-                                  ap_optimizer="de"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spectral_pipeline_planar_raw(
-            *args, PipelineConfig(zero_fill_to=ZF, ap_optimizer="de"))
     with pytest.raises(NotImplementedError, match="item 7"):
         spectral_pipeline_planar_raw(*args, PipelineConfig(
             zero_fill_to=ZF, ap_optimizer="grid", ap_polish="newton"))

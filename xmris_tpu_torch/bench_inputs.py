@@ -48,17 +48,23 @@ def pcr_amplitudes(grid=GRID) -> np.ndarray:
     return rng.uniform(5.0, 50.0, size=int(np.prod(grid)))
 
 
-def make_inputs(grid=GRID):
+def make_inputs(grid=GRID, g=0.0):
     """A 5-peak 31P phantom over ``grid``: ``(fids complex64 (B, N_TIME),
     weight float32 (ZERO_FILL,), freqs float32 (ZERO_FILL,))``.  At the
-    default grid it is bit-for-bit ``bench.make_inputs()``."""
+    default grid and ``g = 0`` it is bit-for-bit ``bench.make_inputs()``;
+    ``g > 0`` gives every peak the Eq. 6 Voigt envelope
+    ``exp(-pi lw (1 - g + g t) t)`` with that mixing fraction."""
     n_voxels = int(np.prod(grid))
     rng = np.random.default_rng(0)
     t = np.arange(N_TIME) / SW
     amp_pcr = rng.uniform(5.0, 50.0, size=n_voxels)[:, None]
     fids = np.zeros((n_voxels, N_TIME), dtype=np.complex128)
     for (shift, lw), amp in zip(PEAKS_31P, FIXED_AMPS_31P):
-        sig = np.exp((-lw * np.pi + 1j * 2 * np.pi * (shift * MHZ)) * t)
+        if g:
+            sig = (np.exp(-lw * np.pi * (1 - g + g * t) * t)
+                   * np.exp(1j * 2 * np.pi * (shift * MHZ) * t))
+        else:
+            sig = np.exp((-lw * np.pi + 1j * 2 * np.pi * (shift * MHZ)) * t)
         fids += (amp_pcr if amp is None else amp) * sig[None, :]
     fids += rng.normal(0, 0.3, fids.shape) + 1j * rng.normal(0, 0.3, fids.shape)
 

@@ -1,4 +1,5 @@
-"""Small core helpers: dimension bouncer and metadata-rich coordinates.
+"""Small core helpers: dimension bouncer, metadata-rich coordinates, and
+the split of a complex payload into device planes.
 
 Port of ``xmris_tpu.core.utils``, with the same error text (missing dims,
 available dims, a copy-pasteable ``rename`` fix).
@@ -7,6 +8,7 @@ available dims, a copy-pasteable ``rename`` fix).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.core.config import XmrTerm
@@ -47,3 +49,16 @@ def as_coord(term: XmrTerm, dim: str, data: np.ndarray) -> Coord:
     if term.unit:
         meta["units"] = term.unit
     return Coord(dim, np.asarray(data), meta)
+
+
+def complex_planes(data, device):
+    """Contiguous (real, imag) planes of a complex numpy array or tensor on
+    ``device``, from ONE host-to-device copy of the complex payload
+    (float32 planes for complex64, float64 for complex128); a real payload
+    gives itself and zeros."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.as_tensor(np.ascontiguousarray(data))
+    z = data.to(device)
+    if not z.is_complex():
+        return z.contiguous(), torch.zeros_like(z)
+    return z.real.contiguous(), z.imag.contiguous()

@@ -3,25 +3,31 @@ public :func:`fit_amares` (PyTorch port).
 
 Port of :mod:`xmris_tpu.fitting.amares`: the highest-SNR template voxel
 (:func:`select_template_fid`, :func:`template_optimum`), the static seeding
-plan (:func:`seed_plan`), the shared-basis linear LS amplitude/phase seed,
-:func:`seeded_fit_grid_raw` (amplitude rescaling, the LS seed, the bound
-transform, the kernel LM and the CRLBs for every voxel of a grid, as one
-call), and :func:`fit_amares`, the labeled entry point that returns an
-:class:`~xmris_tpu_torch.core.array.XmrDataset` with the reference's
-variables, dims, coords and attrs.
+plans (:func:`seed_plan`, :func:`g_seed_plan`), the shared-basis linear LS
+amplitude/phase seed and its scan over candidate g values for a free-g
+prior (:func:`_linear_seed_scan_g`), :func:`seeded_fit_grid_raw` (amplitude
+rescaling, the LS seed, the bound transform, the LM and the CRLBs for
+every voxel of a grid, as one call), planes uploaded ahead of a fit
+(:func:`stage_device_fids`), and :func:`fit_amares`, the labeled entry
+point that returns an :class:`~xmris_tpu_torch.core.array.XmrDataset` with
+the reference's variables, dims, coords and attrs.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from xmris_tpu_torch import __version__ as _version
 from xmris_tpu_torch.core.array import Coord, XmrArray, XmrDataset
+from xmris_tpu_torch.core.utils import complex_planes
 from xmris_tpu_torch.fitting.lm import (
     _lm_fit_batched_pallas_impl,
     auto_varpro,
@@ -168,6 +174,43 @@ def _linear_seed_solve(y_re, y_im, x_t, t, pmap_static, mhz):
     return amp.T, phase.T
 
 
+def _linear_seed_scan_g(y_re, y_im, x_t, t, pmap_static, mhz, g_values):
+    """Per-voxel lineshape-mixing seed (reference ``_linear_seed_scan_g``):
+    the shared-basis LS amplitudes/phases at the template's shifts and
+    linewidths for each candidate g of ``g_values`` in turn (one shared
+    (2K, 2K) solve each; peaks whose g the prior fixes keep the template
+    value), then each voxel's argmin-cost candidate, ties to the first.
+
+    Returns ``(amp, phase_deg, g_best, best_cost)``: (B, K), (B, K), (B,),
+    (B,).
+    """
+    base = expand_params(x_t, pmap_static).clone()
+    base[:, 0] = 1.0  # unit amplitude
+    base[:, 3] = 0.0  # zero phase
+    idx, n_peaks = pmap_static[0], pmap_static[3]
+    free_g = torch.as_tensor([idx[k * 5 + 4] >= 0 for k in range(n_peaks)],
+                             device=base.device)
+    sols = []
+    for g_cand in g_values:
+        grid = base.clone()
+        grid[:, 4] = torch.where(
+            free_g, torch.full_like(base[:, 4], float(g_cand)), base[:, 4])
+        sols.append(_ls_amp_phase_for_grid(y_re, y_im, grid, t, mhz))
+    costs = torch.stack([c for _, _, c in sols])  # (C, B)
+    best = torch.argmin(costs, dim=0)  # the first of equal costs
+
+    def gather(planes):  # (C, K, B) -> (B, K) at each voxel's candidate
+        st = torch.stack(planes).permute(2, 0, 1)
+        return st.gather(1, best[:, None, None].expand(-1, 1, st.shape[2]))[:, 0]
+
+    a_r = gather([a for a, _, _ in sols])
+    a_i = gather([a for _, a, _ in sols])
+    amp = torch.sqrt(a_r * a_r + a_i * a_i)
+    phase = torch.atan2(a_i, a_r) * (180.0 / math.pi)
+    g_best = torch.as_tensor(g_values, dtype=base.dtype, device=base.device)[best]
+    return amp, phase, g_best, costs.min(dim=0).values
+
+
 def _wrap_phase_window_torch(vals, lo: float, hi: float):
     """Map seeded phases (degrees) into the 360-degree window centred on
     the bound interval (half-bounded: the first period past the finite
@@ -196,14 +239,19 @@ def _nudge_into_bounds_torch(vals, lo: float, hi: float):
 
 
 def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
-              mhz: float, amp_slots: tuple, ls_plan: tuple):
+              mhz: float, amp_slots: tuple, ls_plan: tuple,
+              g_scan: tuple = (), g_plan: tuple = ()):
     """Per-voxel initial INTERNAL parameters (B, F) of the grid fit.
 
     Every voxel starts from the template optimum; free amplitudes are
     rescaled by the voxel's first-point magnitude over the template total
-    (clipped to [0.1, 100]); the ``ls_plan`` slots get the shared-basis LS
-    amplitudes/phases (wrapped into the phase window, nudged inside the
-    bounds; a non-finite LS value keeps the scaled template entry); then
+    (clipped to [0.1, 100]).  With ``g_scan`` candidates and a ``g_plan``
+    (:func:`g_seed_plan`), the g scan (:func:`_linear_seed_scan_g`) seeds
+    every free g slot with each voxel's winning candidate and supplies the
+    matching amplitudes/phases, whatever ``ls_plan`` holds; otherwise the
+    shared-basis LS at the template's g does.  The ``ls_plan`` slots get
+    those amplitudes/phases (wrapped into the phase window, nudged inside
+    the bounds; a non-finite value keeps the scaled template entry); then
     the bound transform.  Inputs are float32 planes (B, n_t).
     """
     b = re.shape[0]
@@ -220,14 +268,23 @@ def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
         )
         x0[:, slots] = x0[:, slots] * factor[:, None]
 
-    if ls_plan:
+    def put(slot, vals):
+        x0[:, slot] = torch.where(torch.isfinite(vals), vals, x0[:, slot])
+
+    amp = ph = None
+    if g_scan and g_plan:
+        amp, ph, g_best, _ = _linear_seed_scan_g(
+            re, im, x_template, t, pmap_static, mhz, g_scan)
+        for slot, offset, lo, hi in g_plan:
+            put(slot, _nudge_into_bounds_torch(g_best - offset, lo, hi))
+    elif ls_plan:
         amp, ph = _linear_seed_solve(re, im, x_template, t, pmap_static, mhz)
+    if amp is not None:
         for slot, k, col, offset, lo, hi in ls_plan:
             vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
             if col == 3:
                 vals = _wrap_phase_window_torch(vals, lo, hi)
-            vals = _nudge_into_bounds_torch(vals, lo, hi)
-            x0[:, slot] = torch.where(torch.isfinite(vals), vals, x0[:, slot])
+            put(slot, _nudge_into_bounds_torch(vals, lo, hi))
 
     return external_to_internal_torch(
         x0, lower[None, :], upper[None, :], kind[None, :]
@@ -252,18 +309,25 @@ def seeded_fit_grid_raw(
     kernel_version: int = 9,
     plateau_streak: int = 3,
     uniform_t_ok: bool = False,
+    engine: str = "pallas",
+    g_scan: tuple = (),
+    g_plan: tuple = (),
     spd_pallas: bool = True,
     kernels: KernelSet = DISPATCH,
 ):
     """Whole-grid seeding + batched LM + CRLB (reference
-    ``seeded_fit_grid_raw``, ``engine="pallas"``).
+    ``seeded_fit_grid_raw``).
 
-    :func:`seed_grid`, then the kernel LM that ``kernel_version`` and
-    ``spd_pallas`` select (the driver of
-    :func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_pallas`) and the CRLBs
-    from its Hessian: on the slab path (v9 with ``spd_pallas``) K4 on the
-    slab, otherwise :func:`crlb_from_hessian` on the dense Hessian (K6b, or
-    the plain inverse diagonal without ``spd_pallas``).  Returns
+    :func:`seed_grid` (with the g scan when ``g_scan`` and ``g_plan`` are
+    given), then, with ``engine="pallas"``, the kernel LM that
+    ``kernel_version`` and ``spd_pallas`` select (the driver of
+    :func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_pallas`, with the
+    VARPRO override on for a free-g prior) and the CRLBs from its Hessian:
+    on the slab path (v9 with ``spd_pallas``) K4 on the slab, otherwise
+    :func:`crlb_from_hessian` on the dense Hessian (K6b, or the plain
+    inverse diagonal without ``spd_pallas``).  Any other ``engine`` runs
+    the pure-tensor :func:`lm_fit_batched_planar` and
+    :func:`crlb_batched_planar`, as the reference's ``"xla"``.  Returns
     ``(x_free, cost, converged, crlb_sds)``.
     """
     check_kernel_version(kernel_version)
@@ -273,8 +337,14 @@ def seeded_fit_grid_raw(
     x_template = x_template.to(torch.float32)
     u0 = seed_grid(
         re, im, t, x_template, lower, upper, kind, pmap_static=pmap_static,
-        mhz=mhz, amp_slots=amp_slots, ls_plan=ls_plan,
+        mhz=mhz, amp_slots=amp_slots, ls_plan=ls_plan, g_scan=g_scan,
+        g_plan=g_plan,
     )
+    if engine != "pallas":
+        res = lm_fit_batched_planar(re, im, t, u0, lower, upper, kind,
+                                    pmap_static, mhz, max_iter=max_iter)
+        sds, _ = crlb_batched_planar(re, im, t, res.x_free, pmap_static, mhz)
+        return res.x_free, res.cost, res.converged, sds
     slab = uses_slab_hessian(spd_pallas, kernel_version)
     res, h = _lm_fit_batched_pallas_impl(
         re, im, t, u0, lower, upper, kind, pmap_static, mhz, kernels=kernels,
@@ -328,14 +398,102 @@ def _flatten_to_spectra(da: XmrArray, dim: str):
     return fid_arrs, tuple(da_t.shape[:-1]), other_dims
 
 
-def _device_fid_planes(fid_arrs: np.ndarray, device):
-    """The grid's (re, im) planes on ``device`` from ONE host->device copy
-    of the complex array (float32 planes for complex64, float64 for
-    complex128)."""
-    z = torch.as_tensor(np.ascontiguousarray(fid_arrs), device=device)
-    if not z.is_complex():
-        return z.contiguous(), torch.zeros_like(z)
-    return z.real.contiguous(), z.imag.contiguous()
+class StagedFids(NamedTuple):
+    """A grid's planes uploaded ahead of its fit (:func:`stage_device_fids`).
+
+    ``re``/``im`` sit at indices 0/1 like a plain ``(re, im)`` pair;
+    ``dims``/``shape`` record the time-last layout they were staged in, so
+    that :func:`fit_amares` rejects planes staged along another ``dim``;
+    ``ready`` is the CUDA event the upload recorded (``None`` on the CPU),
+    which a consumer waits on before the first use.
+    """
+
+    re: torch.Tensor
+    im: torch.Tensor
+    dims: tuple = ()
+    shape: tuple = ()
+    ready: object = None
+
+
+def _check_staged(device_fids, expected, layout, dim):
+    """The reference's checks of ``device_fids`` against a fit's flattening:
+    the planes' shapes, and a :class:`StagedFids`' staged layout."""
+    shapes = tuple(tuple(p.shape) for p in device_fids[:2])
+    if shapes != (expected, expected):
+        raise ValueError(
+            f"device_fids planes have shapes {shapes[0]} / {shapes[1]}, "
+            f"expected {expected}; stage them with stage_device_fids(da, "
+            f"dim={dim!r}).")
+    staged = (getattr(device_fids, "dims", ()), getattr(device_fids, "shape", ()))
+    if staged[0] and staged != layout:
+        raise ValueError(
+            f"device_fids were staged for layout dims={staged[0]} "
+            f"shape={staged[1]}, but this fit flattens to dims={layout[0]} "
+            f"shape={layout[1]}; stage them with stage_device_fids(da, "
+            f"dim={dim!r}) on the same array.")
+
+
+def _stage_planes(fid_arrs: np.ndarray, device):
+    """``(re, im, ready)``: on a CUDA device the complex array goes from
+    pinned host memory to the card with ``non_blocking`` copies on a side
+    stream, split there into planes allocated on the current stream, and
+    ``ready`` is the event recorded after the split; elsewhere a plain
+    copy and ``None``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (*complex_planes(fid_arrs, device), None)
+    host = torch.from_numpy(np.ascontiguousarray(fid_arrs)).pin_memory()
+    real = torch.float64 if host.dtype in (torch.complex128, torch.float64) \
+        else torch.float32
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    buf = torch.empty(host.shape, dtype=host.dtype, device=device)
+    re = torch.empty(host.shape, dtype=real, device=device)
+    im = torch.empty(host.shape, dtype=real, device=device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        buf.copy_(host, non_blocking=True)
+        if buf.is_complex():
+            re.copy_(buf.real)
+            im.copy_(buf.imag)
+        else:
+            re.copy_(buf)
+            im.zero_()
+        ready = torch.cuda.Event()
+        ready.record(side)
+    for x in (buf, re, im):
+        x.record_stream(side)
+    return re, im, ready
+
+
+def _wait_staged(device_fids):
+    """Make the current stream wait for a staged upload's event."""
+    ready = getattr(device_fids, "ready", None)
+    if ready is not None:
+        torch.cuda.current_stream(device_fids[0].device).wait_event(ready)
+
+
+def stage_device_fids(da: XmrArray, dim: str = "time", device="cuda"):
+    """Upload a grid's planes for ``fit_amares(device_fids=...)`` (reference
+    ``stage_device_fids``): flattened as :func:`fit_amares` flattens the
+    grid (time-last transpose, row-major voxels), on ``device`` (the card
+    unless the caller passes ``"cpu"``).  On the card the upload is
+    asynchronous (:func:`_stage_planes`); the consuming fit waits for it.
+    Returns a :class:`StagedFids` tagged with the staged layout."""
+    fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
+    re, im, ready = _stage_planes(fid_arrs, device)
+    return StagedFids(re, im, dims=tuple(other_dims) + (dim,),
+                      shape=tuple(voxel_shape) + (fid_arrs.shape[1],),
+                      ready=ready)
+
+
+def _seed_planes(fid_arrs, device_fids, device):
+    """float32 planes of the grid for the LS seed solves: the caller's
+    uploaded planes cast on their device, else a new upload."""
+    if device_fids is None:
+        device_fids = complex_planes(fid_arrs, device)
+    _wait_staged(device_fids)
+    return device_fids[0].to(torch.float32), device_fids[1].to(torch.float32)
 
 
 def template_seeded_x0(
@@ -348,19 +506,27 @@ def template_seeded_x0(
     scale_amplitudes: bool = True,
     max_iter: int = 60,
     verbose: bool = False,
+    g_scan: tuple | None = None,
     device_fids: tuple | None = None,
 ) -> np.ndarray:
     """Per-voxel initial values (B, n_free) seeded from a template-voxel fit
-    (reference ``template_seeded_x0`` for a prior with every g fixed).
+    (reference ``template_seeded_x0``).
 
     Fits ``template_fid`` (default: the highest-SNR voxel) once, starts every
-    voxel from its optimum, rescales free amplitudes by the voxel's
-    first-point magnitude over the template total (clipped to [0.1, 100]),
-    and writes the shared-basis LS amplitudes/phases at the template's
-    shifts/linewidths into the ``seed_plan`` slots (wrapped into the phase
-    window, nudged inside the bounds; non-finite entries keep the scaled
-    template).  ``t`` is the time-axis tensor (the device of the work);
-    ``device_fids`` the grid's planes already on it.
+    voxel from its optimum and rescales free amplitudes by the voxel's
+    first-point magnitude over the template total (clipped to [0.1, 100]).
+    The shared-basis LS amplitudes/phases at the template's
+    shifts/linewidths/g go into the ``seed_plan`` slots (wrapped
+    into the phase window, nudged inside the bounds; non-finite entries
+    keep the scaled template).  ``g_scan``, a tuple of candidate mixing
+    fractions, scans them for a prior with a free g
+    (:func:`_linear_seed_scan_g`): every free g slot gets each voxel's
+    winning candidate, and the amplitudes/phases are that candidate's.  A
+    string ``g_scan`` raises ``TypeError`` (``"auto"`` is
+    :func:`fit_amares`'s).  The writes are staged and applied together
+    once every solve is done.  ``t`` is the time-axis tensor (the device
+    of the work); ``device_fids`` the grid's planes already uploaded
+    there.
     """
     n_spectra = fid_arrs.shape[0]
     x_template = pk.init_free
@@ -378,22 +544,38 @@ def template_seeded_x0(
             factor = np.clip(np.abs(fid_arrs[:, 0]) / template_total, 0.1, 100.0)
             x0[:, slots] *= factor[:, None]
 
-    if ls_plan:
-        if device_fids is None:
-            device_fids = _device_fid_planes(fid_arrs, t.device)
-        re, im = (p.to(torch.float32) for p in device_fids[:2])
-        amp, ph = _linear_seed_solve(
-            re, im, torch.as_tensor(x_template, dtype=torch.float32,
-                                    device=t.device),
-            t.to(torch.float32), hashable_pmap(pk.pmap), float(mhz),
-        )
+    if isinstance(g_scan, str):
+        raise TypeError(
+            "g_scan must be a tuple of candidate mixing fractions or None; "
+            "the 'auto' policy is resolved by fit_amares, not here")
+    g_slots = g_seed_plan(pk) if g_scan else ()
+    amp = ph = None
+    if g_slots or ls_plan:
+        re, im = _seed_planes(fid_arrs, device_fids, t.device)
+        args = (re, im, torch.as_tensor(x_template, dtype=torch.float32,
+                                        device=t.device),
+                t.to(torch.float32), hashable_pmap(pk.pmap), float(mhz))
+    if g_slots:
+        amp, ph, g_best, _ = _linear_seed_scan_g(
+            *args, tuple(float(g) for g in g_scan))
+        g_best = g_best.cpu()
+    elif ls_plan:
+        amp, ph = _linear_seed_solve(*args)
+    # Staged, then written all together.
+    staged: dict[int, np.ndarray] = {}
+    for slot, offset, lo, hi in g_slots:
+        staged[slot] = _nudge_into_bounds_torch(g_best - offset, lo, hi).numpy()
+    if amp is not None:
         for slot, k, col, offset, lo, hi in ls_plan:
+            if slot in staged:
+                continue
             vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
             if col == 3:
                 vals = _wrap_phase_window_torch(vals, lo, hi)
-            vals = _nudge_into_bounds_torch(vals, lo, hi).cpu().numpy()
-            ok = np.isfinite(vals)
-            x0[ok, slot] = vals[ok]
+            staged[slot] = _nudge_into_bounds_torch(vals, lo, hi).cpu().numpy()
+    for slot, vals in staged.items():
+        ok = np.isfinite(vals)
+        x0[ok, slot] = vals[ok]
     return x0
 
 
@@ -467,13 +649,26 @@ def fit_amares(
     4096 on the tensor engine.  ``kernels`` selects the kernel wrappers
     (default) or their plain versions.
 
+    ``g_scan`` seeds a free g per voxel (:func:`_linear_seed_scan_g`):
+    ``"auto"`` scans (0.0, 0.2, 0.4, 0.6, 0.8) when the prior leaves a g
+    free and is a no-op otherwise, a tuple gives the candidates, ``None``
+    turns the scan off.  A free-g prior's LM runs with the VARPRO override
+    (:func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_pallas`), so
+    ``kernel_version`` 10 then runs the v9 loop.
+
+    ``device_fids`` takes the grid's planes uploaded ahead of the call by
+    :func:`stage_device_fids` on the same array and ``dim`` (or a plain
+    ``(re, im)`` pair): their shapes, and a :class:`StagedFids`' layout,
+    must be this call's.  With ``XMT_FIT_STAGE_TIMERS`` set, the call
+    prints one JSON line ``{"fit_amares_stages_s": {...}}`` with the
+    seconds of its stages (``ingest``, ``seed``, ``fit``, ``crlb_model``,
+    ``pack``); on the card each mark synchronizes first, so that a stage's
+    time is its own.
+
     ``mesh="auto"`` on the CPU or on one CUDA device is no mesh, as in
     the reference; another string raises ``ValueError``.  Not ported
     (``NotImplementedError``): a mesh or device count, and ``"auto"`` on
-    several CUDA devices (ROADMAP.md queue 1, item 11), ``device_fids``/
-    staged planes and priors with a free g (the
-    g scan and the VARPRO override; item 6).  ``g_scan`` is a no-op for
-    fixed-g priors, as in the reference.
+    several CUDA devices (ROADMAP.md queue 1, item 11).
     """
     # The reference's mesh resolution: "auto" is no mesh on one device.
     if isinstance(mesh, str):
@@ -487,10 +682,6 @@ def fit_amares(
         raise NotImplementedError(
             "fit_amares(mesh=...) over several devices is not ported yet; "
             "see ROADMAP.md queue 1, item 11")
-    if device_fids is not None:
-        raise NotImplementedError(
-            "fit_amares(device_fids=...) (staged planes) is not ported; see "
-            "ROADMAP.md queue 1, item 6")
     if dim not in da.dims:
         raise ValueError(f"Dimension '{dim}' missing in DataArray.")
     dev = torch.device(device)
@@ -498,6 +689,20 @@ def fit_amares(
         raise RuntimeError(
             "fit_amares runs on the card: no CUDA device is available (pass "
             "device='cpu' to fit on the host)")
+
+    # Opt-in stage split (XMT_FIT_STAGE_TIMERS): host-clock seconds per
+    # stage; on the card each mark waits for the stage's device work.
+    stage_t = {} if os.environ.get("XMT_FIT_STAGE_TIMERS") else None
+    mark = time.perf_counter()
+
+    def stage(name):
+        nonlocal mark
+        if stage_t is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stage_t[name] = round(now - mark, 3)
+            mark = now
 
     # 1. Physical parameter inference.
     if mhz is None:
@@ -524,6 +729,7 @@ def fit_amares(
             )
     else:
         template_fid = fid_arrs[select_template_fid(fid_arrs)]
+    stage("ingest")
 
     # 4. Prior knowledge.
     pk = (
@@ -531,10 +737,6 @@ def fit_amares(
         if isinstance(prior_knowledge_file, PriorKnowledge)
         else load_prior_knowledge(prior_knowledge_file)
     )
-    if g_seed_plan(pk):
-        raise NotImplementedError(
-            "priors with a free g (the g scan and the VARPRO override) are "
-            "not ported yet; see ROADMAP.md queue 1, item 6")
     pmap_static = hashable_pmap(pk.pmap)
     if engine == "auto":
         engine = "pallas" if dev.type == "cuda" else "xla"
@@ -547,15 +749,27 @@ def fit_amares(
     upper = torch.as_tensor(pk.upper, device=dev)
     kind = torch.as_tensor(pk.kind, device=dev)
 
-    # ONE upload of the planes, shared by the seed and the fit.
-    re_all, im_all = _device_fid_planes(fid_arrs, dev)
+    # ONE upload of the planes, shared by the seed and the fit, unless the
+    # caller staged them.
+    if device_fids is not None:
+        _check_staged(device_fids, (n_spectra, n_time),
+                      (tuple(other_dims) + (dim,),
+                       tuple(voxel_shape) + (n_time,)), dim)
+        _wait_staged(device_fids)
+        re_all, im_all = (p.to(dev) for p in device_fids[:2])
+    else:
+        re_all, im_all = complex_planes(fid_arrs, dev)
+    if g_scan == "auto":
+        g_scan = (0.0, 0.2, 0.4, 0.6, 0.8) if g_seed_plan(pk) else None
     x0 = template_seeded_x0(
         fid_arrs, pk, t, mhz, template_fid=template_fid,
         fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
-        max_iter=max_iter, verbose=verbose, device_fids=(re_all, im_all),
+        max_iter=max_iter, verbose=verbose, g_scan=g_scan,
+        device_fids=(re_all, im_all),
     )
     u0 = torch.as_tensor(external_to_internal(x0, pk.lower, pk.upper, pk.kind),
                          device=dev)
+    stage("seed")
 
     # 5. Batched bounded LM over voxel chunks.
     if chunk_size is None:
@@ -604,6 +818,7 @@ def fit_amares(
     converged = np.concatenate(conv_parts, axis=0)
     print(f"Fitting {n_spectra} spectra with batched device LM took "
           f"{time.perf_counter() - t_before:.2f} seconds.")
+    stage("fit")
 
     # 6. Physical parameters, CRLBs, reconstructed fits.
     metabolites = np.asarray(pk.metabolites, dtype=object)
@@ -635,6 +850,7 @@ def fit_amares(
     sds_free = np.concatenate(sds_parts, axis=0)  # (B, F)
     sigma2 = np.concatenate(sigma_parts, axis=0)  # (B,)
     fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
+    stage("crlb_model")
 
     amplitudes = grids[:, :, 0]
     chem_shifts = grids[:, :, 1]
@@ -728,4 +944,7 @@ def fit_amares(
         ),
         "amares_version": f"xmris_tpu_torch-{_version}",
     })
+    stage("pack")
+    if stage_t is not None:
+        print(json.dumps({"fit_amares_stages_s": stage_t}), flush=True)
     return ds

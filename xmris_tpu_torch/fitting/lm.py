@@ -20,7 +20,11 @@ PyTorch around the port's hand-written CUDA kernels:
 * :func:`crlb_from_hessian` (K6b) and :func:`crlb_batched_pallas` — CRLBs
   from a dense Hessian, the latter from one normal-equations evaluation;
 * :func:`crlb_batched_planar` — CRLBs from the analytic Jacobian, the
-  pure-tensor engine's.
+  pure-tensor engine's;
+* :func:`_varpro_override` — the VARPRO step of free-g priors, plain
+  tensor glue between the kernel launches of either per-iteration loop;
+* :func:`lm_fit_batched`, :func:`crlb_batched` and
+  :func:`eq6_model_and_basis` — the complex-input wrappers.
 
 Bounds use the MINPACK/lmfit transform (``x = lo + (sin u + 1)/2 (hi - lo)``
 for two-sided bounds, shifted hyperbola for one-sided), as in the
@@ -37,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from xmris_tpu_torch.core.utils import complex_planes
 from xmris_tpu_torch.ops.bounds import (
     BOTH,
     FREE,
@@ -248,6 +253,137 @@ def auto_varpro(pmap_static) -> bool:
     return has_free_g and varpro_plan(pmap_static) is not None
 
 
+class _VarproConsts(NamedTuple):
+    """A VARPRO plan's per-fit constants on the fit's device: the S
+    amplitude and phase slots, their scales and offsets, and with a slab H
+    the slab rows of the Gram blocks (``None`` for the dense layout)."""
+
+    sa: torch.Tensor
+    sp: torch.Tensor
+    scale_a: torch.Tensor
+    offset_a: torch.Tensor
+    scale_p: torch.Tensor
+    offset_p: torch.Tensor
+    rows_aa: torch.Tensor | None
+    rows_ap: torch.Tensor | None
+
+
+def _varpro_consts(plan, dtype, device, slab_f=None) -> _VarproConsts:
+    """Upload a :func:`varpro_plan` once per fit (see :class:`_VarproConsts`)."""
+    sa_np = [int(v) for v in plan["sa"]]
+    sp_np = [int(v) for v in plan["sp"]]
+
+    def slab_rows(cols):
+        if slab_f is None:
+            return None
+        return torch.as_tensor([i * slab_f + j for i in sa_np for j in cols],
+                               device=device)
+
+    return _VarproConsts(
+        torch.as_tensor(sa_np, device=device),
+        torch.as_tensor(sp_np, device=device),
+        *(torch.as_tensor(plan[k], dtype=dtype, device=device)
+          for k in ("scale_a", "offset_a", "scale_p", "offset_p")),
+        slab_rows(sa_np), slab_rows(sp_np))
+
+
+def _varpro_override(u_t, u, g, h, lam, lower, upper, kind, plan, lam0,
+                     slab_f=None):
+    """Kaufman variable-projection step (reference ``_varpro_override``):
+    the trial's amplitude/phase slots of the ``plan`` peaks jump to the
+    exact complex-LS optimum of the carried linearization at the accepted
+    point ``u``, while the LM step moves the shifts, linewidths and g.
+
+    With ``row_a(k) = m_a e^{i phi_k} P_k`` and ``row_p(k) = m_p i c_k P_k``
+    (``m_*`` = scale x dx/du), the carried H and g hold ``Re Z_kl``,
+    ``-a_l Im Z_kl`` and the projections ``v_k``; solving ``Z c' = v + Z a``
+    as a 2S real block system (the plain unrolled ``spd_solve_small``, as
+    the reference's XLA solve) gives the new amplitudes ``|c'|`` and phase
+    corrections ``arg c'``.  Each phase is wrapped into the 360-degree
+    window centred on its bounds (or on its current value).  A voxel keeps
+    the plain LM trial when the solve is not finite, an amplitude is at or
+    below 1e-5, a transform factor is pinned (|m| <= 1e-10) or ``lam >
+    10 lam0``.
+
+    ``h`` is the dense (B, F, F) internal-space Hessian, or with
+    ``slab_f=F`` the (F*F, B) voxel-minor slab, whose Gram entries are the
+    rows ``sa[k]*F + sa[l]``.  ``plan`` is a :func:`varpro_plan` or its
+    uploaded :class:`_VarproConsts` (which the LM loop's hook builds once
+    per fit).
+    """
+    c = plan if isinstance(plan, _VarproConsts) else _varpro_consts(
+        plan, u.dtype, u.device, slab_f)
+    sa, sp = c.sa, c.sp
+    scale_a, offset_a, scale_p, offset_p = (c.scale_a, c.offset_a, c.scale_p,
+                                            c.offset_p)
+
+    x, dxdu = internal_to_external_torch(u, lower, upper, kind)
+    a = offset_a + scale_a * x[:, sa]  # (B, S) amplitudes
+    m_a = scale_a * dxdu[:, sa]
+    m_p = scale_p * dxdu[:, sp] * (math.pi / 180.0)
+    mpa = m_p * a
+
+    s = sa.shape[0]
+    if c.rows_aa is None:
+        h_aa = h[:, sa[:, None], sa[None, :]]
+        h_ap = h[:, sa[:, None], sp[None, :]]
+    else:
+        h_aa = h[c.rows_aa].t().reshape(-1, s, s)
+        h_ap = h[c.rows_ap].t().reshape(-1, s, s)
+    re_z = h_aa / (m_a[:, :, None] * m_a[:, None, :])
+    im_z = -h_ap / (m_a[:, :, None] * mpa[:, None, :])
+    # Hermitian symmetrization (Im Z has a zero diagonal in exact arithmetic).
+    re_z = 0.5 * (re_z + re_z.transpose(1, 2))
+    im_z = 0.5 * (im_z - im_z.transpose(1, 2))
+
+    v_re = g[:, sa] / m_a
+    v_im = g[:, sp] / mpa
+    n_re = v_re + torch.einsum("bkl,bl->bk", re_z, a)
+    n_im = v_im + torch.einsum("bkl,bl->bk", im_z, a)
+
+    ridge = (1e-6 / s) * torch.diagonal(re_z, dim1=1, dim2=2).sum(-1)
+    eye2 = torch.eye(2 * s, dtype=u.dtype, device=u.device)
+    block = torch.cat([torch.cat([re_z, -im_z], dim=2),
+                       torch.cat([im_z, re_z], dim=2)], dim=1)
+    block = block + ridge[:, None, None] * eye2[None]
+    sol = spd_solve_small(block, torch.cat([n_re, n_im], dim=1))
+    cr, ci = sol[:, :s], sol[:, s:]
+
+    amp_new = torch.sqrt(cr * cr + ci * ci)
+    dphi = torch.atan2(ci, cr) * (180.0 / math.pi)
+    ph_new = offset_p + scale_p * x[:, sp] + dphi
+    xp_new = (ph_new - offset_p) / scale_p
+    period = 360.0 / scale_p.abs()
+    lo_p, hi_p = lower[sp][None, :], upper[sp][None, :]
+    center = torch.where(torch.isfinite(lo_p) & torch.isfinite(hi_p),
+                         0.5 * (lo_p + hi_p), x[:, sp])
+    xp_new = center + torch.remainder(
+        xp_new - center + 0.5 * period, period) - 0.5 * period
+    x_new = x.clone()
+    x_new[:, sa] = (amp_new - offset_a) / scale_a
+    x_new[:, sp] = xp_new
+    u_new = external_to_internal_torch(x_new, lower, upper, kind)
+
+    ok = (torch.isfinite(sol).all(1) & (a > 1e-5).all(1)
+          & (m_a.abs() > 1e-10).all(1) & (mpa.abs() > 1e-10).all(1)
+          & (lam <= 10.0 * lam0))[:, None]
+    u_t = u_t.clone()
+    u_t[:, sa] = torch.where(ok, u_new[:, sa], u_t[:, sa])
+    u_t[:, sp] = torch.where(ok, u_new[:, sp], u_t[:, sp])
+    return u_t
+
+
+def _varpro_hook(varpro, pmap_static, lower, upper, kind, lam0, slab_f=None):
+    """The LM loop's ``override`` for ``varpro``, or ``None``."""
+    plan = varpro_plan(pmap_static) if varpro else None
+    if plan is None:
+        return None
+    return functools.partial(
+        _varpro_override, lower=lower, upper=upper, kind=kind,
+        plan=_varpro_consts(plan, lower.dtype, lower.device, slab_f),
+        lam0=lam0)
+
+
 class LMResult(NamedTuple):
     x_free: torch.Tensor  # (B, F) final external free parameters
     cost: torch.Tensor  # (B,) final sum-of-squares
@@ -377,6 +513,17 @@ def lm_fit_batched_planar(
                     converged=converged, done=done)
 
 
+def lm_fit_batched(fids, t, u0, lower, upper, kind, pmap_static, mhz: float,
+                   max_iter: int = 50, lam0: float = 1e-3, ftol: float = 1e-10):
+    """Complex-input wrapper of :func:`lm_fit_batched_planar` (reference
+    ``lm_fit_batched``): ``fids`` (B, n_t) complex, numpy or a tensor, is
+    split into planes on ``t``'s device."""
+    re, im = complex_planes(fids, t.device)
+    return lm_fit_batched_planar(re, im, t, u0, lower, upper, kind,
+                                 pmap_static, mhz, max_iter=max_iter,
+                                 lam0=lam0, ftol=ftol)
+
+
 # ---------------------------------------------------------------------------
 # Grid-scale LM on the hand-written kernels (v9 + slab branch)
 # ---------------------------------------------------------------------------
@@ -416,15 +563,18 @@ def lm_fit_batched_slab(
     plateau_streak: int = 3,
     uniform_t_ok: bool = False,
     gate_rejects: bool = False,
+    varpro: bool = False,
 ):
     """Bounded LM over the grid on the normal-equations and SPD kernels.
 
     Port of the reference's ``_lm_fit_batched_pallas_impl`` on its v9 +
-    slab branch without the VARPRO override: one K2 evaluation per
-    iteration returns (cost, g, H) at the trial point, rejected steps keep
-    the carried accepted-state H/g and only re-damp.  ``gate_rejects``
-    passes the carried cost to K2 as its accept gate: a trial that does not
-    improve gets its cost only (the loop never selects its g and H).
+    slab branch: one K2 evaluation per iteration returns (cost, g, H) at
+    the trial point, rejected steps keep the carried accepted-state H/g and
+    only re-damp.  ``gate_rejects`` passes the carried cost to K2 as its
+    accept gate: a trial that does not improve gets its cost only (the loop
+    never selects its g and H).  ``varpro`` applies the VARPRO override
+    (:func:`_varpro_override`) to each trial, its Gram entries read off
+    the slab.
 
     The reference loop runs while ``(i < max_iter) & ~all(done)``; this
     one reads ``done.all()`` on the host once per iteration, which gives
@@ -455,6 +605,8 @@ def lm_fit_batched_slab(
     u, cost, n_acc, done, h = _lm_loop(
         full_eval, kernels.spd_solve_damped, u, voxel_axis=1,
         max_iter=max_iter, lam0=lam0, ftol=ftol, plateau_streak=plateau_streak,
+        override=_varpro_hook(varpro, pmap_static, lower, upper, kind, lam0,
+                              slab_f=n_free),
     )
     return _slab_result_tail(u, cost, n_acc, done, h, lower, upper, kind)
 
@@ -473,7 +625,7 @@ def _as_kernel_inputs(fids_re, fids_im, t, u0, lower, upper):
 
 
 def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
-             plateau_streak):
+             plateau_streak, override=None):
     """The per-iteration LM loop of the reference driver.
 
     ``full_eval(u, voxel_mask, cost_prev)`` returns ``(cost, g, h)`` at
@@ -483,8 +635,10 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
     every carried value is chosen by ``torch.where`` on ``ok``, which
     requires an improving cost of a voxel that is not done.  ``solve(h, g,
     lam)`` is the damped step; ``h`` has its voxels on axis ``voxel_axis``
-    (1 for the slab, 0 for dense matrices).  Returns ``(u, cost, n_acc,
-    done, h)`` at the last accepted state.
+    (1 for the slab, 0 for dense matrices).  ``override(u_t, u, g, h,
+    lam)``, when given, rewrites the trial point after the damped step and
+    before its evaluation (the VARPRO override).  Returns ``(u, cost,
+    n_acc, done, h)`` at the last accepted state.
     """
     eps = torch.finfo(torch.float32).eps
     b = u.shape[0]
@@ -508,6 +662,8 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
             solve_ok[:, None], delta_raw, torch.zeros_like(delta_raw)
         )
         u_t = u + delta
+        if override is not None:
+            u_t = override(u_t, u, g, h, lam)
         # Predicted-decrease exit (see the reference's LM loop).
         pred_rel = (g * delta).sum(-1) / torch.clamp(cost, min=1e-30)
         done = done | (
@@ -638,15 +794,19 @@ def lm_fit_batched_pallas(
     Pallas interpret mode) have no counterpart: tensors on the CPU take the
     kernels' plain versions.
 
+    ``varpro=None`` (auto) turns the VARPRO override
+    (:func:`_varpro_override`) on exactly when the prior has a free g and
+    an amplitude/phase pair qualifies (:func:`auto_varpro`); True/False
+    force it (True is a no-op without a qualifying pair).  The override is
+    driver work between launches, so with it on, 10 and above run the
+    per-iteration v9 loop (K2 + K3), as in the reference.
+
     Returns the :class:`LMResult`, or with ``return_hessian=True``
     ``(LMResult, h_ext)``: the dense (B, F, F) external-space Gauss-Newton
     Hessian at the optimum (rows of parameters pinned at a bound zeroed),
     the Fisher information :func:`crlb_from_hessian` takes;
     ``return_hessian="slab"`` keeps it as the (F*F, B) slab (v9 with
     ``spd_pallas`` only) for :func:`crlb_from_hessian_slab`.
-
-    Not ported (``NotImplementedError``): the VARPRO override (on by
-    default for free-g priors; ROADMAP.md queue 1 item 6).
     """
     t_uniform = _t_is_uniform(t)
     if kernel_version == 7 and fids_re.shape[-1] % 128 == 0 and not t_uniform:
@@ -674,17 +834,16 @@ def _lm_fit_batched_pallas_impl(
     spd_pallas: bool, gate_rejects: bool = False,
 ):
     """The driver's branches (reference ``_lm_fit_batched_pallas_impl``):
-    the whole-loop K8, the slab loop, or the dense per-iteration loop."""
+    the whole-loop K8, the slab loop, or the dense per-iteration loop.
+    ``varpro`` (resolved by the caller) applies the VARPRO override to
+    every trial of the per-iteration loops."""
     check_kernel_version(kernel_version)
-    if varpro:
-        raise NotImplementedError(
-            "the VARPRO override (priors with a free g) is not ported yet; "
-            "see ROADMAP.md queue 1, item 6"
-        )
-    if kernel_version >= 10 and gate_rejects:
-        # The accept gate is a launch-loop concept: the v9 loop runs.
+    # The override and the accept gate are launch-loop concepts: with
+    # either, 10 and above run the per-iteration v9 loop.
+    whole_loop = kernel_version >= 10 and not varpro and not gate_rejects
+    if kernel_version >= 10 and not whole_loop:
         kernel_version = 9
-    if kernel_version >= 10:
+    if whole_loop:
         if return_hessian == "slab":
             raise ValueError(
                 "return_hessian='slab' requires the per-iteration v9 path"
@@ -710,7 +869,7 @@ def _lm_fit_batched_pallas_impl(
             fids_re, fids_im, t, u0, lower, upper, kind, pmap_static, mhz,
             kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=ftol,
             plateau_streak=plateau_streak, uniform_t_ok=uniform_t_ok,
-            gate_rejects=gate_rejects,
+            gate_rejects=gate_rejects, varpro=varpro,
         )
         if return_hessian == "slab":
             return res, h_slab
@@ -734,6 +893,7 @@ def _lm_fit_batched_pallas_impl(
     u, cost, n_acc, done, h = _lm_loop(
         full_eval, solve, u, voxel_axis=0, max_iter=max_iter, lam0=lam0,
         ftol=ftol, plateau_streak=plateau_streak,
+        override=_varpro_hook(varpro, pmap_static, lo, hi, kind, lam0),
     )
     return _pallas_result_tail(u, cost, n_acc, done, h, lo, hi, kind,
                                return_hessian)
@@ -910,3 +1070,17 @@ def crlb_batched_planar(fids_re, fids_im, t, x_free, pmap_static, mhz: float):
     cov = sigma2[:, None, None] * torch.linalg.inv(h + 1e-12 * eye)
     sds = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=1, dim2=2), min=0.0))
     return sds, sigma2
+
+
+def crlb_batched(fids, t, x_free, pmap_static, mhz: float):
+    """Complex-input wrapper of :func:`crlb_batched_planar` (reference
+    ``crlb_batched``)."""
+    re, im = complex_planes(fids, t.device)
+    return crlb_batched_planar(re, im, t, x_free, pmap_static, mhz)
+
+
+def eq6_model_and_basis(t, grid, mhz: float):
+    """Complex model (..., n_t) and basis (..., n_t, K) of a (..., K, 5)
+    grid (reference ``eq6_model_and_basis``)."""
+    m_re, m_im, b_re, b_im = eq6_basis_planar(t, grid, mhz)
+    return torch.complex(m_re, m_im), torch.complex(b_re, b_im)

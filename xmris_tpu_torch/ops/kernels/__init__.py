@@ -119,6 +119,11 @@ PATHS = {
     "grid_single_pivot": ("spectrum",) + _FIT,
     # process_grid_planar_raw, autophase="all" with the grid search
     "grid_per_voxel": ("spectrum", "acme_polish") + _FIT,
+    # process_grid_planar_raw, autophase="all" with one DE per voxel (its
+    # polish is autograd, not K5)
+    "grid_per_voxel_de": ("spectrum",) + _FIT,
+    # fitting.amares.seeded_fit_grid_raw (v9, slab; free g included)
+    "seeded_fit": _FIT,
     # fitting.amares.fit_amares, engine="pallas"
     "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
                    "spd_inverse_diag_dense"),

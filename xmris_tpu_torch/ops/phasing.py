@@ -12,12 +12,15 @@ Port of :mod:`xmris_tpu.ops.phasing` on its grid path:
   ``"gd"`` is backtracking gradient descent with autograd gradients (as the
   reference takes them from ``jax.value_and_grad``), ``"fused"`` the whole
   polish in one launch of kernel K5 (:mod:`.kernels.acme_cuda`);
-* :func:`autophase` runs it on the loudest row (``mode="single"``) or on
-  every voxel (``mode="all"``, :func:`_autophase_all`).
+* :func:`_de_phase_search` is the differential-evolution search
+  (:mod:`xmris_tpu_torch.ops.optim`), one independent search per row, in
+  voxel chunks;
+* :func:`autophase` runs either on the loudest row (``mode="single"``) or
+  on every voxel (``mode="all"``, :func:`_autophase_all`).
 
-Only the ACME objective with ``optimizer="grid"`` is ported; differential
-evolution, the scipy reproduction, the ROI objectives and the
-``"newton"``/``"bfgs"`` polishes raise ``NotImplementedError``.
+Only the ACME objective is ported; the scipy reproduction, the ROI
+objectives and the ``"newton"``/``"bfgs"`` polishes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ import torch
 
 from xmris_tpu_torch.core.array import XmrArray
 from xmris_tpu_torch.core.config import ATTRS, DIMS
-from xmris_tpu_torch.core.utils import _check_dims
+from xmris_tpu_torch.core.utils import _check_dims, complex_planes
 from xmris_tpu_torch.ops.fid import apodize_exp, to_fid, to_spectrum
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
+from xmris_tpu_torch.ops.optim import differential_evolution_batched
 from xmris_tpu_torch.runtime.config import matching_dtypes
 
 _UNPORTED = "not ported yet; see ROADMAP.md queue 1, item 7"
@@ -272,6 +276,62 @@ def _grid_phase_search(rows_re, rows_im, coords, x_range, pivots,
     return polish(best_p, rows_re, rows_im, coords, fine_iters)
 
 
+# Per-voxel DE: the bytes of one (chunk, population, n_freq) float32 plane
+# of the objective's working set; the score keeps several such planes live.
+# At the bench shape (30 members, 2048 points) this is 8192 voxels a chunk:
+# on an H100 (700 W) the search took 1.972 s a grid, 16 384 voxels 1.930 s
+# at twice the memory, 4096 2.064 s, 2048 2.527 s (PERF.md section 6).
+DE_PLANE_BYTES = 2 << 30
+
+
+def de_chunk_rows(n_rows: int, n_pop: int, n_freq: int) -> int:
+    """Rows of one DE chunk: the largest power of two whose (rows, n_pop,
+    n_freq) float32 plane fits :data:`DE_PLANE_BYTES`, at most ``n_rows``."""
+    rows = max(1, DE_PLANE_BYTES // (4 * n_pop * n_freq))
+    rows = 1 << (rows.bit_length() - 1)
+    return max(1, min(rows, n_rows))
+
+
+def _de_phase_search(rows_re, rows_im, coords, x_range, pivots,
+                     p0_only: bool, *, seed: int = 42, popsize: int = 15,
+                     maxiter: int = 1000, polish_iters: int = 60,
+                     chunk: int | None = None):
+    """ACME phases of (V, n_f) rows by differential evolution: one
+    independent best1bin search per row (tol 0.01, then a ``polish_iters``
+    gradient polish; the reference's ``optimizer="de"``), p0 in [-180, 180]
+    and p1 in [-4000, 4000] degrees (p1 = 0 with ``p0_only``).  Rows run in
+    chunks of ``chunk`` (default :func:`de_chunk_rows`), one generator seeded
+    from ``seed`` drawing for them in turn.  Returns (V, 2) degrees."""
+    bounds = [(-180.0, 180.0)] if p0_only else [(-180.0, 180.0),
+                                                (-4000.0, 4000.0)]
+    v, n_f = rows_re.shape
+    n_pop = max(popsize * len(bounds), 5)
+    if chunk is None:
+        chunk = de_chunk_rows(v, n_pop, n_f)
+    dev, dtype = rows_re.device, rows_re.dtype
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    bounds_t = torch.as_tensor(bounds, dtype=dtype, device=dev)
+    out = []
+    for start in range(0, v, chunk):
+        sl = slice(start, start + chunk)
+        re_c, im_c, piv_c = rows_re[sl], rows_im[sl], pivots[sl]
+
+        def energy(x, rows):
+            p1 = torch.zeros_like(x[..., 0]) if p0_only else x[..., 1]
+            return acme_score_raw(_phased_real_planar(
+                re_c[rows][:, None, :], im_c[rows][:, None, :], coords,
+                x[..., 0], p1, piv_c[rows][:, None, None], x_range))
+
+        res = differential_evolution_batched(
+            energy, bounds_t, re_c.shape[0], seed=gen, popsize=popsize,
+            maxiter=maxiter, tol=0.01, polish_iters=polish_iters)
+        out.append(res.x)
+    xs = torch.cat(out)
+    if p0_only:
+        xs = torch.cat([xs, torch.zeros_like(xs)], dim=1)
+    return xs
+
+
 # (device, shape, dtype, p0_only) -> (graph, static inputs, static output)
 _GRAPHS: dict = {}
 
@@ -371,12 +431,11 @@ def phase(
 
 
 def _planes(data, device):
-    """Real and imaginary float planes of a complex payload on ``device``."""
-    t = torch.as_tensor(data, device=device)
+    """Real and imaginary planes of a payload on ``device``: float64 for
+    complex128, float32 for anything else."""
+    t = torch.as_tensor(data)
     real_dtype = torch.float64 if t.dtype == torch.complex128 else torch.float32
-    if t.is_complex():
-        return t.real.to(real_dtype).contiguous(), t.imag.to(real_dtype).contiguous()
-    return t.to(real_dtype).contiguous(), torch.zeros_like(t, dtype=real_dtype)
+    return tuple(p.to(real_dtype) for p in complex_planes(t, device))
 
 
 def autophase(
@@ -400,19 +459,21 @@ def autophase(
 
     ``mode="single"`` searches the 1-D slice holding the global maximum and
     applies the result globally; ``mode="all"`` searches every voxel
-    (:func:`_autophase_all`).  ``optimizer="grid"`` is the deterministic
-    candidate scan + polish of :func:`_grid_phase_search`; its
-    ``polish_optimizer`` is ``"auto"``, ``"gd"`` or ``"fused"``.  The search
-    runs on ``device`` (the card unless the caller passes ``"cpu"``); the
-    result's payload is numpy for a numpy input and a tensor for a tensor
-    input.  ``kernels`` selects the kernel wrappers (default) or their plain
-    versions.
+    (:func:`_autophase_all`).  ``optimizer="de"`` (the default) is
+    differential evolution seeded from ``seed`` with a 60-step gradient
+    polish (:func:`_de_phase_search`; one search per voxel in ``"all"``);
+    ``optimizer="grid"`` the deterministic candidate scan + polish of
+    :func:`_grid_phase_search`, whose ``polish_optimizer`` is ``"auto"``,
+    ``"gd"`` or ``"fused"``.  The search runs on ``device`` (the card unless
+    the caller passes ``"cpu"``); the result's payload is numpy for a numpy
+    input and a tensor for a tensor input.  ``kernels`` selects the kernel
+    wrappers (default) or their plain versions.
 
-    Not ported (``NotImplementedError``): ``optimizer="de"``/``"scipy"``,
-    the ROI methods ``"peak_minima"``/``"positivity"``, and the
-    ``"newton"``/``"bfgs"`` polishes.  ``peak_width`` and ``seed`` serve
-    only those.  Bounds: p0 in [-180, 180] degrees; p1 in [-4000, 4000]
-    degrees unless ``p0_only`` locks p1 = 0.
+    Not ported (``NotImplementedError``): ``optimizer="scipy"``, the ROI
+    methods ``"peak_minima"``/``"positivity"``, and the ``"newton"``/
+    ``"bfgs"`` polishes (ROADMAP.md queue 1, item 7).  ``peak_width`` serves
+    only the ROI methods.  Bounds: p0 in [-180, 180] degrees; p1 in [-4000,
+    4000] degrees unless ``p0_only`` locks p1 = 0.
     """
     _check_dims(da, dim, "autophase")
     if mode not in ("single", "all"):
@@ -427,17 +488,18 @@ def autophase(
         )
     if method != "acme":
         raise NotImplementedError(f"method={method!r} is {_UNPORTED}")
-    if optimizer in ("de", "scipy"):
+    if optimizer == "scipy":
         raise NotImplementedError(f"optimizer={optimizer!r} is {_UNPORTED}")
-    if optimizer != "grid":
+    if optimizer not in ("de", "grid"):
         raise ValueError("optimizer must be 'de', 'grid', or 'scipy'.")
-    if polish_optimizer in ("newton", "bfgs"):
+    if optimizer == "grid" and polish_optimizer in ("newton", "bfgs"):
         raise NotImplementedError(
             f"polish_optimizer={polish_optimizer!r} is {_UNPORTED}")
 
     if mode == "all":
         return _autophase_all(
             da, dim, target_coord, p0_only, lb, temp_time_dim,
+            optimizer=optimizer, seed=seed,
             polish_optimizer=polish_optimizer, device=device, kernels=kernels,
         )
 
@@ -459,12 +521,14 @@ def autophase(
             dim=temp_time_dim, out_dim=dim,
         )
     re, im = _planes(opt_da.data, device)
-    xs = _grid_phase_search(
-        re[None, :], im[None, :],
-        torch.as_tensor(coords, dtype=re.dtype, device=re.device), x_range,
-        torch.tensor([pivot], dtype=re.dtype, device=re.device), p0_only,
-        polish_optimizer=polish_optimizer, cand_chunk=16, kernels=kernels,
-    )
+    args = (re[None, :], im[None, :],
+            torch.as_tensor(coords, dtype=re.dtype, device=re.device), x_range,
+            torch.tensor([pivot], dtype=re.dtype, device=re.device), p0_only)
+    if optimizer == "de":
+        xs = _de_phase_search(*args, seed=seed)
+    else:
+        xs = _grid_phase_search(*args, polish_optimizer=polish_optimizer,
+                                cand_chunk=16, kernels=kernels)
     p0_opt = float(xs[0, 0])
     p1_opt = 0.0 if p0_only else float(xs[0, 1])
     return phase(da, dim=dim, p0=p0_opt, p1=p1_opt, pivot=pivot)
@@ -477,12 +541,16 @@ def _autophase_all(
     p0_only: bool,
     lb: float,
     temp_time_dim: str,
+    optimizer: str = "grid",
+    seed: int = 42,
     polish_optimizer: str = "auto",
     device="cuda",
     kernels: KernelSet = DISPATCH,
 ) -> XmrArray:
-    """Per-voxel ACME autophase: one grid search per 1-D spectrum, all
-    voxels in one batch on ``device``.
+    """Per-voxel ACME autophase: one search per 1-D spectrum on
+    ``device``, the grid search (``optimizer="grid"``) on all voxels in
+    one batch, or one differential evolution per voxel (``"de"``,
+    :func:`_de_phase_search`) in chunks of :func:`de_chunk_rows` voxels.
 
     The search reads the lb-smoothed spectra (``lb > 0``); the phases are
     applied to the original data.  Each voxel's pivot is its maximum-
@@ -513,10 +581,14 @@ def _autophase_all(
     else:
         pivots = coords_t[torch.argmax(rows_re * rows_re + rows_im * rows_im, 1)]
 
-    sol = _grid_phase_search(
-        rows_re, rows_im, coords_t, x_range, pivots, p0_only,
-        polish_optimizer=polish_optimizer, cand_chunk=4, kernels=kernels,
-    )
+    if optimizer == "de":
+        sol = _de_phase_search(rows_re, rows_im, coords_t, x_range, pivots,
+                               p0_only, seed=seed)
+    else:
+        sol = _grid_phase_search(
+            rows_re, rows_im, coords_t, x_range, pivots, p0_only,
+            polish_optimizer=polish_optimizer, cand_chunk=4, kernels=kernels,
+        )
     p0s = sol[:, 0]
     p1s = torch.zeros_like(p0s) if p0_only else sol[:, 1]
 

@@ -17,11 +17,13 @@ class PipelineConfig:
 
     ``autophase``: ``"single"`` (one ACME phase solved on the grid's
     loudest row and applied to every voxel), ``"all"`` (one ACME phase per
-    voxel, flat spectra only) or ``"none"``.  ``ap_optimizer`` /
-    ``ap_polish``: the phase search; only ``"grid"`` is ported, with the
-    ``"gd"`` and ``"fused"`` polishes (``"auto"``: the fused kernel K5 for
-    a grid of voxels on the card, gd for the single pivot row or on the
-    CPU); ``"newton"``/``"bfgs"`` raise ``NotImplementedError`` when run.
+    voxel, flat spectra only) or ``"none"``.  ``ap_optimizer``: the phase
+    search, ``"de"`` (differential evolution with ``de_popsize``,
+    ``de_maxiter`` and ``de_seed``, one search per voxel for ``"all"``) or
+    ``"grid"``; ``ap_polish``: the grid search's polish, ``"gd"`` or
+    ``"fused"`` (``"auto"``: the fused kernel K5 for a grid of voxels on
+    the card, gd for the single pivot row or on the CPU);
+    ``"newton"``/``"bfgs"`` raise ``NotImplementedError`` when run.
     ``spec_layout``: ``"flat"`` (B, n_out) or ``"stacked"`` (B, n2, n1)
     spectra.
     """
@@ -29,6 +31,9 @@ class PipelineConfig:
     zero_fill_to: int = 2048
     autophase: str = "single"  # "single" | "all" | "none"
     p0_only: bool = False
+    de_popsize: int = 15
+    de_maxiter: int = 200
+    de_seed: int = 42
     ap_optimizer: str = "de"  # "de" | "grid"
     ap_polish: str = "auto"
     spec_layout: str = "flat"  # "flat" | "stacked"

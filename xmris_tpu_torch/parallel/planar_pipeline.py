@@ -2,10 +2,11 @@
 
 Port of :func:`xmris_tpu.parallel.planar_pipeline.spectral_pipeline_planar_raw`
 on its kernel variant: window + zero-fill + ortho DFT + fftshift and the
-per-voxel peak search in ONE kernel launch (K1), then the ACME grid
-autophase: on the grid's loudest row, applied to every voxel
-(``autophase="single"``), or on every voxel with its own pivot
-(``autophase="all"``, whose polish is kernel K5 on the card).
+per-voxel peak search in ONE kernel launch (K1), then the ACME autophase:
+on the grid's loudest row, applied to every voxel (``autophase="single"``),
+or on every voxel with its own pivot (``autophase="all"``).  The search is
+differential evolution (``ap_optimizer="de"``, the default) or the
+candidate grid, whose per-voxel polish is kernel K5 on the card.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
 from xmris_tpu_torch.ops.phasing import (
+    _de_phase_search,
     _grid_phase_search,
     grid_phase_search_graphed,
     resolve_polish,
@@ -27,12 +29,7 @@ def _apply_phase_planar(re, im, phi):
 
 
 def _check_search(cfg: PipelineConfig):
-    if cfg.ap_optimizer != "grid":
-        raise NotImplementedError(
-            "ap_optimizer='de' (differential evolution) is not ported; use "
-            "'grid' (see ROADMAP.md queue 1, item 7)"
-        )
-    if cfg.ap_polish in ("newton", "bfgs"):
+    if cfg.ap_optimizer == "grid" and cfg.ap_polish in ("newton", "bfgs"):
         raise NotImplementedError(
             f"ap_polish={cfg.ap_polish!r} is not ported (only 'gd' and "
             "'fused'); see ROADMAP.md queue 1, item 7"
@@ -41,14 +38,18 @@ def _check_search(cfg: PipelineConfig):
 
 def _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg: PipelineConfig,
                         kernels: KernelSet = DISPATCH):
-    """ACME (p0, p1) on one pivot spectrum row with the deterministic grid
-    search (``cfg.ap_optimizer == "grid"``).  On the card the gd search is
-    replayed from a CUDA graph; ``"auto"`` resolves to gd for one row, as
-    in the reference."""
+    """ACME (p0, p1) on one pivot spectrum row: differential evolution
+    (``cfg.ap_optimizer == "de"``, seeded from ``cfg.de_seed``) or the
+    deterministic grid search.  On the card the gd grid search is replayed
+    from a CUDA graph; ``"auto"`` resolves to gd for one row, as in the
+    reference."""
     _check_search(cfg)
     x_range = freqs[-1] - freqs[0]
     args = (row_re[None, :], row_im[None, :], freqs, x_range, pivot[None])
-    if row_re.is_cuda and resolve_polish(cfg.ap_polish, args[0]) == "gd":
+    if cfg.ap_optimizer == "de":
+        xs = _de_phase_search(*args, cfg.p0_only, seed=cfg.de_seed,
+                              popsize=cfg.de_popsize, maxiter=cfg.de_maxiter)
+    elif row_re.is_cuda and resolve_polish(cfg.ap_polish, args[0]) == "gd":
         xs = grid_phase_search_graphed(*args, cfg.p0_only)
     else:
         xs = _grid_phase_search(*args, cfg.p0_only,
@@ -88,13 +89,21 @@ def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
                           kernels: KernelSet = DISPATCH):
     """Per-voxel ACME autophase of flat (B, n_freq) spectra: each voxel's
     pivot is its own peak ``freqs[t_idx]`` (the in-kernel peak search, the
-    first maximum of |S|^2 as the reference's ``argmax``), then the batched
-    grid search (:func:`_grid_phase_search`) and a per-voxel rotation."""
+    first maximum of |S|^2 as the reference's ``argmax``), then one
+    differential evolution per voxel (:func:`_de_phase_search`, in voxel
+    chunks) or the batched grid search (:func:`_grid_phase_search`), and a
+    per-voxel rotation."""
     _check_search(cfg)
     x_range = freqs[-1] - freqs[0]
     pivots = freqs[t_idx]
-    xs = _grid_phase_search(re, im, freqs, x_range, pivots, cfg.p0_only,
-                            polish_optimizer=cfg.ap_polish, kernels=kernels)
+    if cfg.ap_optimizer == "de":
+        xs = _de_phase_search(re, im, freqs, x_range, pivots, cfg.p0_only,
+                              seed=cfg.de_seed, popsize=cfg.de_popsize,
+                              maxiter=cfg.de_maxiter)
+    else:
+        xs = _grid_phase_search(re, im, freqs, x_range, pivots, cfg.p0_only,
+                                polish_optimizer=cfg.ap_polish,
+                                kernels=kernels)
     p0s = xs[:, 0]
     p1s = torch.zeros_like(p0s) if cfg.p0_only else xs[:, 1]
     phi = (

@@ -4,7 +4,7 @@ Port of :func:`xmris_tpu.parallel.process.process_grid_planar_raw`.  The
 reference compiles the whole per-grid workload into one XLA program; here
 it is one eager PyTorch call whose device work is the hand-written kernels
 plus tensor glue: K1 spectrum (K5 fused ACME polish with
-``autophase="all"``), then the fit that ``kernel_version`` selects — 9: K2
+``autophase="all"`` and the grid search), then the fit that ``kernel_version`` selects — 9: K2
 normal equations and K3 damped SPD solve per iteration, K4 CRLB diagonal;
 10: the whole LM in one K8 launch; 1, 2, 3, 5, 6, 7 or 8: K14, K13, K7, K12,
 K11, K10 or K9 with the dense K6a solve — with K6b's CRLB diagonal on the
