@@ -67,10 +67,33 @@ and the script exits non-zero):
    4r. per-voxel DE (``autophase="all"``, ``ap_optimizer="de"``) on the full
    grid, its scores beside the per-voxel grid search's, and the DE search
    alone at voxel chunks of 2048-16384;
+   4s. ``mrsi_pipeline`` on the labeled grid at ``PipelineConfig`` defaults
+   (lb = 5, DE pivot) and with the grid search: one K1 launch a call, no
+   plain version, spectra and phases bit for bit ``spectral_pipeline_
+   planar_raw`` on the same planes, window and frequencies; ``gb=8``
+   without autophase against ``zero_fill -> apodize_lg -> to_spectrum``
+   at 1e-6 max|S|;
+   4t. per-voxel ``mrsi_pipeline`` (grid search): one K1 and one K5 launch,
+   held against the plain KernelSet's run by ACME score (x1.02 both ways);
+   4u. the per-voxel grid search with the ``"newton"`` and ``"bfgs"``
+   polishes against ``"gd"``: no K5 launch, phases in the box, every
+   voxel's ACME within x1.02 + 1e-9 of gd's (the share within x1.001
+   reported);
+   4v. ``autophase(method="peak_minima"/"positivity", p0_only=True,
+   peak_width=200)`` in single mode (grid and DE) and per voxel (grid):
+   finite, no kernel launched; one ``optimizer="scipy"`` call on the
+   pivot row, timed;
+   4w. ``als_baseline_batched`` (CR, float64 on the card) on the 16 384 x
+   2048 real spectra at lam 1e5, p 0.001, 10 iterations, against the CPU
+   scan solver on 64 voxels spread over the grid at 1e-7 max|z|, and on
+   float32 input (no NaN);
 5. timing: median ms per single-pivot grid over synchronized grids, and
    voxels/s; the grid and its fit stage at every version in turns with
    v9; median ms of a per-voxel-autophased grid; median s of one
-   ``fit_amares`` call at versions 9, 10 and 8.
+   ``fit_amares`` call at versions 9, 10 and 8; this slice's entry points
+   in turns (``mrsi_pipeline`` with the grid search, DE and per voxel,
+   the per-voxel grid search with each polish, the AsLS grid, the scipy
+   call), printed as the ``slice_11`` JSON line.
 
 ``--profile-dir DIR`` adds a ``torch.profiler`` look at one grid of each
 autophase mode and of the v10, v3, v8 and v7 fits: the device-busy share
@@ -112,8 +135,11 @@ def _sync():
     torch.cuda.synchronize()
 
 
+_START = time.perf_counter()
+
+
 def _phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def _atol_text(atol):
@@ -350,10 +376,12 @@ def main(argv) -> int:
     )
     from xmris_tpu_torch.fitting.prior import prior_from_csv_text
     from xmris_tpu_torch.ops import kernels as K
+    from xmris_tpu_torch.ops.baseline import als_baseline_batched
     from xmris_tpu_torch.ops.bounds import (
         expand_params_batched,
         internal_to_external_torch,
     )
+    from xmris_tpu_torch.ops.fid import apodize_lg, to_spectrum, zero_fill
     from xmris_tpu_torch.ops.kernels import (
         _build,
         acme_cuda,
@@ -369,9 +397,14 @@ def main(argv) -> int:
         _grid_phase_search,
         _phased_real_planar,
         acme_score_raw,
+        autophase,
         de_chunk_rows,
     )
-    from xmris_tpu_torch.parallel.pipeline import PipelineConfig
+    from xmris_tpu_torch.parallel.pipeline import (
+        PipelineConfig,
+        mrsi_pipeline,
+        spectral_constants,
+    )
     from xmris_tpu_torch.parallel.planar_pipeline import (
         spectral_pipeline_planar_raw,
     )
@@ -1630,6 +1663,198 @@ def main(argv) -> int:
     del un_re, un_im, mv, mi, s_vde, s_vgr
     torch.cuda.empty_cache()
 
+    # ---- 4s. mrsi_pipeline, the labeled front-end (K1) ----
+    _phase("4s mrsi_pipeline on the bench grid as an (x, y, z, time) array")
+    cfg_m = PipelineConfig(zero_fill_to=bi.ZERO_FILL)
+    if (cfg_m.lb, cfg_m.gb, cfg_m.ap_optimizer) != (5.0, 0.0, "de"):
+        raise AssertionError("PipelineConfig defaults moved")
+    n_out, w_m, f_m64 = spectral_constants(da.coords["time"].values, cfg_m)
+    w_m = torch.as_tensor(w_m, dtype=torch.float32, device=dev)
+    f_m = torch.as_tensor(f_m64, dtype=torch.float32, device=dev)
+    mrsi_cfgs = {
+        "DE default": cfg_m,
+        "grid search": dataclasses.replace(cfg_m, ap_optimizer="grid"),
+    }
+    mrsi_out = {}
+    for name, c in mrsi_cfgs.items():
+        out_m = _mrsi_run(K, mrsi_pipeline, da, c, "mrsi_pipeline", 1)
+        raw = spectral_pipeline_planar_raw(re, im, w_m, f_m, c)
+        _sync()
+        _same_as_raw(f"mrsi_pipeline ({name})", out_m, raw, b, n_out)
+        mrsi_out[name] = out_m
+        print(f"   {name}: (p0, p1) = ({out_m.attrs['phase_p0']:.4f}, "
+              f"{out_m.attrs['phase_p1']:.4f}), pivot "
+              f"{out_m.attrs['phase_pivot']:.4f} Hz; lineage "
+              f"{sorted(k for k in out_m.attrs if k != 'MHz')}")
+    cfg_lg = dataclasses.replace(cfg_m, gb=8.0, autophase="none")
+    out_lg = _mrsi_run(K, mrsi_pipeline, da, cfg_lg, "mrsi_pipeline", 1)
+    chain = to_spectrum(apodize_lg(zero_fill(da.to(dev), target_points=n_out),
+                                   lb=cfg_lg.lb, gb=cfg_lg.gb))
+    _sync()
+    want = chain.data.reshape(b, n_out)
+    got = torch.as_tensor(out_lg.values.reshape(b, n_out), device=dev)
+    sc = float(torch.maximum(want.real.abs().max(), want.imag.abs().max()))
+    _assert_close("mrsi_pipeline gb=8 vs zero_fill/apodize_lg/to_spectrum re",
+                  got.real, want.real, 0.0, 1e-6 * sc)
+    _assert_close("mrsi_pipeline gb=8 vs zero_fill/apodize_lg/to_spectrum im",
+                  got.imag, want.imag, 0.0, 1e-6 * sc)
+    if out_lg.attrs.get("apodization_gb") != 8.0 or "phase_p0" in out_lg.attrs:
+        raise AssertionError("mrsi_pipeline gb=8: wrong lineage")
+    del chain, want, got, out_lg, raw
+    torch.cuda.empty_cache()
+
+    # ---- 4t. per-voxel mrsi_pipeline (K1 + K5) ----
+    _phase("4t mrsi_pipeline, autophase='all' with the grid search")
+    cfg_mv = dataclasses.replace(cfg_m, autophase="all", ap_optimizer="grid")
+    out_mv = _mrsi_run(K, mrsi_pipeline, da, cfg_mv, "mrsi_pipeline_per_voxel",
+                       1)
+    out_mp = mrsi_pipeline(da, cfg=cfg_mv, kernels=K.PLAIN)
+    _sync()
+    un_re, un_im, mv_m, _ = dft_cuda.spectrum(
+        re, im, bi.ZERO_FILL, window=w_m[:bi.N_TIME].contiguous(),
+        with_maxmag=True)
+
+    def attrs_t(o):
+        return tuple(torch.as_tensor(np.ravel(o.attrs[f"phase_{k}"]),
+                                     device=dev, dtype=torch.float32)
+                     for k in ("p0", "p1", "pivot"))
+
+    s_k = _acme_scores(acme_score_raw, _phased_real_planar, un_re, un_im, f_m,
+                       *attrs_t(out_mv), x_range)
+    s_p = _acme_scores(acme_score_raw, _phased_real_planar, un_re, un_im, f_m,
+                       *attrs_t(out_mp), x_range)
+    _scores_both_ways("per-voxel mrsi_pipeline ACME vs the plain KernelSet",
+                      s_k, s_p)
+    if np.shape(out_mv.attrs["phase_p0"]) != bi.GRID:
+        raise AssertionError("per-voxel mrsi_pipeline: phases not voxel-shaped")
+    del out_mv, out_mp, s_k, s_p
+    torch.cuda.empty_cache()
+
+    # ---- 4u. the Newton and BFGS polishes, per voxel ----
+    _phase("4u per-voxel grid search with ap_polish newton / bfgs vs gd")
+    polish_scores, polish_p = {}, {}
+    for pol in ("gd", "newton", "bfgs"):
+        c = dataclasses.replace(cfg_all, ap_polish=pol)
+        K.reset_counters()
+        _, _, (q0, q1, qpiv) = spectral_pipeline_planar_raw(re, im, w_d, f_d, c)
+        _sync()
+        counts = K.counters()
+        if (counts["launches"]["acme_polish"] != 0
+                or counts["launches"]["spectrum"] != 1
+                or any(counts["plain_calls"].values())):
+            raise AssertionError(f"ap_polish={pol}: unexpected launches "
+                                 f"{counts}")
+        if not (torch.isfinite(q0).all() and torch.isfinite(q1).all()
+                and float(q0.abs().max()) <= 180.0
+                and float(q1.abs().max()) <= 4000.0):
+            raise AssertionError(f"ap_polish={pol}: phases out of the box")
+        u_re, u_im = dft_cuda.spectrum(re, im, bi.ZERO_FILL, window=win)
+        polish_scores[pol] = _acme_scores(acme_score_raw, _phased_real_planar,
+                                          u_re, u_im, f_d, q0, q1, qpiv,
+                                          x_range).double()
+        polish_p[pol] = (float(q0.abs().max()), float(q1.abs().max()))
+    # Held to what the reference's own polishes do on this grid (its
+    # newton-18 / bfgs-28 against its gd-40, the whole bench grid on the
+    # CPU: median x1.00050 / x1.00037, 70.1 % / 74.6 % of voxels within
+    # x1.001, 0 / 2 voxels above x1.02 (max 1.0088 / 1.0542)): the median
+    # within x1.001 and at most 0.1 % of voxels above x1.02 + 1e-9 (the
+    # reference's bar for a polish variant, tests/test_acme_pallas.py:163).
+    for pol in ("newton", "bfgs"):
+        r = polish_scores[pol] / polish_scores["gd"]
+        fin = torch.isfinite(r)
+        med = float(r[fin].median())
+        above = int((polish_scores[pol][fin]
+                     > polish_scores["gd"][fin] * 1.02 + 1e-9).sum())
+        print(f"   {pol} / gd ACME: median {med:.6f} (limit 1.001), max "
+              f"{float(r[fin].max()):.6f}, {above} voxels above x1.02 "
+              f"(limit {b // 1000}), share <= x1.001 "
+              f"{float((r[fin] <= 1.001).double().mean()):.5f}, share < x1 "
+              f"{float((r[fin] < 1.0).double().mean()):.5f}; max |p0| "
+              f"{polish_p[pol][0]:.3f}, max |p1| {polish_p[pol][1]:.3f}; K5 "
+              f"not launched", flush=True)
+        if (not torch.equal(fin, torch.isfinite(polish_scores["gd"]))
+                or med > 1.001 or above > b // 1000):
+            raise AssertionError(f"{pol}: scores above the gd polish's")
+    del polish_scores, u_re, u_im
+    torch.cuda.empty_cache()
+
+    # ---- 4v. the ROI methods ----
+    _phase("4v autophase(method=peak_minima / positivity), p0 only, "
+           "peak_width 200 Hz")
+    spec_da = XmrArray(
+        torch.complex(un_re, un_im).reshape(bi.GRID + (bi.ZERO_FILL,)),
+        dims=("x", "y", "z", "frequency"),
+        coords={"frequency": Coord("frequency", f_m64)})
+    roi = {}
+    for method in ("peak_minima", "positivity"):
+        for mode, opt in (("single", "grid"), ("single", "de"),
+                          ("all", "grid")):
+            K.reset_counters()
+            t0 = time.perf_counter()
+            o = autophase(spec_da, method=method, mode=mode, optimizer=opt,
+                          p0_only=True, peak_width=200.0)
+            _sync()
+            dt_s = time.perf_counter() - t0
+            counts = K.counters()
+            if any(counts["launches"].values()) or any(
+                    counts["plain_calls"].values()):
+                raise AssertionError(f"{method} {mode} {opt}: launches "
+                                     f"{counts}")
+            p0v = np.asarray(o.attrs["phase_p0"], dtype=np.float64)
+            if not (np.isfinite(p0v).all() and torch.isfinite(o.data).all()
+                    and np.all(np.asarray(o.attrs["phase_p1"]) == 0.0)):
+                raise AssertionError(f"{method} {mode} {opt}: not finite")
+            roi[f"{method} {mode} {opt}"] = dt_s
+            print(f"   {method}, {mode}, {opt}: {dt_s:.3f} s, p0 "
+                  + (f"{float(p0v):.4f}" if mode == "single" else
+                     f"median {float(np.median(p0v)):.4f}") + ", no kernel",
+                  flush=True)
+            del o
+    v_piv = int(torch.argmax(mv_m))
+    row_da = XmrArray(torch.complex(un_re[v_piv], un_im[v_piv]).cpu().numpy(),
+                      dims=("frequency",),
+                      coords={"frequency": Coord("frequency", f_m64)})
+    t0 = time.perf_counter()
+    o = autophase(row_da, optimizer="scipy")
+    scipy_s = time.perf_counter() - t0
+    print(f"   scipy (ACME, p0 + p1) on the pivot row: {scipy_s:.3f} s, "
+          f"(p0, p1) = ({o.attrs['phase_p0']:.4f}, {o.attrs['phase_p1']:.4f})")
+    del spec_da
+    torch.cuda.empty_cache()
+
+    # ---- 4w. AsLS baseline on the grid (CR, float64 on the card) ----
+    _phase("4w als_baseline_batched on the 16 384 x 2048 real spectra")
+    sr_m, _, _ = spectral_pipeline_planar_raw(re, im, w_m, f_m,
+                                              mrsi_cfgs["grid search"])
+    rows64 = sr_m.double()
+    asls = dict(lam=1e5, p=0.001, n_iter=10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z = als_baseline_batched(rows64, **asls)
+    _sync()
+    asls_first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if z.dtype != torch.float64 or not torch.isfinite(z).all():
+        raise AssertionError("AsLS: not finite float64")
+    idx = torch.linspace(0, b - 1, 64, device=dev).round().long()
+    t0 = time.perf_counter()
+    z_scan = als_baseline_batched(rows64[idx].cpu(), solver="scan", **asls)
+    scan_s = time.perf_counter() - t0
+    err = float((z[idx].cpu() - z_scan).abs().max())
+    lim = 1e-7 * float(z_scan.abs().max())
+    print(f"   CR on the card: {asls_first_s:.3f} s (first call), peak "
+          f"{peak_gb:.2f} GiB; vs the CPU scan on 64 voxels ({scan_s:.2f} s): "
+          f"max|err| {err:.3e}, limit {lim:.3e}", flush=True)
+    if not err <= lim:
+        raise AssertionError("AsLS CR differs from the scan")
+    z32 = als_baseline_batched(sr_m, **asls)
+    _sync()
+    if z32.dtype != torch.float32 or torch.isnan(z32).any():
+        raise AssertionError("AsLS on float32 input: NaN or wrong dtype")
+    print("   float32 input: float32 out, no NaN")
+    del z, z32, z_scan, rows64
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -1740,6 +1965,35 @@ def main(argv) -> int:
     print(f"   fit_amares(kernel_version=8) times s: "
           f"{[round(x, 3) for x in fit_times]}; median {fit_med8:.3f} s = "
           f"{b / fit_med8:.1f} voxels/s")
+    # This slice's entry points, in turns: 5 rounds, the order reversed
+    # every other round; ms per call, median.
+    rows64 = sr_m.double()
+    slice_calls = {
+        "mrsi_pipeline grid search": lambda: mrsi_pipeline(
+            da, cfg=mrsi_cfgs["grid search"]),
+        "mrsi_pipeline DE default": lambda: mrsi_pipeline(da, cfg=cfg_m),
+        "mrsi_pipeline per voxel": lambda: mrsi_pipeline(da, cfg=cfg_mv),
+        **{f"per-voxel grid search, {pol} polish": (
+            lambda pol=pol: spectral_pipeline_planar_raw(
+                re, im, w_d, f_d, dataclasses.replace(cfg_all, ap_polish=pol)))
+           for pol in ("auto", "gd", "newton", "bfgs")},
+        "AsLS grid, CR float64": lambda: als_baseline_batched(rows64, **asls),
+        "scipy autophase, pivot row": lambda: autophase(row_da,
+                                                         optimizer="scipy"),
+    }
+    slice_turns = {k: [] for k in slice_calls}
+    for rnd in range(5):
+        names = list(slice_calls) if rnd % 2 == 0 else list(slice_calls)[::-1]
+        for name in names:
+            _sync()
+            t0 = time.perf_counter()
+            slice_calls[name]()
+            _sync()
+            slice_turns[name].append(1e3 * (time.perf_counter() - t0))
+    slice_ms = {k: float(np.median(v)) for k, v in slice_turns.items()}
+    for name, xs in slice_turns.items():
+        print(f"   in turns, {name}: median {slice_ms[name]:.3f} ms "
+              f"({', '.join(f'{x:.1f}' for x in xs)})")
     if profile_dir:
         _profile(process_grid_planar_raw, args, fit_kw, ms, profile_dir,
                  "single-pivot grid", "profile.txt")
@@ -1753,6 +2007,19 @@ def main(argv) -> int:
                  profile_dir, "free-g grid fit", "profile_free_g.txt")
         _profile(process_grid_planar_raw, args, de_kw, de_ms["DE pivot grid"],
                  profile_dir, "DE pivot grid", "profile_de_pivot.txt")
+        _profile(mrsi_pipeline, (da,), dict(cfg=mrsi_cfgs["grid search"]),
+                 slice_ms["mrsi_pipeline grid search"], profile_dir,
+                 "mrsi_pipeline, grid search", "profile_mrsi.txt")
+        _profile(spectral_pipeline_planar_raw, (re, im, w_d, f_d),
+                 dict(cfg=dataclasses.replace(cfg_all, ap_polish="newton")),
+                 slice_ms["per-voxel grid search, newton polish"],
+                 profile_dir, "per-voxel grid search, newton polish",
+                 "profile_newton.txt")
+        _profile(als_baseline_batched, (rows64,), asls,
+                 slice_ms["AsLS grid, CR float64"], profile_dir,
+                 "AsLS grid, CR float64", "profile_asls.txt")
+    del rows64, sr_m
+    torch.cuda.empty_cache()
 
     replaces = {
         "spectrum": ("xmris_tpu_torch/ops/kernels/csrc/spectrum.cu",
@@ -1821,6 +2088,10 @@ def main(argv) -> int:
                "grid_acme": s_grid, "per_voxel_grid_s": pv_de_s,
                "per_voxel_chunk": chunk,
                "per_voxel_search_s_by_chunk": chunk_s}}))
+    print(json.dumps({"slice_11": {
+        "ms_in_turns": slice_ms, "roi_s": roi, "scipy_s": scipy_s,
+        "asls_first_s": asls_first_s, "asls_peak_gib": peak_gb,
+        "asls_cr_vs_scan": err, "asls_limit": lim}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1841,6 +2112,42 @@ def _check_path(K, counts, path):
         if counts["plain_calls"][name] != 0:
             raise AssertionError(f"{path}: plain {name} ran on the main path")
     print(f"   {path}: launched {[n for n in K.PATHS[path]]}, 0 plain calls")
+
+
+def _mrsi_run(K, mrsi_pipeline, da, cfg, path, n):
+    """One ``mrsi_pipeline`` call on the card with the counters set to 0
+    just before it: every kernel of ``path`` launched exactly ``n`` times,
+    no other kernel and no plain version."""
+    K.reset_counters()
+    out = mrsi_pipeline(da, cfg=cfg)
+    _sync()
+    counts = K.counters()
+    _check_path(K, counts, path)
+    for name in K.PATHS[path]:
+        if counts["launches"][name] != n:
+            raise AssertionError(f"{path}: {name} launched "
+                                 f"{counts['launches'][name]} times, not {n}")
+    return out
+
+
+def _same_as_raw(name, out, raw, b, n_out):
+    """The front-end's spectra and phases equal the raw pipeline's bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    sr, si, phases = raw
+    spec = out.values.reshape(b, n_out)
+    same = (np.array_equal(spec.real, sr.reshape(b, n_out).cpu().numpy())
+            and np.array_equal(spec.imag, si.reshape(b, n_out).cpu().numpy()))
+    for key, v in zip(("phase_p0", "phase_p1", "phase_pivot"), phases):
+        same = same and np.array_equal(
+            np.ravel(out.attrs[key]).astype(np.float32),
+            np.ravel(v.cpu().numpy()))
+    print(f"   {name}: spectra and phases bit for bit the raw pipeline's on "
+          f"the same planes, window and frequencies: {same}")
+    if not same:
+        raise AssertionError(f"{name}: differs from spectral_pipeline_planar_raw")
 
 
 def _scores_both_ways(name, a, b):

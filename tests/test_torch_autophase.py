@@ -300,13 +300,18 @@ def test_autophase_default_de_runs(phantom_grid):
 
 
 def test_unported_autophase_options_raise(phantom_grid):
+    """The options that raised NotImplementedError until item 7 was ported
+    (scipy, the ROI methods, the newton/bfgs polishes) now run: finite
+    phases of the right shape (parity: ``test_torch_autophase_rest.py``)."""
     _, _, da = phantom_grid
     for kw in (dict(optimizer="scipy"),
                dict(optimizer="grid", method="peak_minima"),
                dict(optimizer="grid", polish_optimizer="newton"),
                dict(optimizer="grid", mode="all", polish_optimizer="bfgs")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tph.autophase(da, device="cpu", **kw)
+        out = tph.autophase(da, device="cpu", **kw)
+        p0 = np.asarray(out.attrs["phase_p0"])
+        assert out.shape == da.shape and np.isfinite(p0).all(), kw
+        assert p0.shape == (SHAPE if kw.get("mode") == "all" else ())
     with pytest.raises(ValueError, match="Mode"):
         tph.autophase(da, mode="some", optimizer="grid", device="cpu")
     with pytest.raises(ValueError, match="Method"):
@@ -415,8 +420,12 @@ def test_per_voxel_pipeline_runs_the_default_de(per_voxel_program):
 
 
 def test_per_voxel_pipeline_unported_options_raise(per_voxel_program):
+    """ap_polish="newton", which raised NotImplementedError until item 7
+    was ported, runs per voxel: finite (B,) phases."""
     args = per_voxel_program[2]
     cfg = PipelineConfig(zero_fill_to=ZF, autophase="all",
                          ap_optimizer="grid", ap_polish="newton")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spectral_pipeline_planar_raw(*args[:4], cfg)
+    _, _, (p0, p1, piv) = spectral_pipeline_planar_raw(*args[:4], cfg)
+    assert p0.shape == p1.shape == piv.shape == (args[0].shape[0],)
+    assert torch.isfinite(p0).all() and torch.isfinite(p1).all()
+    assert float(p0.abs().max()) <= 180.0 and float(p1.abs().max()) <= 4000.0

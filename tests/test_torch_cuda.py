@@ -55,6 +55,7 @@ from xmris_tpu_torch.ops.phasing import (
     grid_phase_search_graphed,
 )
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
+from xmris_tpu_torch.parallel.planar_pipeline import spectral_pipeline_planar_raw
 from xmris_tpu_torch.parallel.process import (
     grid_inputs_from_numpy,
     process_grid_planar_raw,
@@ -1131,3 +1132,116 @@ def test_default_de_search_runs_on_the_card(dev):
     assert a.x.device.type == "cuda" and a.fun.device.type == "cuda"
     np.testing.assert_allclose(a.x.cpu().numpy(), 0.3, atol=1e-3)
     np.testing.assert_array_equal(a.x.cpu().numpy(), b.x.cpu().numpy())
+
+
+def _labeled_bench(grid=GRID):
+    fids, _, _ = bi.make_inputs(grid)
+    t = (np.arange(bi.N_TIME) / bi.SW).astype(np.float32).astype(np.float64)
+    return fids, XmrArray(fids.reshape(grid + (bi.N_TIME,)),
+                          dims=("x", "y", "z", "time"),
+                          coords={"time": Coord("time", t)})
+
+
+@pytest.mark.parametrize("autophase,path", [
+    ("single", "mrsi_pipeline"), ("all", "mrsi_pipeline_per_voxel")])
+def test_mrsi_pipeline_runs_on_the_kernels(dev, autophase, path):
+    """mrsi_pipeline on the card by default: one launch of each kernel of
+    its path, no plain version, and bit for bit its raw pipeline."""
+    from xmris_tpu_torch.parallel import mrsi_pipeline
+    from xmris_tpu_torch.parallel.pipeline import spectral_constants
+
+    fids, da = _labeled_bench()
+    cfg = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase=autophase,
+                         ap_optimizer="grid")
+    K.reset_counters()
+    out = mrsi_pipeline(da, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    assert {n for n, c in counts["launches"].items() if c} == set(K.PATHS[path])
+    assert all(counts["launches"][n] == 1 for n in K.PATHS[path])
+    assert not any(counts["plain_calls"].values())
+    _, weight, freqs = spectral_constants(da.coords["time"].values, cfg)
+    sr, si, (p0, _, piv) = spectral_pipeline_planar_raw(
+        *(torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                          device=dev)
+          for a in (fids.real, fids.imag, weight, freqs)), cfg)
+    spec = out.values.reshape(len(fids), bi.ZERO_FILL)
+    np.testing.assert_array_equal(spec.real, sr.cpu().numpy())
+    np.testing.assert_array_equal(spec.imag, si.cpu().numpy())
+    np.testing.assert_array_equal(
+        np.ravel(out.attrs["phase_p0"]).astype(np.float32),
+        np.ravel(p0.cpu().numpy()))
+    np.testing.assert_array_equal(
+        np.ravel(out.attrs["phase_pivot"]).astype(np.float32),
+        np.ravel(piv.cpu().numpy()))
+
+
+@pytest.mark.parametrize("polish", ["newton", "bfgs"])
+def test_second_order_polish_runs_on_the_card(dev, polish):
+    """The per-voxel grid search with the Newton / BFGS polish on the card:
+    no K5 launch, phases in the box, the scores as the reference's own
+    polishes stand to its gd (median within x1.001 of gd's, at most one
+    voxel above x1.02)."""
+    re, im, weight, freqs = _planes(dev)
+    scores = {}
+    for pol in ("gd", polish):
+        cfg = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="all",
+                             ap_optimizer="grid", ap_polish=pol)
+        K.reset_counters()
+        _, _, (p0, p1, piv) = spectral_pipeline_planar_raw(re, im, weight,
+                                                           freqs, cfg)
+        torch.cuda.synchronize()
+        assert K.counters()["launches"]["acme_polish"] == 0
+        assert float(p0.abs().max()) <= 180.0
+        assert float(p1.abs().max()) <= 4000.0
+        sr, si = dft_cuda.spectrum(re, im, bi.ZERO_FILL,
+                                   window=weight[:bi.N_TIME].contiguous())
+        d = tph._phased_real_planar(sr.double(), si.double(), freqs.double(),
+                                    p0.double(), p1.double(),
+                                    piv.double()[:, None],
+                                    float(freqs[-1] - freqs[0]))
+        scores[pol] = tph.acme_score_raw(d)
+    r = scores[polish] / scores["gd"]
+    assert float(r.median()) <= 1.001
+    assert int((scores[polish] > scores["gd"] * 1.02 + 1e-9).sum()) <= 1
+
+
+def test_asls_cr_on_the_card_matches_the_cpu_scan(dev):
+    """solver="auto" is CR on the card (float64), within 1e-7 max|z| of the
+    scan on the CPU; an explicit "scan" runs on the card too."""
+    from xmris_tpu_torch.ops.baseline import als_baseline_batched
+
+    rng = np.random.default_rng(0)
+    x = np.linspace(-1.0, 1.0, 512)
+    rows = (2.0 + 1.5 * x + 5.0 * np.exp(-((x - rng.uniform(-0.5, 0.5, (8, 1)))
+                                          ** 2) / 2e-4)
+            + rng.normal(0.0, 0.02, (8, 512)))
+    z = als_baseline_batched(torch.as_tensor(rows, device=dev), 1e5, 0.001, 10)
+    z_cpu = als_baseline_batched(torch.as_tensor(rows), 1e5, 0.001, 10)
+    assert z.device.type == "cuda" and z.dtype == torch.float64
+    err = float((z.cpu() - z_cpu).abs().max())
+    assert err <= 1e-7 * float(z_cpu.abs().max())
+    z_scan = als_baseline_batched(torch.as_tensor(rows[:2, :128], device=dev),
+                                  1e5, 0.001, 3, solver="scan")
+    ref = als_baseline_batched(torch.as_tensor(rows[:2, :128]), 1e5, 0.001, 3)
+    np.testing.assert_allclose(z_scan.cpu().numpy(), ref.numpy(), rtol=1e-9,
+                               atol=1e-12)
+
+
+def test_slice_entry_points_default_to_the_card(dev):
+    """mrsi_pipeline, baseline_als and als_baseline_batched with no device
+    run on the card (an array payload comes back as an array)."""
+    from xmris_tpu_torch.ops.baseline import als_baseline_batched, baseline_als
+    from xmris_tpu_torch.parallel import mrsi_pipeline
+
+    _, da = _labeled_bench((2, 2, 2))
+    K.reset_counters()
+    out = mrsi_pipeline(da, cfg=PipelineConfig(zero_fill_to=bi.ZERO_FILL,
+                                               autophase="none"))
+    torch.cuda.synchronize()
+    assert K.counters()["launches"]["spectrum"] == 1
+    assert isinstance(out.data, np.ndarray)
+    rows = np.asarray(out.values.real.reshape(8, -1), dtype=np.float64)
+    assert als_baseline_batched(rows, 1e4, 0.01, 2).device.type == "cuda"
+    base = baseline_als(out.isel(x=0))
+    assert isinstance(base.data, np.ndarray) and np.isfinite(base.values).all()

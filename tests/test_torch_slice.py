@@ -222,11 +222,15 @@ def test_pipeline_runs_the_default_de(phantom):
 
 
 def test_unported_options_raise(phantom):
+    """ap_polish="newton" on the pivot row, which raised
+    NotImplementedError until item 7 was ported, runs; a zero-fill below
+    n_time still raises the reference's ValueError."""
     fids = phantom[0]
     args = (_t(fids.real), _t(fids.imag), _t(WEIGHT), _t(FREQS))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        spectral_pipeline_planar_raw(*args, PipelineConfig(
-            zero_fill_to=ZF, ap_optimizer="grid", ap_polish="newton"))
+    _, _, (p0, p1, piv) = spectral_pipeline_planar_raw(*args, PipelineConfig(
+        zero_fill_to=ZF, ap_optimizer="grid", ap_polish="newton"))
+    assert p0.shape == p1.shape == piv.shape == ()
+    assert torch.isfinite(p0) and torch.isfinite(p1)
     with pytest.raises(ValueError, match="split"):
         spectral_pipeline_planar_raw(
             *args, PipelineConfig(zero_fill_to=N_T // 2, autophase="none"))

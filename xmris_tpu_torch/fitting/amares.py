@@ -19,6 +19,7 @@ import json
 import math
 import os
 import time
+import warnings
 from pathlib import Path
 from typing import NamedTuple
 
@@ -506,6 +507,7 @@ def template_seeded_x0(
     scale_amplitudes: bool = True,
     max_iter: int = 60,
     verbose: bool = False,
+    linear_seed: bool = True,
     g_scan: tuple | None = None,
     device_fids: tuple | None = None,
 ) -> np.ndarray:
@@ -515,8 +517,9 @@ def template_seeded_x0(
     Fits ``template_fid`` (default: the highest-SNR voxel) once, starts every
     voxel from its optimum and rescales free amplitudes by the voxel's
     first-point magnitude over the template total (clipped to [0.1, 100]).
-    The shared-basis LS amplitudes/phases at the template's
-    shifts/linewidths/g go into the ``seed_plan`` slots (wrapped
+    With ``linear_seed`` (the default) the shared-basis LS amplitudes/phases
+    at the template's shifts/linewidths/g go into the ``seed_plan`` slots
+    (wrapped
     into the phase window, nudged inside the bounds; non-finite entries
     keep the scaled template).  ``g_scan``, a tuple of candidate mixing
     fractions, scans them for a prior with a free g
@@ -524,7 +527,8 @@ def template_seeded_x0(
     winning candidate, and the amplitudes/phases are that candidate's.  A
     string ``g_scan`` raises ``TypeError`` (``"auto"`` is
     :func:`fit_amares`'s).  The writes are staged and applied together
-    once every solve is done.  ``t`` is the time-axis tensor (the device
+    once every solve is done; a solve that fails warns (``RuntimeWarning``)
+    and leaves the scaled template seed.  ``t`` is the time-axis tensor (the device
     of the work); ``device_fids`` the grid's planes already uploaded
     there.
     """
@@ -544,38 +548,49 @@ def template_seeded_x0(
             factor = np.clip(np.abs(fid_arrs[:, 0]) / template_total, 0.1, 100.0)
             x0[:, slots] *= factor[:, None]
 
-    if isinstance(g_scan, str):
-        raise TypeError(
-            "g_scan must be a tuple of candidate mixing fractions or None; "
-            "the 'auto' policy is resolved by fit_amares, not here")
-    g_slots = g_seed_plan(pk) if g_scan else ()
-    amp = ph = None
-    if g_slots or ls_plan:
-        re, im = _seed_planes(fid_arrs, device_fids, t.device)
-        args = (re, im, torch.as_tensor(x_template, dtype=torch.float32,
-                                        device=t.device),
-                t.to(torch.float32), hashable_pmap(pk.pmap), float(mhz))
-    if g_slots:
-        amp, ph, g_best, _ = _linear_seed_scan_g(
-            *args, tuple(float(g) for g in g_scan))
-        g_best = g_best.cpu()
-    elif ls_plan:
-        amp, ph = _linear_seed_solve(*args)
-    # Staged, then written all together.
-    staged: dict[int, np.ndarray] = {}
-    for slot, offset, lo, hi in g_slots:
-        staged[slot] = _nudge_into_bounds_torch(g_best - offset, lo, hi).numpy()
-    if amp is not None:
-        for slot, k, col, offset, lo, hi in ls_plan:
-            if slot in staged:
-                continue
-            vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
-            if col == 3:
-                vals = _wrap_phase_window_torch(vals, lo, hi)
-            staged[slot] = _nudge_into_bounds_torch(vals, lo, hi).cpu().numpy()
-    for slot, vals in staged.items():
-        ok = np.isfinite(vals)
-        x0[ok, slot] = vals[ok]
+    if linear_seed:
+        if isinstance(g_scan, str):
+            raise TypeError(
+                "g_scan must be a tuple of candidate mixing fractions or None; "
+                "the 'auto' policy is resolved by fit_amares, not here")
+        try:
+            g_slots = g_seed_plan(pk) if g_scan else ()
+            amp = ph = None
+            if g_slots or ls_plan:
+                re, im = _seed_planes(fid_arrs, device_fids, t.device)
+                xt = torch.as_tensor(x_template, dtype=torch.float32,
+                                     device=t.device)
+                args = (re, im, xt, t.to(torch.float32),
+                        hashable_pmap(pk.pmap), float(mhz))
+            if g_slots:
+                amp, ph, g_best, _ = _linear_seed_scan_g(
+                    *args, tuple(float(g) for g in g_scan))
+                g_best = g_best.cpu()
+            elif ls_plan:
+                amp, ph = _linear_seed_solve(*args)
+            # Staged, then written all together.
+            staged: dict[int, np.ndarray] = {}
+            for slot, offset, lo, hi in g_slots:
+                staged[slot] = _nudge_into_bounds_torch(
+                    g_best - offset, lo, hi).numpy()
+            if amp is not None:
+                for slot, k, col, offset, lo, hi in ls_plan:
+                    if slot in staged:
+                        continue
+                    vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
+                    if col == 3:
+                        vals = _wrap_phase_window_torch(vals, lo, hi)
+                    staged[slot] = _nudge_into_bounds_torch(
+                        vals, lo, hi).cpu().numpy()
+            for slot, vals in staged.items():
+                ok = np.isfinite(vals)
+                x0[ok, slot] = vals[ok]
+        except Exception as exc:
+            warnings.warn(
+                f"linear seed skipped ({exc!r}); using template seed",
+                RuntimeWarning,
+                stacklevel=2,
+            )
     return x0
 
 

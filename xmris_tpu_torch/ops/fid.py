@@ -1,11 +1,12 @@
 """FID-domain operations: spectrum conversion, apodization, zero-filling.
 
-Port of :mod:`xmris_tpu.ops.fid` (the operations ``autophase(lb > 0)``
-needs), same formulas:
+Port of :mod:`xmris_tpu.ops.fid`, same formulas:
 
 * ``to_spectrum`` = ortho FFT + fftshift;
 * ``to_fid`` = ifftshift + ortho iFFT + time coords ``t = arange(n)/(n*df)``;
 * ``apodize_exp``: weight ``exp(-pi * lb * t)``;
+* ``apodize_lg``: weight ``exp(+pi * lb * t) * exp(-t^2 / T_G^2)`` with
+  ``T_G = 2*sqrt(ln 2)/(pi*gb)``;
 * ``zero_fill``: end/symmetric padding + linear coordinate extrapolation.
 
 Weights are small 1-D vectors computed on the host from the coordinates and
@@ -72,6 +73,29 @@ def apodize_exp(da: XmrArray, dim: str = DIMS.time, lb: float = 1.0) -> XmrArray
     t = da.coords[dim].values.astype(np.float64)
     out = _apply_weight(da, dim, np.exp(-np.pi * lb * t))
     out.attrs[ATTRS.apodization_lb] = lb
+    return out
+
+
+def apodize_lg(
+    da: XmrArray, dim: str = DIMS.time, lb: float = 1.0, gb: float = 1.0
+) -> XmrArray:
+    """Lorentz-to-Gauss filter: ``exp(+pi*lb*t) * exp(-t^2/T_G^2)``.
+
+    Cancels ``lb`` Hz of Lorentzian broadening and imposes a Gaussian
+    lineshape of width ``gb`` Hz (``T_G = 2*sqrt(ln 2)/(pi*gb)``; ``gb ==
+    0`` leaves out the Gaussian factor).
+    """
+    _check_dims(da, dim, "apodize_lg")
+    t = da.coords[dim].values.astype(np.float64)
+    undo_lorentz = np.exp(np.pi * lb * t)
+    if gb != 0:
+        gauss_tc = (2.0 * np.sqrt(np.log(2.0))) / (np.pi * gb)
+        impose_gauss = np.exp(-((t / gauss_tc) ** 2))
+    else:
+        impose_gauss = np.ones_like(t)
+    out = _apply_weight(da, dim, undo_lorentz * impose_gauss)
+    out.attrs[ATTRS.apodization_lb] = lb
+    out.attrs[ATTRS.apodization_gb] = gb
     return out
 
 

@@ -136,6 +136,14 @@ PATHS = {
     # fit_amares(kernel_version=10), fit_amares(kernel_version=8)
     "fit_amares_v10": ("lm_loop_v10", "spd_inverse_diag_dense"),
     "fit_amares_v8": ("eq6_normal_eq_v8",) + _DENSE,
+    # parallel.pipeline.mrsi_pipeline, the single pivot (either search) or
+    # autophase="none"
+    "mrsi_pipeline": ("spectrum",),
+    # mrsi_pipeline, autophase="all" with the grid search and the "auto" or
+    # "fused" polish
+    "mrsi_pipeline_per_voxel": ("spectrum", "acme_polish"),
+    # ops.baseline.baseline_als / als_baseline_batched: plain torch
+    "baseline_als": (),
 }
 
 __all__ = [

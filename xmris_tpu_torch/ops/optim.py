@@ -204,3 +204,15 @@ def differential_evolution(
         polish_iters=polish_iters, device=device, dtype=dtype,
     )
     return DEResult(*(v[0] for v in res))
+
+
+def differential_evolution_jit(
+    fn, bounds, seed=42, popsize=15, maxiter=1000, tol=0.01, polish_iters=0,
+    device=None,
+) -> DEResult:
+    """The reference's jitted convenience wrapper, with its defaults: here
+    the same call as :func:`differential_evolution` (nothing to compile)."""
+    return differential_evolution(
+        fn, bounds, seed=seed, popsize=popsize, maxiter=maxiter, tol=tol,
+        polish_iters=polish_iters, device=device,
+    )

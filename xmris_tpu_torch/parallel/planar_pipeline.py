@@ -6,7 +6,8 @@ per-voxel peak search in ONE kernel launch (K1), then the ACME autophase:
 on the grid's loudest row, applied to every voxel (``autophase="single"``),
 or on every voxel with its own pivot (``autophase="all"``).  The search is
 differential evolution (``ap_optimizer="de"``, the default) or the
-candidate grid, whose per-voxel polish is kernel K5 on the card.
+candidate grid, whose per-voxel polish is kernel K5 on the card
+(``ap_polish="auto"``/``"fused"``) or the torch gd, Newton or BFGS polish.
 """
 
 from __future__ import annotations
@@ -28,22 +29,13 @@ def _apply_phase_planar(re, im, phi):
     return re * c - im * s, re * s + im * c
 
 
-def _check_search(cfg: PipelineConfig):
-    if cfg.ap_optimizer == "grid" and cfg.ap_polish in ("newton", "bfgs"):
-        raise NotImplementedError(
-            f"ap_polish={cfg.ap_polish!r} is not ported (only 'gd' and "
-            "'fused'); see ROADMAP.md queue 1, item 7"
-        )
-
-
 def _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg: PipelineConfig,
                         kernels: KernelSet = DISPATCH):
     """ACME (p0, p1) on one pivot spectrum row: differential evolution
     (``cfg.ap_optimizer == "de"``, seeded from ``cfg.de_seed``) or the
     deterministic grid search.  On the card the gd grid search is replayed
     from a CUDA graph; ``"auto"`` resolves to gd for one row, as in the
-    reference."""
-    _check_search(cfg)
+    reference; ``"newton"``/``"bfgs"`` run eagerly."""
     x_range = freqs[-1] - freqs[0]
     args = (row_re[None, :], row_im[None, :], freqs, x_range, pivot[None])
     if cfg.ap_optimizer == "de":
@@ -93,7 +85,6 @@ def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
     differential evolution per voxel (:func:`_de_phase_search`, in voxel
     chunks) or the batched grid search (:func:`_grid_phase_search`), and a
     per-voxel rotation."""
-    _check_search(cfg)
     x_range = freqs[-1] - freqs[0]
     pivots = freqs[t_idx]
     if cfg.ap_optimizer == "de":
@@ -102,7 +93,7 @@ def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
                               maxiter=cfg.de_maxiter)
     else:
         xs = _grid_phase_search(re, im, freqs, x_range, pivots, cfg.p0_only,
-                                polish_optimizer=cfg.ap_polish,
+                                t_idx=t_idx, polish_optimizer=cfg.ap_polish,
                                 kernels=kernels)
     p0s = xs[:, 0]
     p1s = torch.zeros_like(p0s) if cfg.p0_only else xs[:, 1]

@@ -69,6 +69,7 @@ def process_grid_planar_raw(
     kernel_version: int = 9,
     plateau_streak: int = 3,
     uniform_t_ok: bool = False,
+    engine: str = "pallas",
     spd_pallas: bool = True,
     kernels: KernelSet = DISPATCH,
 ):
@@ -78,8 +79,10 @@ def process_grid_planar_raw(
     (``weight``, ``freqs``) and the fit's prior data (time axis ``t``, the
     template optimum ``x_template``, bound arrays, and the static seeding
     plan of :func:`xmris_tpu_torch.fitting.amares.seed_plan`).  The device
-    is the planes' device.  ``kernels`` selects the kernel wrappers
-    (default) or their plain versions.
+    is the planes' device.  ``engine`` is the fit's
+    (:func:`~xmris_tpu_torch.fitting.amares.seeded_fit_grid_raw`): ``"pallas"``
+    runs the kernel LM, any other value the pure-tensor LM.  ``kernels``
+    selects the kernel wrappers (default) or their plain versions.
 
     Returns ``(spec_re, spec_im, (p0, p1, pivot), x_free, cost, converged,
     crlb_sds)``; the phases are 0-dim for ``cfg.autophase="single"`` and
@@ -93,6 +96,7 @@ def process_grid_planar_raw(
         pmap_static=pmap_static, mhz=mhz, amp_slots=amp_slots,
         ls_plan=ls_plan, max_iter=max_iter, lam0=lam0,
         kernel_version=kernel_version, plateau_streak=plateau_streak,
-        uniform_t_ok=uniform_t_ok, spd_pallas=spd_pallas, kernels=kernels,
+        uniform_t_ok=uniform_t_ok, engine=engine, spd_pallas=spd_pallas,
+        kernels=kernels,
     )
     return spec_re, spec_im, phases, x_free, cost, converged, sds
