@@ -87,6 +87,22 @@ and the script exits non-zero):
    2048 real spectra at lam 1e5, p 0.001, 10 iterations, against the CPU
    scan solver on 64 voxels spread over the grid at 1e-7 max|z|, and on
    float32 input (no NaN);
+   4x. multi-coil k-space to maps: the bench FIDs times 8 seeded unit-RSS
+   coil maps, to centered k-space (coil 8, kx 32, ky 32, kz 16, time 1024;
+   complex64, 1 GiB) staged once as a tensor-payload ``XmrArray``; then
+   ``kspace_to_image -> sense_combine`` with the true maps (the FIDs within
+   1e-5 max|FID|), ``rss_reconstruct`` (|FID| at the same bar),
+   ``estimate_sensitivities`` on time 0 (mean error < 0.05 in the interior),
+   ``mrsi_pipeline`` (grid search) on the recon'd grid with one K1 launch
+   (spectra within 1e-4 max|S| of 4s's turned onto this run's phases, the
+   pivot row's ACME within x1.001 of 4s's), ``.xmr.fit_amares`` on it (K2,
+   K3, K6b; converged >= 0.95, PCr median error <= 0.05, >= 99.5 % of voxels
+   within 2e-3 + 0.1 CRLB of 4c's maps); BASELINE config 3 (8 x 256 x 256,
+   ``tests/test_recon.py``'s phantom): RSS within 1e-5 of a float64 numpy
+   recon, SENSE within 5 %, the adaptive combine within 2 % of RSS in the
+   object; BASELINE config 1 (five simulated voxels) through the accessor
+   Quick Start with its peak at 4.7 ppm; each recon step timed in turns and
+   printed as the ``slice_12`` JSON line with the phase's peak GiB;
 5. timing: median ms per single-pivot grid over synchronized grids, and
    voxels/s; the grid and its fit stage at every version in turns with
    v9; median ms of a per-voxel-autophased grid; median s of one
@@ -355,6 +371,7 @@ def main(argv) -> int:
     import numpy as np
 
     from xmris_tpu_torch import bench_inputs as bi
+    from xmris_tpu_torch import simulate_fid
     from xmris_tpu_torch.core.array import Coord, XmrArray
     from xmris_tpu_torch.fitting.amares import (
         fit_amares,
@@ -399,6 +416,7 @@ def main(argv) -> int:
         acme_score_raw,
         autophase,
         de_chunk_rows,
+        phase_factor_raw,
     )
     from xmris_tpu_torch.parallel.pipeline import (
         PipelineConfig,
@@ -412,6 +430,14 @@ def main(argv) -> int:
         grid_inputs_from_numpy,
         process_grid_planar_raw,
     )
+    from xmris_tpu_torch.recon import (
+        estimate_sensitivities,
+        kspace_to_image,
+        rss_reconstruct,
+        sense_combine,
+        sense_reconstruct,
+    )
+    from xmris_tpu_torch.recon.sense import adaptive_combine_planar_raw
 
     profile_dir = (argv[argv.index("--profile-dir") + 1]
                    if "--profile-dir" in argv else None)
@@ -1855,6 +1881,223 @@ def main(argv) -> int:
     del z, z32, z_scan, rows64
     torch.cuda.empty_cache()
 
+    # ---- 4x. multi-coil k-space to maps: recon -> mrsi_pipeline -> fit ----
+    _phase("4x k-space recon of an 8-coil (coil, kx, ky, kz, time) grid, "
+           "then mrsi_pipeline and .xmr.fit_amares on the card")
+    torch.cuda.reset_peak_memory_stats()
+    grid_t = torch.as_tensor(fids, device=dev).reshape(bi.GRID + (bi.N_TIME,))
+    maps_np = bi.unit_rss_coil_maps(bi.GRID, bi.N_COILS)
+    maps_t = torch.as_tensor(maps_np.astype(np.complex64), device=dev)
+    sp = (1, 2, 3)
+    ksp = torch.fft.fftshift(torch.fft.fftn(torch.fft.ifftshift(
+        maps_t[..., None] * grid_t[None], dim=sp), dim=sp, norm="ortho"), dim=sp)
+    ksp_da = XmrArray(ksp, dims=("coil", "kx", "ky", "kz", "time"),
+                      coords={"time": Coord("time", t_np.astype(np.float64))},
+                      attrs={"MHz": bi.MHZ})
+    _sync()
+    print(f"   k-space {tuple(ksp.shape)} {ksp.dtype}, "
+          f"{ksp.numel() * ksp.element_size() / 2**30:.3f} GiB on the card")
+    fid_scale = float(grid_t.abs().max())
+    # 1. centered iFFT, SENSE combine with the true maps (broadcast over time).
+    img = kspace_to_image(ksp_da)
+    sens_da = XmrArray(maps_t[..., None].expand(img.shape), dims=img.dims)
+    rec = sense_combine(img, sens_da)
+    _sync()
+    if rec.dims != ("x", "y", "z", "time") or not rec.data.is_cuda:
+        raise AssertionError(f"SENSE recon: dims {rec.dims}, off the card")
+    sense_err = _assert_close("SENSE recon vs the bench FIDs re", rec.data.real,
+                              grid_t.real, 0.0, 1e-5 * fid_scale)
+    sense_err = max(sense_err, _assert_close(
+        "SENSE recon vs the bench FIDs im", rec.data.imag, grid_t.imag, 0.0,
+        1e-5 * fid_scale))
+    # 2. RSS of unit-RSS maps times the FIDs is |FID|.
+    rss = rss_reconstruct(ksp_da)
+    rss_err = _assert_close("RSS recon vs |FID|", rss.data, grid_t.abs(), 0.0,
+                            1e-5 * fid_scale)
+    del rss
+    # 3. maps from the first time point, inside the object's interior: the
+    # central ellipsoid at a fifth of each axis (every voxel holds signal).
+    est = estimate_sensitivities(ksp_da.isel(time=0))
+    axes_s, big = bi.scaled_grid(bi.GRID)
+    interior = torch.as_tensor(
+        sum((a - big / 2) ** 2 for a in axes_s) < (big / 5) ** 2, device=dev)
+    map_err = float((est.data - maps_t).abs()[:, interior].mean())
+    print(f"   maps from time 0 (calib_frac 0.25) vs the true maps in the "
+          f"interior ({int(interior.sum())} voxels): mean |err| {map_err:.5f} "
+          f"(limit < 0.05)", flush=True)
+    if not map_err < 0.05:
+        raise AssertionError("estimated sensitivity maps off the true maps")
+    del est
+    # 4. mrsi_pipeline on the recon'd grid, still on the card, against phase
+    # 4s's grid-search call on the phantom's own planes.  The single-pivot
+    # search sits in a flat p0-p1 valley, where data one float32 rounding
+    # away may settle elsewhere: the spectra are held after turning 4s's onto
+    # this run's phases, and the phases by the ACME score they reach.
+    out_r = _mrsi_run(K, mrsi_pipeline, rec, mrsi_cfgs["grid search"],
+                      "mrsi_pipeline", 1)
+    if not out_r.data.is_cuda:
+        raise AssertionError("mrsi_pipeline left the card on a tensor payload")
+    out_4s = mrsi_out["grid search"]
+    ref_s = torch.as_tensor(out_4s.values, device=dev)
+    s_scale = float(ref_s.abs().max())
+    f_4s = torch.as_tensor(out_4s.coords["frequency"].values, device=dev,
+                           dtype=torch.float64)
+
+    def _factor(o):
+        return phase_factor_raw(f_4s, float(o.attrs["phase_p0"]),
+                                float(o.attrs["phase_p1"]),
+                                float(o.attrs["phase_pivot"]),
+                                float(f_4s.max() - f_4s.min()))
+
+    turned = ref_s * (_factor(out_r) / _factor(out_4s)).to(ref_s.dtype)
+    raw_err = float((out_r.data - ref_s).abs().max())
+    print(f"   unturned spectra: max|err| {raw_err:.3e} ({raw_err / s_scale:.3e} "
+          f"of max|S|, reported)")
+    spec_err = max(
+        _assert_close("recon'd mrsi_pipeline spectra vs 4s's turned re",
+                      out_r.data.real, turned.real, 0.0, 1e-4 * s_scale),
+        _assert_close("recon'd mrsi_pipeline spectra vs 4s's turned im",
+                      out_r.data.imag, turned.imag, 0.0, 1e-4 * s_scale))
+    piv_v = np.unravel_index(int(torch.argmax(ref_s.abs())), tuple(ref_s.shape))[:3]
+    acme_r, acme_4s = (float(acme_score_raw(s[piv_v].real.double()[None])[0])
+                       for s in (out_r.data, ref_s))
+    acme_ratio = acme_r / acme_4s
+    print(f"   phases (p0, p1): recon'd ({out_r.attrs['phase_p0']:.5f}, "
+          f"{out_r.attrs['phase_p1']:.5f}), 4s ({out_4s.attrs['phase_p0']:.5f}, "
+          f"{out_4s.attrs['phase_p1']:.5f}); ACME of the pivot "
+          f"row {acme_r:.9e} vs {acme_4s:.9e}, ratio {acme_ratio:.7f} (limit "
+          f"x1.001 both ways)", flush=True)
+    if not 1 / 1.001 <= acme_ratio <= 1.001:
+        raise AssertionError("recon'd mrsi_pipeline: ACME off phase 4s's")
+    del out_r, ref_s, turned
+    # 5. .xmr.fit_amares on the recon'd grid, its planes staged from the card.
+    flat = rec.data.reshape(b, bi.N_TIME)
+    K.reset_counters()
+    t0 = time.perf_counter()
+    ds_r = rec.xmr.fit_amares(pk, device_fids=(flat.real.contiguous(),
+                                               flat.imag.contiguous()))
+    _sync()
+    fit_r_s = time.perf_counter() - t0
+    counts = K.counters()
+    _check_path(K, counts, "fit_amares")
+    fit_r_launches = {n: counts["launches"][n] for n in K.PATHS["fit_amares"]}
+    print(f"   .xmr.fit_amares launches: {fit_r_launches}")
+    conv_r = float(ds_r["fit_converged"].values.mean())
+    pcr_r = float(np.median(np.abs(ds_r["amplitude"].values.reshape(b, -1)[:, 0]
+                                   - bi.pcr_amplitudes()) / bi.pcr_amplitudes()))
+    got_r = np.stack([ds_r[n].values.reshape(b, -1) for n in fams])
+    maps_4c = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    crlb_ratio = (np.abs(got_r - maps_4c) / (2e-3 + 0.1 * sd)).max(axis=(0, 2))
+    crlb_share = float((crlb_ratio <= 1.0).mean())
+    print(f"   .xmr.fit_amares in {fit_r_s:.3f} s: converged {conv_r:.4f} (limit "
+          f">= 0.95), PCr median rel err {pcr_r:.5f} (limit <= 0.05), "
+          f"{crlb_share:.5f} of voxels within 2e-3 + 0.1 CRLB of 4c's maps "
+          f"(limit >= 0.995; max ratio {float(crlb_ratio.max()):.3f})", flush=True)
+    if conv_r < 0.95 or not pcr_r <= 0.05 or crlb_share < 0.995:
+        raise AssertionError(".xmr.fit_amares on the recon'd grid failed")
+    del ds_r, got_r, maps_4c, flat
+    # 6. BASELINE config 3: 8 coils x 256 x 256, tests/test_recon.py's phantom.
+    k3, ph3, sens3 = bi.coil_kspace_phantom((256, 256), bi.N_COILS)
+    img64 = np.fft.fftshift(np.fft.ifftn(np.fft.ifftshift(k3, axes=(1, 2)),
+                                         axes=(1, 2), norm="ortho"), axes=(1, 2))
+    rss64 = torch.as_tensor(np.sqrt(np.sum(np.abs(img64) ** 2, axis=0)), device=dev)
+    k3_da = XmrArray(torch.as_tensor(k3.astype(np.complex64), device=dev),
+                     dims=("coil", "ky", "kx"))
+    rss3 = rss_reconstruct(k3_da)
+    rss3_err = _assert_close("config 3 RSS vs float64 numpy", rss3.data, rss64,
+                             0.0, 1e-5 * float(rss64.max()))
+    mask3 = torch.as_tensor(ph3 > 0.5, device=dev)
+    sense3 = sense_reconstruct(k3_da, calib_frac=0.4)
+    expected3 = torch.as_tensor(ph3 * np.sqrt(np.sum(np.abs(sens3) ** 2, axis=0)),
+                                device=dev)
+    sense3_rel = float(((sense3.data.abs() - expected3).abs()[mask3]
+                        / expected3[mask3].max()).mean())
+    print(f"   config 3 SENSE (calib_frac 0.4): mean |(|x| - truth)| / max "
+          f"{sense3_rel:.5f} in the object (limit < 0.05)", flush=True)
+    if not sense3_rel < 0.05:
+        raise AssertionError("config 3 SENSE recon off the phantom")
+    img3 = kspace_to_image(k3_da).data
+    a_re, a_im = adaptive_combine_planar_raw(img3.real, img3.imag)
+    adapt_rel = float(((torch.sqrt(a_re**2 + a_im**2) - rss64).abs()
+                       / rss64)[mask3].max())
+    print(f"   config 3 adaptive combine: max |mag - RSS| / RSS {adapt_rel:.5f} "
+          f"in the object (limit <= 0.02)", flush=True)
+    if not adapt_rel <= 0.02:
+        raise AssertionError("config 3 adaptive combine off RSS")
+    # 7. BASELINE config 1, the accessor Quick Start on the card.
+    qs_kw = dict(amplitudes=[10.0, 3.0], chemical_shifts=[4.7, 1.3],
+                 reference_frequency=127.6, carrier_ppm=4.7, spectral_width=5000.0,
+                 n_points=1024, dampings=[30.0, 20.0], target_snr=50.0)
+    qs = [simulate_fid(**qs_kw, seed=s) for s in range(5)]
+    qs_da = XmrArray(np.stack([q.values for q in qs]), dims=("voxel", "time"),
+                     coords={"time": qs[0].coords["time"]}, attrs=qs[0].attrs)
+    qs_out = (qs_da.to(dev).xmr.zero_fill(target_points=2048)
+              .xmr.apodize_exp(lb=5.0).xmr.to_spectrum().xmr.autophase()
+              .xmr.to_ppm())
+    ppm = qs_out.coords["chemical_shift"].values
+    peaks = ppm[np.argmax(np.abs(qs_out.values), axis=1)]
+    print(f"   Quick Start (5 voxels, DE autophase on the card): peaks at "
+          f"{peaks.round(4).tolist()} ppm (4.7 within one bin, "
+          f"{abs(ppm[1] - ppm[0]):.4f} ppm); p0 {qs_out.attrs['phase_p0']:.3f}",
+          flush=True)
+    if not qs_out.data.is_cuda or np.abs(peaks - 4.7).max() > abs(ppm[1] - ppm[0]):
+        raise AssertionError("Quick Start: off the card or the peak moved")
+    # Each step in turns: 5 rounds, the order reversed every other round.
+    recon_calls = {
+        "kspace_to_image (8 coils, 1 GiB)": lambda: kspace_to_image(ksp_da),
+        "sense_combine": lambda: sense_combine(img, sens_da),
+        "rss_reconstruct": lambda: rss_reconstruct(ksp_da),
+        "estimate_sensitivities, time 0": lambda: estimate_sensitivities(
+            ksp_da.isel(time=0)),
+        "k-space to spectra (kspace_to_image, sense_combine, mrsi_pipeline)":
+            lambda: mrsi_pipeline(sense_combine(kspace_to_image(ksp_da), sens_da),
+                                  cfg=mrsi_cfgs["grid search"]),
+        "k-space host copy (1 GiB, pageable)": lambda: ksp.cpu(),
+        "config 3 rss_reconstruct": lambda: rss_reconstruct(k3_da),
+        "config 3 sense_reconstruct": lambda: sense_reconstruct(
+            k3_da, calib_frac=0.4),
+        "config 3 adaptive_combine_planar_raw": lambda: adaptive_combine_planar_raw(
+            img3.real, img3.imag),
+    }
+    recon_turns = {k: [] for k in recon_calls}
+    for rnd in range(5):
+        names = list(recon_calls) if rnd % 2 == 0 else list(recon_calls)[::-1]
+        for name in names:
+            _sync()
+            t0 = time.perf_counter()
+            recon_calls[name]()
+            _sync()
+            recon_turns[name].append(1e3 * (time.perf_counter() - t0))
+    recon_ms = {k: float(np.median(v)) for k, v in recon_turns.items()}
+    for name, xs in recon_turns.items():
+        print(f"   in turns, {name}: median {recon_ms[name]:.3f} ms "
+              f"({', '.join(f'{x:.3f}' for x in xs)})")
+    recon_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if profile_dir:
+        _profile(kspace_to_image, (ksp_da,), {},
+                 recon_ms["kspace_to_image (8 coils, 1 GiB)"], profile_dir,
+                 "kspace_to_image, 1 GiB", "profile_kspace.txt")
+        _profile(recon_calls["k-space to spectra (kspace_to_image, "
+                             "sense_combine, mrsi_pipeline)"], (), {},
+                 recon_ms["k-space to spectra (kspace_to_image, sense_combine, "
+                          "mrsi_pipeline)"], profile_dir,
+                 "k-space to spectra", "profile_kspace_to_spectra.txt")
+    print(f"   peak device memory over 4x: {recon_peak_gb:.2f} GiB", flush=True)
+    slice12 = {
+        "ms_in_turns": recon_ms, "peak_gib": recon_peak_gb,
+        "sense_max_err": sense_err, "rss_max_err": rss_err,
+        "fid_max_abs": fid_scale, "map_mean_err": map_err,
+        "pipeline_spectra_max_err": spec_err, "spectra_max_abs": s_scale,
+        "pipeline_unturned_max_err": raw_err,
+        "pipeline_acme_ratio": acme_ratio, "fit_amares_s": fit_r_s,
+        "fit_launches": fit_r_launches,
+        "fit_converged": conv_r, "fit_pcr_err": pcr_r,
+        "fit_share_within_0.1_crlb_of_4c": crlb_share,
+        "config3_rss_max_err": rss3_err, "config3_sense_rel": sense3_rel,
+        "config3_adaptive_rel": adapt_rel, "quickstart_peaks_ppm": peaks.tolist()}
+    del ksp, ksp_da, rec, img, sens_da, img3, k3_da, grid_t, recon_calls
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -2092,6 +2335,7 @@ def main(argv) -> int:
         "ms_in_turns": slice_ms, "roi_s": roi, "scipy_s": scipy_s,
         "asls_first_s": asls_first_s, "asls_peak_gib": peak_gb,
         "asls_cr_vs_scan": err, "asls_limit": lim}}))
+    print(json.dumps({"slice_12": slice12}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1245,3 +1245,130 @@ def test_slice_entry_points_default_to_the_card(dev):
     assert als_baseline_batched(rows, 1e4, 0.01, 2).device.type == "cuda"
     base = baseline_als(out.isel(x=0))
     assert isinstance(base.data, np.ndarray) and np.isfinite(base.values).all()
+
+
+# ---------------------------------------------------------------------------
+# Slice 12: k-space recon, the accessor chain, on the card
+# ---------------------------------------------------------------------------
+
+
+def _mrsi_kspace(grid=GRID, n_coils=4):
+    """The bench FIDs over ``grid`` times unit-RSS coil maps, to centered
+    k-space over (x, y, z): (coil, kx, ky, kz, time) complex64."""
+    fids, _, _ = bi.make_inputs(grid)
+    f = fids.reshape(grid + (bi.N_TIME,)).astype(np.complex128)
+    maps = bi.unit_rss_coil_maps(grid, n_coils)
+    k = bi.centered_fftn(maps[..., None] * f[None], (1, 2, 3))
+    t = np.arange(bi.N_TIME) / bi.SW
+    da = XmrArray(k.astype(np.complex64), dims=("coil", "kx", "ky", "kz", "time"),
+                  coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+    return da, maps, f
+
+
+def test_recon_on_tensor_payloads_stays_on_the_card(dev):
+    """kspace_to_image -> sense_combine with the true maps recovers the FIDs
+    (1e-5 of max|FID|), rss_reconstruct gives |FID|, and the maps estimate
+    from time 0 matches the float64 host estimate, all as tensors on the
+    card."""
+    from xmris_tpu_torch.recon import (
+        estimate_sensitivities,
+        kspace_to_image,
+        rss_reconstruct,
+        sense_combine,
+    )
+
+    da, maps, f = _mrsi_kspace()
+    k = da.to(dev)
+    img = kspace_to_image(k)
+    assert img.dims == ("coil", "x", "y", "z", "time") and img.data.is_cuda
+    m = torch.as_tensor(maps.astype(np.complex64), device=dev)
+    sens = XmrArray(m[..., None].expand(img.shape), dims=img.dims)
+    rec = sense_combine(img, sens)
+    assert rec.data.is_cuda and rec.data.dtype == torch.complex64
+    scale = float(np.abs(f).max())
+    assert float(np.abs(rec.values - f).max()) <= 1e-5 * scale
+    rss = rss_reconstruct(k)
+    assert rss.data.is_cuda and rss.data.dtype == torch.float32
+    assert float(np.abs(rss.values - np.abs(f)).max()) <= 1e-5 * scale
+    k0 = da.isel(time=0)
+    est = estimate_sensitivities(k0.to(dev))
+    assert est.data.is_cuda
+    host = estimate_sensitivities(k0.astype(np.complex128), device="cpu")
+    np.testing.assert_allclose(est.values, host.values, atol=1e-4)
+
+
+def test_staged_recon_defaults_to_the_card(dev):
+    """A numpy payload with no device is staged on the card and comes back
+    as the host array of the reference's dtype, equal to the host's in the
+    object (outside it the low-resolution image is dark, and the unit-RSS
+    division turns float32 rounding into any direction)."""
+    from xmris_tpu_torch.recon import estimate_sensitivities, sense_reconstruct
+
+    k, phantom, _ = bi.coil_kspace_phantom((64, 64), 4)
+    da = XmrArray(k.astype(np.complex64), dims=("coil", "ky", "kx"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.max_memory_allocated(dev)
+    est = estimate_sensitivities(da)
+    assert torch.cuda.max_memory_allocated(dev) > before
+    assert isinstance(est.data, np.ndarray) and est.dtype == np.complex64
+    host = estimate_sensitivities(da, device="cpu")
+    mask = phantom > 0.5
+    np.testing.assert_allclose(est.values[:, mask], host.values[:, mask], atol=1e-5)
+    out = sense_reconstruct(da, calib_frac=0.4)
+    assert isinstance(out.data, np.ndarray) and out.dtype == np.complex64
+
+
+def test_config3_recon_on_the_card(dev):
+    """BASELINE config 3 at 8 x 256 x 256 on the card: RSS within 1e-5 of a
+    float64 numpy recon, SENSE within tests/test_recon.py's 5 % and the
+    adaptive combine within its 2 % of RSS inside the object."""
+    from xmris_tpu_torch.recon import kspace_to_image, rss_reconstruct, sense_reconstruct
+    from xmris_tpu_torch.recon.sense import adaptive_combine_planar_raw
+
+    k, phantom, sens = bi.coil_kspace_phantom((256, 256), 8)
+    da = XmrArray(k.astype(np.complex64), dims=("coil", "ky", "kx")).to(dev)
+    img64 = np.fft.fftshift(np.fft.ifftn(np.fft.ifftshift(k, axes=(1, 2)),
+                                         axes=(1, 2), norm="ortho"), axes=(1, 2))
+    rss64 = np.sqrt(np.sum(np.abs(img64) ** 2, axis=0))
+    rss = rss_reconstruct(da)
+    assert rss.data.is_cuda
+    assert float(np.abs(rss.values - rss64).max()) <= 1e-5 * float(rss64.max())
+    out = sense_reconstruct(da, calib_frac=0.4)
+    assert out.data.is_cuda
+    mask = phantom > 0.5
+    expected = phantom * np.sqrt(np.sum(np.abs(sens) ** 2, axis=0))
+    rel = np.abs(np.abs(out.values) - expected)[mask] / expected[mask].max()
+    assert rel.mean() < 0.05
+    img = kspace_to_image(da).data
+    o_re, o_im = adaptive_combine_planar_raw(img.real, img.imag)
+    assert o_re.is_cuda
+    mag = torch.sqrt(o_re**2 + o_im**2).cpu().numpy()
+    np.testing.assert_allclose(mag[mask], rss64[mask], rtol=0.02)
+
+
+def test_accessor_chain_runs_on_the_card(dev, tmp_path):
+    """The Quick Start on a tensor payload with the default device: the
+    result stays on the card with its peak at the simulated 4.7 ppm; and
+    ``.xmr.fit_amares`` on the labeled bench grid launches its kernels."""
+    import xmris_tpu_torch as xt
+
+    fid = xt.simulate_fid(amplitudes=[10.0, 3.0], chemical_shifts=[4.7, 1.3],
+                          reference_frequency=127.6, carrier_ppm=4.7,
+                          spectral_width=5000.0, n_points=1024,
+                          dampings=[30.0, 20.0], target_snr=50.0, seed=0)
+    out = (fid.to(dev).xmr.zero_fill(target_points=2048).xmr.apodize_exp(lb=5.0)
+           .xmr.to_spectrum().xmr.autophase().xmr.to_ppm())
+    assert out.data.is_cuda
+    ppm = out.coords["chemical_shift"].values
+    assert abs(ppm[int(np.argmax(np.abs(out.values)))] - 4.7) <= abs(ppm[1] - ppm[0])
+    path = tmp_path / "pk.csv"
+    path.write_text(bi.PK_CSV)
+    _, da = _labeled_bench()
+    da = da.assign_attrs(MHz=bi.MHZ).to(dev)
+    K.reset_counters()
+    ds = da.xmr.fit_amares(path)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    for name in K.PATHS["fit_amares"]:
+        assert counts["launches"][name] > 0, name
+    assert float(ds["fit_converged"].values.mean()) >= 0.95

@@ -64,10 +64,16 @@ def test_import_pulls_in_neither_jax_nor_triton():
     "xmris_tpu_torch.ops.kernels.acme_cuda", "xmris_tpu_torch.fitting.amares",
     "xmris_tpu_torch.ops.kernels.lm_jac_cuda",
     "xmris_tpu_torch.ops.kernels.lm_loop_cuda", "xmris_tpu_torch.fitting.lm",
+    "xmris_tpu_torch", "xmris_tpu_torch.core.accessor",
+    "xmris_tpu_torch.ops.utils", "xmris_tpu_torch.interop.io",
+    "xmris_tpu_torch.interop.xarray", "xmris_tpu_torch.fitting.simulation",
+    "xmris_tpu_torch.models.lineshapes", "xmris_tpu_torch.recon.kspace",
+    "xmris_tpu_torch.recon.sense", "xmris_tpu_torch.vendor.bruker",
+    "xmris_tpu_torch.processing", "xmris_tpu_torch.config",
 ])
 def test_new_module_import_pulls_in_neither_jax_nor_triton(module):
-    """Each module of the per-voxel autophase and fit_amares paths, alone in
-    a fresh interpreter."""
+    """Each module of the port's entry points, alone in a fresh
+    interpreter."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -74,3 +74,66 @@ def make_inputs(grid=GRID, g=0.0):
         np.float32
     )
     return fids.astype(np.complex64), weight, freqs
+
+
+# ---------------------------------------------------------------------------
+# Multi-coil phantoms of the recon path (``tests/test_recon.py``'s, in N-D)
+# ---------------------------------------------------------------------------
+
+N_COILS = 8
+
+
+def scaled_grid(shape):
+    """Index coordinates of ``shape`` scaled to the longest axis L, so that
+    every axis spans [0, L) (for equal sizes, the plain indices)."""
+    big = max(shape)
+    return [g * (big / n) for g, n in zip(np.mgrid[tuple(slice(0, n) for n in shape)],
+                                           shape)], big
+
+
+def coil_sensitivities(shape, n_coils=N_COILS):
+    """``n_coils`` smooth complex coil maps over ``shape`` (coil first):
+    Gaussian blobs of width 0.8 L at uniformly drawn centres with a uniform
+    random phase, drawn from seed 5 as ``tests/test_recon.py:120-127`` draws
+    them (for a square 2-D ``shape`` the same maps)."""
+    rng = np.random.default_rng(5)
+    axes, big = scaled_grid(shape)
+    coils = []
+    for _ in range(n_coils):
+        centre = rng.uniform(0, big, len(shape))  # the last axis first
+        d2 = sum((axes[a] - centre[len(shape) - 1 - a]) ** 2
+                 for a in reversed(range(len(shape))))
+        sens = np.exp(-(d2 / (2 * (big * 0.8) ** 2)))
+        coils.append(sens * np.exp(1j * rng.uniform(0, 2 * np.pi)))
+    return np.stack(coils)
+
+
+def unit_rss_coil_maps(shape=GRID, n_coils=N_COILS):
+    """:func:`coil_sensitivities` normalized to a unit root-sum-of-squares."""
+    sens = coil_sensitivities(shape, n_coils)
+    return sens / np.sqrt(np.sum(np.abs(sens) ** 2, axis=0, keepdims=True))
+
+
+def centered_fftn(img, axes):
+    """``fftshift(fftn(ifftshift(img), ortho))`` over ``axes`` (numpy)."""
+    return np.fft.fftshift(
+        np.fft.fftn(np.fft.ifftshift(img, axes=axes), axes=axes, norm="ortho"),
+        axes=axes)
+
+
+def coil_kspace_phantom(shape, n_coils=N_COILS):
+    """``tests/test_recon.py::make_kspace_with_sens`` (seed 5, no noise) over
+    ``shape``: an ellipsoid of 1 (semi-axes a quarter of each size) plus a
+    0.3 block, times :func:`coil_sensitivities`, to centered k-space.
+    Returns ``(kspace (coil, *shape) complex128, phantom, sens)``."""
+    axes, big = scaled_grid(shape)
+    r2 = sum((axes[a] - big / 2) ** 2 for a in reversed(range(len(shape))))
+    phantom = (r2 < (big / 4) ** 2).astype(float)
+    half = [5] + [3] * (len(shape) - 1)  # tests/test_recon.py: |y| < 5, |x| < 3
+    block = np.ones(shape, bool)
+    for a in range(len(shape)):
+        block &= np.abs(axes[a] - big / 4) < half[a]
+    phantom = phantom + 0.3 * block
+    sens = coil_sensitivities(shape, n_coils)
+    spatial = tuple(range(1, len(shape) + 1))
+    return centered_fftn(sens * phantom[None], spatial), phantom, sens

@@ -5,10 +5,11 @@ device) or a host ``numpy`` array; ``dims`` / ``coords`` / ``attrs`` are
 host-side Python metadata.  Every operation is functional: methods return
 new objects and never mutate the original.
 
-Differences from the reference carrier: ``.tensor`` and :meth:`XmrArray.to`
-take the place of ``.jax`` and ``device_put``; ``.values`` is always a host
-numpy copy; the ``.xmr`` accessor, the xarray interop and the notebook
-rendering are not ported.
+Differences from the reference carrier: ``.tensor`` takes the place of
+``.jax``, :meth:`XmrArray.to` moves the payload to any device and
+:meth:`XmrArray.device_put` to the card; ``.values`` is always a host numpy
+copy.  The ``.xmr`` accessor and the xarray interop import lazily, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -608,6 +609,67 @@ class XmrArray:
             return self._rebuild(self.data.to(device))
         return self._rebuild(torch.as_tensor(self.data, device=device))
 
+    @property
+    def xmr(self):
+        """The fluent accessor namespace (``da.xmr`` in the reference)."""
+        from xmris_tpu_torch.core.accessor import XmrisAccessor
+
+        return XmrisAccessor(self)
+
+    def to_xarray(self):
+        """Convert to an ``xarray.DataArray`` (requires xarray installed)."""
+        from xmris_tpu_torch.interop.xarray import to_xarray
+
+        return to_xarray(self)
+
+    @classmethod
+    def from_xarray(cls, da) -> "XmrArray":
+        from xmris_tpu_torch.interop.xarray import from_xarray
+
+        return from_xarray(da)
+
+    def block_until_ready(self) -> "XmrArray":
+        """Wait for the work queued on the payload's CUDA device."""
+        if _is_tensor(self.data) and self.data.is_cuda:
+            torch.cuda.synchronize(self.data.device)
+        return self
+
+    def device_put(self, sharding=None) -> "XmrArray":
+        """Move the payload to the card (a tensor on the current CUDA
+        device); raises where there is none."""
+        if sharding is not None:
+            raise NotImplementedError(
+                "device_put(sharding=...) over several devices is not ported "
+                "yet; see ROADMAP.md queue 1, item 11")
+        return self.to("cuda")
+
+    def _repr_html_(self) -> str:
+        """Rich notebook rendering: dims, backend, coords, and attrs tables."""
+        dims_s = ", ".join(f"<b>{d}</b>: {s}" for d, s in self.sizes.items())
+        kind = "torch" if _is_tensor(self.data) else "numpy"
+        coord_rows = "".join(
+            f"<tr><td style='padding:2px 8px'><code>{k}</code></td>"
+            f"<td style='padding:2px 8px'>({c.dim})</td>"
+            f"<td style='padding:2px 8px'>{c.values.dtype}</td>"
+            f"<td style='padding:2px 8px'><code>{_summ(c.values)}</code></td>"
+            f"<td style='padding:2px 8px'>{c.attrs.get('units', '')}</td></tr>"
+            for k, c in self.coords.items()
+        )
+        attr_rows = "".join(
+            f"<tr><td style='padding:2px 8px'><code>{k}</code></td>"
+            f"<td style='padding:2px 8px'><code>{str(v)[:80]}</code></td></tr>"
+            for k, v in list(self.attrs.items())[:16]
+        )
+        return (
+            "<div style='font-family:monospace;font-size:12px;'>"
+            f"<div><b>xmris_tpu_torch.XmrArray</b> {self.name or ''} ({dims_s}) "
+            f"&mdash; {kind}, {self.dtype}</div>"
+            f"<details open><summary>Coordinates ({len(self.coords)})</summary>"
+            f"<table>{coord_rows}</table></details>"
+            f"<details><summary>Attributes ({len(self.attrs)})</summary>"
+            f"<table>{attr_rows}</table></details></div>"
+        )
+
     def __repr__(self) -> str:
         dims_s = ", ".join(f"{d}: {s}" for d, s in self.sizes.items())
         coord_s = "\n".join(
@@ -710,6 +772,12 @@ class XmrDataset:
             applicable = {d: v for d, v in indexers.items() if d in var.dims}
             out[name] = var.sel(applicable) if applicable else var
         return XmrDataset(out, dict(self.attrs))
+
+    @property
+    def xmr(self):
+        from xmris_tpu_torch.core.accessor import XmrisDatasetAccessor
+
+        return XmrisDatasetAccessor(self)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         vars_s = "\n".join(

@@ -62,3 +62,15 @@ def complex_planes(data, device):
     if not z.is_complex():
         return z.contiguous(), torch.zeros_like(z)
     return z.real.contiguous(), z.imag.contiguous()
+
+
+def card_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where there is no
+    card raises (entry points run on the card unless the caller passes
+    ``device="cpu"``, and never fall back to the host)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on the card: no CUDA device is available (pass "
+            "device='cpu' to run on the host)")
+    return dev

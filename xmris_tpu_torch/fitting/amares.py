@@ -28,7 +28,7 @@ import torch
 
 from xmris_tpu_torch import __version__ as _version
 from xmris_tpu_torch.core.array import Coord, XmrArray, XmrDataset
-from xmris_tpu_torch.core.utils import complex_planes
+from xmris_tpu_torch.core.utils import card_device, complex_planes
 from xmris_tpu_torch.fitting.lm import (
     _lm_fit_batched_pallas_impl,
     auto_varpro,
@@ -699,11 +699,7 @@ def fit_amares(
             "see ROADMAP.md queue 1, item 11")
     if dim not in da.dims:
         raise ValueError(f"Dimension '{dim}' missing in DataArray.")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "fit_amares runs on the card: no CUDA device is available (pass "
-            "device='cpu' to fit on the host)")
+    dev = card_device(device, "fit_amares")
 
     # Opt-in stage split (XMT_FIT_STAGE_TIMERS): host-clock seconds per
     # stage; on the card each mark waits for the stage's device work.

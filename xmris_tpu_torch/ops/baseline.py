@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from xmris_tpu_torch.core.array import XmrArray
 from xmris_tpu_torch.core.config import ATTRS, DIMS
-from xmris_tpu_torch.core.utils import _check_dims
+from xmris_tpu_torch.core.utils import _check_dims, card_device
 
 
 def _dtd_bands(n: int, dtype, device=None):
@@ -343,10 +343,7 @@ def als_baseline_batched(rows, lam: float, p: float, n_iter: int,
             f"solver must be 'scan', 'cr', or 'auto', got {solver!r}.")
     if device is None:
         device = rows.device if isinstance(rows, torch.Tensor) else "cuda"
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "AsLS runs on the card: no CUDA device is available (pass "
-            "device='cpu' to run on the host)")
+    card_device(device, "AsLS")
     if not isinstance(rows, torch.Tensor):
         rows = torch.as_tensor(np.asarray(rows))
     rows = rows.to(device)

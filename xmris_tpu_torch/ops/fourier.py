@@ -19,11 +19,21 @@ from xmris_tpu_torch.core.config import COORDS, DIMS, XmrTerm
 from xmris_tpu_torch.core.utils import _check_dims, as_coord
 
 
+def fftn_ortho(data: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
+    """Ortho-normalized N-D FFT of a tensor over ``axes``, on its device."""
+    return torch.fft.fftn(data, dim=tuple(axes), norm="ortho")
+
+
+def ifftn_ortho(data: torch.Tensor, axes: tuple[int, ...]) -> torch.Tensor:
+    """Ortho-normalized N-D inverse FFT of a tensor over ``axes``, on its
+    device."""
+    return torch.fft.ifftn(data, dim=tuple(axes), norm="ortho")
+
+
 def _transform_values(data, axes: tuple[int, ...], inverse: bool):
     """Ortho FFT over ``axes`` on the payload's own namespace."""
     if isinstance(data, torch.Tensor):
-        fn = torch.fft.ifftn if inverse else torch.fft.fftn
-        return fn(data, dim=axes, norm="ortho")
+        return (ifftn_ortho if inverse else fftn_ortho)(data, axes)
     fn = np.fft.ifftn if inverse else np.fft.fftn
     return fn(data, axes=axes, norm="ortho")
 

@@ -144,6 +144,8 @@ PATHS = {
     "mrsi_pipeline_per_voxel": ("spectrum", "acme_polish"),
     # ops.baseline.baseline_als / als_baseline_batched: plain torch
     "baseline_als": (),
+    # recon.kspace / recon.sense: torch.fft and plain torch sums
+    "recon": (),
 }
 
 __all__ = [

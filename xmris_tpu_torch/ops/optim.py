@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from xmris_tpu_torch.core.utils import card_device
+
 
 class DEResult(NamedTuple):
     x: torch.Tensor  # best parameters, (n_params,) or (V, n_params)
@@ -75,10 +77,7 @@ def differential_evolution_batched(
     """
     if device is None:
         device = bounds.device if isinstance(bounds, torch.Tensor) else "cuda"
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "differential evolution runs on the card: no CUDA device is "
-            "available (pass device='cpu' to search on the host)")
+    card_device(device, "differential evolution")
     bounds = _as_bounds(bounds, device, dtype)
     dev, dt = bounds.device, bounds.dtype
     gen = _generator(seed, dev)
