@@ -103,6 +103,18 @@ and the script exits non-zero):
    object; BASELINE config 1 (five simulated voxels) through the accessor
    Quick Start with its peak at 4.7 ppm; each recon step timed in turns and
    printed as the ``slice_12`` JSON line with the phase's peak GiB;
+   4y. the voxel mesh on one card: ``process_grid_sharded`` over
+   ``Mesh([cuda:0])`` and ``Mesh([cuda:0] * 4)`` (single pivot and per
+   voxel) against the one-device program (spectra and phases bit for bit;
+   K1, K4 and K5 once a shard; K2 and K3 the sums of each shard's fit run
+   alone); ``lm_fit_batched_pallas_sharded`` at v8 and v10 over 4 shards
+   against the single launch; ``fit_amares`` over 4 shards held to 4c's
+   maps; ``serve_main --once`` serially and with ``--pipeline`` on 3 bench
+   grids (the same records and ledger, the exit code their convergence
+   implies, maps held to 4c's); ``fit_main`` on one grid and
+   ``recon_main`` RSS and SENSE on config 3 against 4x's; one grid under
+   ``runtime.profiling.trace``, whose trace names K1 and K2; printed as the
+   ``slice_13`` JSON line;
 5. timing: median ms per single-pivot grid over synchronized grids, and
    voxels/s; the grid and its fit stage at every version in turns with
    v9; median ms of a per-voxel-autophased grid; median s of one
@@ -123,11 +135,16 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 
 # The g scan's candidates (fit_amares's g_scan="auto" ladder).
@@ -438,6 +455,12 @@ def main(argv) -> int:
         sense_reconstruct,
     )
     from xmris_tpu_torch.recon.sense import adaptive_combine_planar_raw
+    from xmris_tpu_torch.interop.io import load_dataset_npz, load_npz, save_npz
+    from xmris_tpu_torch.parallel.fit import lm_fit_batched_pallas_sharded
+    from xmris_tpu_torch.parallel.mesh import Mesh
+    from xmris_tpu_torch.parallel.process import process_grid_sharded
+    from xmris_tpu_torch.runtime import cli
+    from xmris_tpu_torch.runtime.profiling import Timings, stage_timer, trace
 
     profile_dir = (argv[argv.index("--profile-dir") + 1]
                    if "--profile-dir" in argv else None)
@@ -2098,6 +2121,331 @@ def main(argv) -> int:
     del ksp, ksp_da, rec, img, sens_da, img3, k3_da, grid_t, recon_calls
     torch.cuda.empty_cache()
 
+    # ---- 4y. the voxel mesh on one card, the CLIs and the profiler ----
+    _phase("4y the voxel mesh (cuda:0 repeated), the fit/recon/serve CLIs "
+           "and the profiler")
+    slice13 = {"not_bit_equal": {}}
+    mesh1, mesh4 = Mesh([dev]), Mesh([dev] * 4)
+
+    def _grid_dict(out):
+        sr_, si_, ph_, x_, cost_, conv_, sds_ = out
+        return {"spec_re": sr_, "spec_im": si_, "p0": ph_[0], "p1": ph_[1],
+                "pivot": ph_[2], "x_free": x_, "cost": cost_,
+                "converged": conv_, "crlb": sds_}
+
+    def _diff_names(got, ref):
+        return [k for k in ref if not (
+            _same_bits(got[k], ref[k]) if got[k].is_floating_point()
+            else torch.equal(got[k], ref[k]))]
+
+    def _shard_sums(call, tensors, n_sh, names):
+        """Each shard's launches of ``names``, ``call(*its slices)`` run
+        alone on its voxels (``tensors`` split as ``shard_voxels`` splits
+        them), summed over the shards: what the sharded call must launch
+        when every shard's LM loop exits on its own voxels."""
+        tot = dict.fromkeys(names, 0)
+        for parts in zip(*(x.chunk(n_sh) for x in tensors)):
+            K.reset_counters()
+            call(*parts)
+            _sync()
+            lc_s = K.counters()["launches"]
+            for n in names:
+                tot[n] += lc_s[n]
+        return tot
+
+    # (a) process_grid_sharded at 1 and 4 shards against the one-device
+    # program: K1 works voxel by voxel and the phase is solved once on the
+    # same row, so spectra and phases are bit for bit; the fit's outputs
+    # are bit for bit where the seed's matrix products round alike at the
+    # shard's batch, else held at phase 4's kernel-vs-plain bars.  K2 runs
+    # once per LM iteration of each shard and once at its start, K3 once
+    # per iteration: the sharded call's counts must be the sums of each
+    # shard's fit run alone.
+    lm_names = ("eq6_normal_eq_v9", "spd_solve_damped")
+    fit_alone = {n_sh: _shard_sums(
+        lambda re_s, im_s: seeded_fit_grid_raw(
+            re_s, im_s, t_d, xt_d, lower, upper, kind,
+            **{k: v for k, v in fit_kw.items() if k != "cfg"}),
+        (re, im), n_sh, lm_names) for n_sh in (1, 4)}
+    print(f"   the seeded fit's LM launches, each shard alone, summed: "
+          f"{fit_alone}", flush=True)
+    for tag, kw, path in (("single", fit_kw, "grid_single_pivot"),
+                          ("all", fit_kw_all, "grid_per_voxel")):
+        ref_g = _grid_dict(process_grid_planar_raw(*args, **kw))
+        _sync()
+        per_shard = ("spectrum", "spd_inverse_diag") + (
+            ("acme_polish",) if tag == "all" else ())
+        for n_sh, mesh in ((1, mesh1), (4, mesh4)):
+            K.reset_counters()
+            got_g = _grid_dict(process_grid_sharded(*args, mesh=mesh, **kw))
+            _sync()
+            counts = K.counters()
+            _check_path(K, counts, path)
+            lc = counts["launches"]
+            for name in per_shard:
+                if lc[name] != n_sh:
+                    raise AssertionError(f"sharded {tag}: {name} launched "
+                                         f"{lc[name]} times, not {n_sh}")
+            for name in lm_names:
+                if lc[name] != fit_alone[n_sh][name]:
+                    raise AssertionError(
+                        f"sharded {tag}: {name} launched {lc[name]} times on "
+                        f"{n_sh} shards, not the shards' "
+                        f"{fit_alone[n_sh][name]}")
+            diff = _diff_names(got_g, ref_g)
+            print(f"   sharded grid, autophase={tag}, {n_sh} shard(s): launches "
+                  f"{ {n: lc[n] for n in K.PATHS[path]} }; not bit for bit: "
+                  f"{diff or 'none'}", flush=True)
+            if set(diff) & {"spec_re", "spec_im", "p0", "p1", "pivot"}:
+                raise AssertionError(f"sharded {tag}: spectra or phases differ")
+            if diff:
+                slice13["not_bit_equal"][f"grid_{tag}_{n_sh}"] = diff
+                _within_crlb(f"sharded {tag} x_free", got_g["x_free"],
+                             ref_g["x_free"], ref_g["crlb"])
+                _share_within(f"sharded {tag} cost", got_g["cost"][:, None],
+                              ref_g["cost"][:, None], 1e-5, 0.0, 0.99)
+                _share_within(f"sharded {tag} CRLB", got_g["crlb"],
+                              ref_g["crlb"], 2e-2, 1e-4, 0.99)
+            if float(got_g["converged"].float().mean()) < 0.95:
+                raise AssertionError(f"sharded {tag}: converged share < 0.95")
+        del ref_g, got_g
+    grid_calls = {
+        "unsharded": lambda: process_grid_planar_raw(*args, **fit_kw),
+        "1 shard": lambda: process_grid_sharded(*args, mesh=mesh1, **fit_kw),
+        "4 shards": lambda: process_grid_sharded(*args, mesh=mesh4, **fit_kw),
+    }
+    grid_turns = {k: [] for k in grid_calls}
+    for rnd in range(6):
+        for name in (list(grid_calls) if rnd % 2 == 0 else list(grid_calls)[::-1]):
+            _sync()
+            t0 = time.perf_counter()
+            grid_calls[name]()
+            _sync()
+            grid_turns[name].append(1e3 * (time.perf_counter() - t0))
+    slice13["grid_ms_in_turns"] = {k: float(np.median(v))
+                                   for k, v in grid_turns.items()}
+    for name, xs in grid_turns.items():
+        print(f"   in turns, single-pivot grid {name}: median "
+              f"{slice13['grid_ms_in_turns'][name]:.3f} ms "
+              f"({', '.join(f'{x:.1f}' for x in xs)})", flush=True)
+
+    # (b) the sharded LM at kernel_version 8 (K9 + K6a) and 10 (K8) on the
+    # bench seeds, against the single launch.
+    lm_args = (re, im, t_d, u0, lower, upper, kind, ps, bi.MHZ)
+    for v, path_kernels in ((8, ("eq6_normal_eq_v8", "spd_solve_damped_dense")),
+                            (10, ("lm_loop_v10",))):
+        one_r, one_h = lm_fit_batched_pallas(
+            *lm_args, max_iter=24, kernel_version=v, require_uniform_t=True,
+            return_hessian=True)
+        K.reset_counters()
+        sh_r, sh_h = lm_fit_batched_pallas_sharded(
+            *lm_args, mesh=mesh4, max_iter=24, kernel_version=v,
+            return_hessian=True)
+        _sync()
+        counts = K.counters()
+        lc = counts["launches"]
+        if any(counts["plain_calls"].values()) or any(
+                lc[n] for n in lc if n not in path_kernels):
+            raise AssertionError(f"sharded v{v}: another kernel or a plain "
+                                 f"version ran: {counts}")
+        alone = _shard_sums(
+            lambda re_s, im_s, u_s: lm_fit_batched_pallas(
+                re_s, im_s, t_d, u_s, lower, upper, kind, ps, bi.MHZ,
+                max_iter=24, kernel_version=v, require_uniform_t=True,
+                return_hessian=True),
+            (re, im, u0), 4, path_kernels)
+        if any(lc[n] != alone[n] for n in path_kernels) or (
+                v == 10 and lc["lm_loop_v10"] != 4):
+            raise AssertionError(f"sharded v{v}: launches {lc}, not the "
+                                 f"shards' {alone}")
+        got_l = {"x_free": sh_r.x_free, "cost": sh_r.cost, "n_iter": sh_r.n_iter,
+                 "converged": sh_r.converged, "hessian": sh_h}
+        ref_l = {"x_free": one_r.x_free, "cost": one_r.cost,
+                 "n_iter": one_r.n_iter, "converged": one_r.converged,
+                 "hessian": one_h}
+        diff = _diff_names(got_l, ref_l)
+        print(f"   sharded LM v{v}, 4 shards: launches "
+              f"{ {n: lc[n] for n in path_kernels} }; not bit for bit: "
+              f"{diff or 'none'}", flush=True)
+        if diff:
+            slice13["not_bit_equal"][f"lm_v{v}_4"] = diff
+            _share_within(f"sharded LM v{v} x_free", sh_r.x_free, one_r.x_free,
+                          1e-4, 1e-4, 0.99)
+            _share_within(f"sharded LM v{v} cost", sh_r.cost[:, None],
+                          one_r.cost[:, None], 1e-5, 0.0, 0.99)
+        slice13[f"lm_v{v}_launches"] = {n: lc[n] for n in path_kernels}
+        del one_r, one_h, sh_r, sh_h, got_l, ref_l
+
+    maps_4c = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+
+    def _held_to_4c(name, ds_got):
+        """The maps of ``ds_got`` against 4c's: bit for bit, or every voxel
+        within 2e-3 + 0.1 CRLB; converged >= 0.95, PCr error <= 0.05."""
+        got = np.stack([ds_got[n].values.reshape(b, -1) for n in fams])
+        same = (np.array_equal(got, maps_4c)
+                and np.array_equal(ds_got["crlb"].values, ds["crlb"].values)
+                and np.array_equal(ds_got["fit_converged"].values,
+                                   ds["fit_converged"].values))
+        ratio = float((np.abs(got - maps_4c) / (2e-3 + 0.1 * sd)).max())
+        conv = float(ds_got["fit_converged"].values.mean())
+        pcr = float(np.median(np.abs(got[0][:, 0] - bi.pcr_amplitudes())
+                              / bi.pcr_amplitudes()))
+        print(f"   {name}: maps bit for bit 4c's: {same}; max |d| / (2e-3 + 0.1 "
+              f"CRLB) {ratio:.3f} (limit 1); converged {conv:.4f} (limit >= "
+              f"0.95); PCr median rel err {pcr:.5f} (limit <= 0.05)", flush=True)
+        if not (same or ratio <= 1.0) or conv < 0.95 or not pcr <= 0.05:
+            raise AssertionError(f"{name}: maps off phase 4c's")
+        if not same:
+            slice13["not_bit_equal"][name] = "maps"
+        return same
+
+    # (c) fit_amares over 4 shards of one card (K2 + K3 per shard, K6b once
+    # on the gathered Hessian).
+    K.reset_counters()
+    ds_m = fit_amares(da, pk, mesh=mesh4, return_curves=False)
+    _sync()
+    counts = K.counters()
+    _check_path(K, counts, "fit_amares")
+    lc = counts["launches"]
+    if lc["spd_inverse_diag_dense"] != 1 or lc["eq6_normal_eq_v9"] < 8:
+        raise AssertionError(f"fit_amares(mesh=4 shards): launches {lc}")
+    slice13["fit_amares_mesh4_launches"] = {n: lc[n] for n in K.PATHS["fit_amares"]}
+    print(f"   fit_amares(mesh=4 shards) launches "
+          f"{slice13['fit_amares_mesh4_launches']}")
+    slice13["fit_amares_mesh4_bit_equal"] = _held_to_4c("fit_amares(mesh=4 shards)",
+                                                        ds_m)
+    del ds_m
+    fit_turns = {"unsharded": [], "4 shards": []}
+    for rnd in range(3):
+        for name in (("unsharded", "4 shards") if rnd % 2 == 0
+                     else ("4 shards", "unsharded")):
+            _sync()
+            t0 = time.perf_counter()
+            fit_amares(da, pk, return_curves=False,
+                       mesh=mesh4 if name == "4 shards" else None)
+            _sync()
+            fit_turns[name].append(time.perf_counter() - t0)
+    slice13["fit_amares_s_in_turns"] = {k: float(np.median(v))
+                                        for k, v in fit_turns.items()}
+    print(f"   in turns, fit_amares(return_curves=False) s: "
+          f"{ {k: [round(x, 3) for x in v] for k, v in fit_turns.items()} }",
+          flush=True)
+
+    # (d) the server: 3 bench grids (128 MiB each) in a temporary directory,
+    # drained once serially and once with --pipeline.
+    tmp = Path(tempfile.mkdtemp(prefix="xmt_smoke_"))
+    try:
+        watch = tmp / "in"
+        watch.mkdir()
+        pk_path = tmp / "pk.csv"
+        pk_path.write_text(bi.PK_CSV)
+        for i in range(3):
+            save_npz(da, watch / f"grid{i}.npz")
+        serve = {}
+        for mode, extra in (("serial", []), ("pipeline", ["--pipeline"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.serve_main([str(watch), str(pk_path), "-o",
+                                     str(tmp / f"out_{mode}"), "--once",
+                                     "--state-file", str(tmp / f"{mode}.state")]
+                                    + extra)
+            total = time.perf_counter() - t0
+            records = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                       if ln.startswith("{")]
+            walls = [r.get("wall_s") for r in records]
+            print(f"   serve --once {mode}: exit {rc}, {len(records)} records, "
+                  f"wall_s per grid {walls}, drained in {total:.3f} s", flush=True)
+            if len(records) != 3 or any(r["status"] != "ok"
+                                        or r["converged_frac"] < 0.95
+                                        for r in records):
+                raise AssertionError(f"serve {mode}: records {records}")
+            all_conv = True
+            for r in records:
+                ds_r = load_dataset_npz(tmp / f"out_{mode}" / r["output"])
+                all_conv &= bool(ds_r["fit_converged"].values.all())
+                _held_to_4c(f"serve {mode} {r['file']}", ds_r)
+            # --once exits 2 where a grid left an unconverged voxel.
+            if rc != (0 if all_conv else 2):
+                raise AssertionError(f"serve {mode}: exit {rc} with every "
+                                     f"voxel converged: {all_conv}")
+            serve[mode] = {"rc": rc, "wall_s": walls, "drain_s": total,
+                           "records": [{k: v for k, v in r.items()
+                                        if k != "wall_s"} for r in records],
+                           "ledger": (tmp / f"{mode}.state").read_text().split()}
+        if any(serve["serial"][k] != serve["pipeline"][k]
+               for k in ("rc", "records", "ledger")):
+            raise AssertionError("serve: --pipeline differs from serial")
+        slice13["serve"] = {m: {k: serve[m][k] for k in ("rc", "wall_s", "drain_s")}
+                            for m in serve}
+
+        # (e) the other two CLIs: fit_main on one grid, recon_main on
+        # BASELINE config 3 against phase 4x's API results.
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.fit_main([str(watch / "grid0.npz"), str(pk_path), "-o",
+                               str(tmp / "fit.npz")])
+        summary = json.loads([ln for ln in buf.getvalue().splitlines()
+                              if ln.startswith("{")][-1])
+        ds_fit = load_dataset_npz(tmp / "fit.npz")
+        want_rc = 0 if ds_fit["fit_converged"].values.all() else 2
+        print(f"   fit_main: exit {rc} (expected {want_rc}), {summary}",
+              flush=True)
+        if rc != want_rc:
+            raise AssertionError(f"fit_main: exit {rc}, not {want_rc}")
+        _held_to_4c("fit_main", ds_fit)
+        del ds_fit
+        slice13["fit_main"] = {"rc": rc, "fit_s": summary["fit_s"],
+                               "load_s": summary["load_s"]}
+        save_npz(XmrArray(k3.astype(np.complex64), dims=("coil", "ky", "kx")),
+                 tmp / "k3.npz")
+        slice13["recon_main"] = {}
+        for combine, extra, want in (("rss", [], rss3), ("sense",
+                                     ["--calib-frac", "0.4"], sense3)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.recon_main([str(tmp / "k3.npz"), "-o",
+                                     str(tmp / f"{combine}.npz"), "--combine",
+                                     combine] + extra)
+            got = load_npz(tmp / f"{combine}.npz")
+            ref = want.data.cpu().numpy()
+            same = got.dims == want.dims and np.array_equal(got.values, ref)
+            err = float(np.abs(got.values - ref).max())
+            print(f"   recon_main --combine {combine}: exit {rc}, dims "
+                  f"{got.dims}, bit for bit 4x's {combine}: {same} (max|err| "
+                  f"{err:.3e}, limit 1e-6 of max {float(np.abs(ref).max()):.3e})",
+                  flush=True)
+            if rc != 0 or got.dims != want.dims or not err <= 1e-6 * float(
+                    np.abs(ref).max()):
+                raise AssertionError(f"recon_main {combine} off phase 4x's")
+            slice13["recon_main"][combine] = {"bit_equal": same, "max_err": err}
+
+        # (f) the profiler: one grid's two stages under
+        # runtime.profiling.trace, each timed by stage_timer.
+        timings = Timings()
+        with trace(tmp / "trace") as trace_dir:
+            with stage_timer(timings, "spectral stage", re):
+                spectral_pipeline_planar_raw(re, im, w_d, f_d, cfg)
+            with stage_timer(timings, "seeded fit + CRLB", re):
+                seeded_fit_grid_raw(re, im, t_d, xt_d, lower, upper, kind,
+                                    **{k: v for k, v in fit_kw.items()
+                                       if k != "cfg"})
+        files = sorted(trace_dir.glob("trace_*.json"))
+        text = files[-1].read_text() if files else ""
+        names = {"K1": "spectrum_fft_kernel", "K2": "normal_eq_warp_kernel",
+                 "K3/K4": "spd_"}
+        found = {k: n in text for k, n in names.items()}
+        print(f"   trace {files[-1].name if files else None}: "
+              f"{len(text) / 2**20:.1f} MiB, kernels named {found}", flush=True)
+        if not files or not all(found.values()):
+            raise AssertionError("the trace does not name the path's kernels")
+        print(timings.report(), flush=True)
+        slice13["profile_stages_ms"] = {k: 1e3 * v
+                                        for k, v in timings.stages.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -2336,6 +2684,7 @@ def main(argv) -> int:
         "asls_first_s": asls_first_s, "asls_peak_gib": peak_gb,
         "asls_cr_vs_scan": err, "asls_limit": lim}}))
     print(json.dumps({"slice_12": slice12}))
+    print(json.dumps({"slice_13": slice13}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ from xmris_tpu_torch.fitting import simulation as tsim
 from xmris_tpu_torch.models import lineshapes as tls
 from xmris_tpu_torch.ops import fourier as tfourier
 from xmris_tpu_torch.ops import phasing as tph
+from xmris_tpu_torch.parallel.mesh import make_mesh, replicated, voxel_sharding
 
 from _phantom31p import MHZ as ORACLE_MHZ
 from _phantom31p import PRIOR as ORACLE_PRIOR
@@ -262,8 +263,13 @@ def test_carrier_device_and_notebook_helpers():
     assert da.block_until_ready() is da
     t = da.to("cpu")
     assert t.block_until_ready() is t
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Sharding"):
         da.device_put(sharding=object())
+    mesh = make_mesh(2, device="cpu")
+    for sharding in (replicated(mesh), voxel_sharding(mesh, 1)):
+        placed = da.device_put(sharding)
+        assert isinstance(placed.data, torch.Tensor)
+        assert placed.data.device == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             da.device_put()

@@ -4,8 +4,9 @@ AST-parses ``xmris_tpu``'s sources (the reference of the port) and holds
 ``xmris_tpu_torch`` to them:
 
 1. every name in the ``__all__`` of the reference's top level, ``ops``,
-   ``recon``, ``core``, ``fitting``, ``models``, ``vendor`` and
-   ``processing`` exists at the same place in the port, and each function
+   ``recon``, ``core``, ``fitting``, ``models``, ``vendor``,
+   ``processing``, ``parallel``, ``runtime`` and ``utils`` exists at the
+   same place in the port, and each function
    keeps every reference parameter name (the port may add its own, such
    as ``device``);
 2. the port's top-level ``__all__`` is the reference's without the names
@@ -39,7 +40,7 @@ PENDING = {
 CARRIER_RENAMED = {"jax": "tensor"}
 
 PACKAGES = ["", "ops", "recon", "core", "fitting", "models", "vendor",
-            "processing"]
+            "processing", "parallel", "runtime", "utils"]
 
 
 def _init_path(sub):

@@ -1372,3 +1372,153 @@ def test_accessor_chain_runs_on_the_card(dev, tmp_path):
     for name in K.PATHS["fit_amares"]:
         assert counts["launches"][name] > 0, name
     assert float(ds["fit_converged"].values.mean()) >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# The voxel mesh on one card (cuda:0 named twice) and the serve CLI
+# ---------------------------------------------------------------------------
+
+
+def _mesh_grid_case(dev):
+    from xmris_tpu_torch.fitting.amares import template_optimum
+
+    fids, weight, freqs = bi.make_inputs(GRID)
+    pk = prior_from_csv_text(bi.PK_CSV)
+    t = (np.arange(bi.N_TIME) / bi.SW).astype(np.float32)
+    x_t = template_optimum(fids, pk, torch.as_tensor(t, device=dev), bi.MHZ)
+    args = grid_inputs_from_numpy(fids, weight, freqs, t, x_t, pk, dev)
+    amp_slots, ls_plan = seed_plan(pk)
+    kw = dict(pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    return pk, args, kw
+
+
+def _assert_same_bits(got, ref):
+    for a, b in zip(got, ref):
+        if isinstance(a, tuple):
+            _assert_same_bits(a, b)
+        else:
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("autophase", ["single", "all"])
+def test_sharded_grid_equals_the_one_device_program(dev, autophase):
+    """``process_grid_sharded`` over ``Mesh([cuda:0] * 2)``: every output
+    bit for bit the one-device program's (at 32 voxels a shard the seed's
+    matrix products round as at 64); K1 and K4 (K5 per voxel) launch once
+    per shard, and no plain version runs."""
+    from xmris_tpu_torch.parallel.mesh import Mesh
+    from xmris_tpu_torch.parallel.process import process_grid_sharded
+
+    _, args, kw = _mesh_grid_case(dev)
+    cfg = (PipelineConfig(zero_fill_to=bi.ZERO_FILL, ap_optimizer="grid",
+                          spec_layout="stacked") if autophase == "single" else
+           PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="all",
+                          ap_optimizer="grid"))
+    one = process_grid_planar_raw(*args, cfg=cfg, **kw)
+    K.reset_counters()
+    sh = process_grid_sharded(*args, mesh=Mesh([dev] * 2), cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    assert not any(counts["plain_calls"].values())
+    launches = counts["launches"]
+    assert launches["spectrum"] == 2 and launches["spd_inverse_diag"] == 2
+    assert launches["acme_polish"] == (2 if autophase == "all" else 0)
+    assert launches["eq6_normal_eq_v9"] >= 2
+    _assert_same_bits(sh, one)
+
+
+@pytest.mark.parametrize("version", [9, 8, 10])
+def test_sharded_lm_equals_the_single_launch(dev, version):
+    """``lm_fit_batched_pallas_sharded`` over ``Mesh([cuda:0] * 2)`` from
+    the grid seeds: x, cost, trips, flags and the Hessian bit for bit the
+    single launch's (the kernels work voxel by voxel)."""
+    from xmris_tpu_torch.parallel import lm_fit_batched_pallas_sharded
+    from xmris_tpu_torch.parallel.mesh import Mesh
+
+    pk, args, kw = _mesh_grid_case(dev)
+    re, im, _, _, t, x_t, lower, upper, kind = args
+    u0 = seed_grid(re, im, t, x_t, lower, upper, kind, pmap_static=kw["pmap_static"],
+                   mhz=bi.MHZ, amp_slots=kw["amp_slots"], ls_plan=kw["ls_plan"])
+    lm_args = (re, im, t, u0, lower, upper, kind, kw["pmap_static"], bi.MHZ)
+    one = lm_fit_batched_pallas(*lm_args, max_iter=24, kernel_version=version,
+                                return_hessian=True)
+    K.reset_counters()
+    sh = lm_fit_batched_pallas_sharded(*lm_args, mesh=Mesh([dev] * 2), max_iter=24,
+                                       kernel_version=version, return_hessian=True)
+    torch.cuda.synchronize()
+    assert not any(K.counters()["plain_calls"].values())
+    if version == 10:
+        assert K.counters()["launches"]["lm_loop_v10"] == 2
+    _assert_same_bits(sh, one)
+
+
+def test_fit_amares_mesh_equals_one_device(dev):
+    """``fit_amares(mesh=Mesh([cuda:0] * 2))`` on 64 voxels: the maps bit
+    for bit the one-device fit's, one K6b launch on the gathered Hessian."""
+    from xmris_tpu_torch.parallel.mesh import Mesh
+
+    fids, _, _ = bi.make_inputs(GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    da = XmrArray(fids.reshape(GRID + (bi.N_TIME,)), dims=("x", "y", "z", "time"),
+                  coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+    pk = prior_from_csv_text(bi.PK_CSV)
+    one = fit_amares(da, pk, return_curves=False)
+    K.reset_counters()
+    sh = fit_amares(da, pk, return_curves=False, mesh=Mesh([dev] * 2))
+    assert K.counters()["launches"]["spd_inverse_diag_dense"] == 1
+    for name in ("amplitude", "chem_shift", "linewidth", "phase", "crlb", "snr",
+                 "fit_converged"):
+        np.testing.assert_array_equal(sh[name].values, one[name].values, err_msg=name)
+
+
+def test_a_failing_shard_fails_the_call_on_the_card(dev):
+    """Shards on cuda:0 run in turn under it; a shard that raises fails
+    the call."""
+    from xmris_tpu_torch.parallel.mesh import Mesh, map_shards
+
+    def fn(x):
+        assert torch.cuda.current_device() == x.device.index
+        if float(x[0]) == 4.0:
+            raise RuntimeError("shard 2 failed")
+        return x * 2
+
+    x = torch.arange(8.0, device=dev)
+    with pytest.raises(RuntimeError, match="shard 2"):
+        map_shards(fn, Mesh([dev] * 4), (x,))
+    assert torch.equal(map_shards(fn, Mesh([dev] * 4), (x + 1,)), (x + 1) * 2)
+
+
+def test_serve_once_on_the_card(dev, tmp_path, capsys):
+    """``serve --once`` with the default device on two small grids, serial
+    and ``--pipeline`` (planes staged on the card one grid ahead): the same
+    records, each grid's maps bit for bit ``fit_amares``'s on the card."""
+    import json
+
+    from xmris_tpu_torch.interop.io import load_dataset_npz, save_npz
+    from xmris_tpu_torch.runtime.cli import serve_main
+
+    _, da = _labeled_bench()
+    da = da.assign_attrs(MHz=bi.MHZ)
+    pk_path = tmp_path / "pk.csv"
+    pk_path.write_text(bi.PK_CSV)
+    watch = tmp_path / "in"
+    watch.mkdir()
+    for i in range(2):
+        save_npz(da, watch / f"g{i}.npz")
+    want = fit_amares(da, prior_from_csv_text(bi.PK_CSV), return_curves=False)
+    capsys.readouterr()
+    runs = {}
+    for mode, extra in (("serial", []), ("pipeline", ["--pipeline"])):
+        rc = serve_main([str(watch), str(pk_path), "-o", str(tmp_path / mode),
+                         "--once"] + extra)
+        records = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                   if ln.startswith("{")]
+        assert [r["status"] for r in records] == ["ok", "ok"]
+        for r in records:
+            got = load_dataset_npz(tmp_path / mode / r["output"])
+            for name in ("amplitude", "crlb", "fit_converged"):
+                np.testing.assert_array_equal(got[name].values, want[name].values)
+            r.pop("wall_s")
+        runs[mode] = (rc, records)
+    assert runs["serial"] == runs["pipeline"]

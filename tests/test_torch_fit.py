@@ -268,12 +268,14 @@ def test_lm_trip_count(tmp_path):
 
 
 def test_unported_fit_options_raise():
-    """What the fit API still lacks raises and names its ROADMAP item: a
-    mesh or device count (item 11).  The free-g prior that raised here
-    runs now (``test_free_g_grid_fit_runs_on_each_kernel_path``)."""
+    """Nothing of the fit API is left unported: the free-g prior that
+    raised here runs (``test_free_g_grid_fit_runs_on_each_kernel_path``),
+    and so does a mesh or device count (``test_torch_parallel.py``).  A
+    mesh of a kind the reference refuses raises its ``ValueError`` before
+    any work (the prior file is never read)."""
     da = XmrArray(np.zeros((2, 8), np.complex64), dims=("x", "time"))
-    for mesh in (2, (0, 1)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for mesh in ((0, 1), 2.0):
+        with pytest.raises(ValueError, match="expected a Mesh"):
             tam.fit_amares(da, "unused.csv", device="cpu", mesh=mesh)
 
 

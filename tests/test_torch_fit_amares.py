@@ -242,8 +242,8 @@ def test_fit_amares_mesh_auto_is_no_mesh_on_one_device(bench_fits):
 def test_fit_amares_unported_options_raise(bench_fits, tmp_path):
     _, path = bench_fits
     _, da = _grid_arrays()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit_amares(da, path, device="cpu", mesh=2)
+    with pytest.raises(ValueError, match="expected a Mesh"):
+        fit_amares(da, path, device="cpu", mesh=2.0)
     with pytest.raises(ValueError, match="mhz"):
         fit_amares(XmrArray(da.data, dims=da.dims, coords=da.coords), path,
                    device="cpu")

@@ -28,6 +28,7 @@ from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.ops import fid as tfid
 from xmris_tpu_torch.ops.phasing import autophase
 from xmris_tpu_torch.parallel import PipelineConfig, mrsi_pipeline
+from xmris_tpu_torch.parallel.mesh import make_mesh as port_make_mesh
 from xmris_tpu_torch.parallel.pipeline import spectral_constants
 from xmris_tpu_torch.parallel.planar_pipeline import spectral_pipeline_planar_raw
 
@@ -193,10 +194,12 @@ def test_tensor_payload_axis_order_and_dims():
 def test_mesh_and_engine_arguments():
     da = _port(make_grid(nx=1, ny=2))
     cfg = PipelineConfig(zero_fill_to=256, autophase="none")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="1-D Mesh"):
         mrsi_pipeline(da, cfg=cfg, mesh=object(), device="cpu")
     outs = [mrsi_pipeline(da, cfg=cfg, engine=e, device="cpu").values
             for e in ("auto", "planar", "complex")]
+    outs.append(mrsi_pipeline(da, cfg=cfg, mesh=port_make_mesh(2, device="cpu"),
+                              device="cpu").values)
     for o in outs[1:]:
         np.testing.assert_array_equal(o, outs[0])
     with pytest.raises(ValueError, match="engine"):

@@ -10,12 +10,15 @@ The ported surface is the reference's labeled layer and everything under
 it: the ``.xmr`` accessor chain on :class:`XmrArray`, the op functions,
 ``simulate_fid``, ``fit_amares``, the fused per-grid program
 (:func:`xmris_tpu_torch.parallel.process.process_grid_planar_raw`) and
-``mrsi_pipeline``, k-space recon (:mod:`xmris_tpu_torch.recon`), Bruker
-ingest and the file formats.  Entry points that search or fit run on the
-card unless the caller passes ``device="cpu"``; transforms run where the
-payload lies.  Not ported yet: device meshes (ROADMAP.md queue 1, item 11),
-the CLIs and the rest of the runtime layer (item 12), and the visualization
-(item 13), whose names raise ``NotImplementedError``.
+``mrsi_pipeline``, each also over a voxel mesh
+(:mod:`xmris_tpu_torch.parallel`), k-space recon
+(:mod:`xmris_tpu_torch.recon`), Bruker ingest, the file formats, and the
+runtime layer (:mod:`xmris_tpu_torch.runtime`: precision defaults,
+profiling, the ``xmris-tpu-torch-fit`` / ``-recon`` / ``-serve`` console
+scripts).  Entry points that search or fit run on the card unless the
+caller passes ``device="cpu"``; transforms run where the payload lies.  Not
+ported yet: the visualization (ROADMAP.md queue 1, item 13), whose names
+raise ``NotImplementedError``.
 """
 
 # --- Submodules -------------------------------------------------------------

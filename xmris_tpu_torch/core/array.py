@@ -636,12 +636,23 @@ class XmrArray:
 
     def device_put(self, sharding=None) -> "XmrArray":
         """Move the payload to the card (a tensor on the current CUDA
-        device); raises where there is none."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "device_put(sharding=...) over several devices is not ported "
-                "yet; see ROADMAP.md queue 1, item 11")
-        return self.to("cuda")
+        device); raises where there is none.
+
+        A tensor lies on one device, so with a ``sharding``
+        (:func:`~xmris_tpu_torch.parallel.mesh.voxel_sharding` or
+        :func:`~xmris_tpu_torch.parallel.mesh.replicated`) the payload goes
+        to its mesh's first device: the sharded entry points (``mesh=``)
+        split their inputs per shard from there and gather their results
+        there.  Any other ``sharding`` raises ``TypeError``."""
+        if sharding is None:
+            return self.to("cuda")
+        from xmris_tpu_torch.parallel.mesh import Sharding
+
+        if not isinstance(sharding, Sharding):
+            raise TypeError(
+                f"device_put: expected a Sharding (voxel_sharding or "
+                f"replicated of a Mesh), got {type(sharding).__name__}")
+        return self.to(sharding.mesh.devices.flat[0])
 
     def _repr_html_(self) -> str:
         """Rich notebook rendering: dims, backend, coords, and attrs tables."""

@@ -30,6 +30,7 @@ from xmris_tpu_torch import __version__ as _version
 from xmris_tpu_torch.core.array import Coord, XmrArray, XmrDataset
 from xmris_tpu_torch.core.utils import card_device, complex_planes
 from xmris_tpu_torch.fitting.lm import (
+    LMResult,
     _lm_fit_batched_pallas_impl,
     auto_varpro,
     check_kernel_version,
@@ -609,6 +610,36 @@ def _reconstruct_batch(x_free, t, pk: PriorKnowledge, mhz: float):
     return m_re.cpu().numpy() + 1j * m_im.cpu().numpy()
 
 
+def _resolve_mesh(mesh, dev: torch.device):
+    """The reference's normalization of ``fit_amares(mesh=)`` to a 1-D
+    :class:`~xmris_tpu_torch.parallel.mesh.Mesh` or None: ``"auto"`` is
+    every CUDA device when there are several and the fit runs on the card
+    (else no mesh), an int is :func:`make_mesh` of that many devices of
+    ``dev``'s kind; a bad string, any other object and a mesh of more than
+    one axis raise ``ValueError``."""
+    from xmris_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(
+                f"mesh={mesh!r}: expected a Mesh, a device count, 'auto', "
+                "or None.")
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh = n if n > 1 else None
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        mesh = make_mesh(mesh, device=dev.type)
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise ValueError(
+            f"mesh={mesh!r}: expected a Mesh, a device count, 'auto', or None.")
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"mesh has axes {mesh.axis_names}; fit_amares shards the voxel "
+            "batch over a 1-D mesh: pass make_mesh(n) or a single-axis Mesh.")
+    return mesh
+
+
 def fit_amares(
     da: XmrArray,
     prior_knowledge_file: str | Path | PriorKnowledge,
@@ -680,26 +711,28 @@ def fit_amares(
     ``pack``); on the card each mark synchronizes first, so that a stage's
     time is its own.
 
-    ``mesh="auto"`` on the CPU or on one CUDA device is no mesh, as in
-    the reference; another string raises ``ValueError``.  Not ported
-    (``NotImplementedError``): a mesh or device count, and ``"auto"`` on
-    several CUDA devices (ROADMAP.md queue 1, item 11).
+    ``mesh`` splits the voxel axis of each chunk over a 1-D
+    :class:`~xmris_tpu_torch.parallel.mesh.Mesh` (a device count, a mesh,
+    or ``"auto"``: every CUDA device when there are several, else none;
+    :func:`_resolve_mesh`): the chunk is edge-padded to a multiple of the
+    mesh size, each shard fitted on its device (a host thread per device)
+    (:func:`~xmris_tpu_torch.parallel.fit.lm_fit_batched_pallas_sharded`:
+    K2 + K3 per shard; the tensor engine's LM likewise), the results
+    gathered on the mesh's first device and trimmed, and the CRLBs taken
+    there from the gathered (B, F, F) Hessian (K6b).  Staged
+    ``device_fids`` split onto the shards the same way.
     """
-    # The reference's mesh resolution: "auto" is no mesh on one device.
-    if isinstance(mesh, str):
-        if mesh != "auto":
-            raise ValueError(
-                f"mesh={mesh!r}: expected a mesh, a device count, 'auto', "
-                "or None.")
-        if torch.device(device).type == "cpu" or torch.cuda.device_count() <= 1:
-            mesh = None
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_amares(mesh=...) over several devices is not ported yet; "
-            "see ROADMAP.md queue 1, item 11")
     if dim not in da.dims:
         raise ValueError(f"Dimension '{dim}' missing in DataArray.")
     dev = card_device(device, "fit_amares")
+    mesh = _resolve_mesh(mesh, dev)
+    if mesh is not None:
+        from xmris_tpu_torch.parallel.fit import lm_fit_batched_pallas_sharded
+        from xmris_tpu_torch.parallel.mesh import (
+            edge_pad_rows,
+            map_shards,
+            pad_to_multiple,
+        )
 
     # Opt-in stage split (XMT_FIT_STAGE_TIMERS): host-clock seconds per
     # stage; on the card each mark waits for the stage's device work.
@@ -787,17 +820,38 @@ def fit_amares(
         chunk_size = n_spectra if engine == "pallas" else 4096
 
     def run_lm(re_c, im_c, u_init):
-        """(LMResult, dense external Hessian or None)."""
+        """(LMResult, dense external Hessian or None).  With a mesh the
+        chunk is edge-padded to a multiple of its size, fitted sharded and
+        trimmed: the pad voxels are copies whose results are dropped."""
+        b = re_c.shape[0]
+        if mesh is not None:
+            n_pad = pad_to_multiple(b, mesh.size)
+            re_c, im_c, u_init = (edge_pad_rows(a, n_pad)
+                                  for a in (re_c, im_c, u_init))
         if engine == "pallas":
+            if mesh is not None:
+                res, h = lm_fit_batched_pallas_sharded(
+                    re_c, im_c, t, u_init, lower, upper, kind, pmap_static,
+                    mhz, mesh=mesh, axis_name=mesh.axis_names[0],
+                    max_iter=max_iter, kernel_version=kernel_version,
+                    return_hessian=True, kernels=kernels)
+                return LMResult(*(f[:b] for f in res)), h[:b]
             return lm_fit_batched_pallas(
                 re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,
                 max_iter=max_iter, kernel_version=kernel_version,
                 return_hessian=True, kernels=kernels,
             )
-        return lm_fit_batched_planar(
-            re_c, im_c, t, u_init, lower, upper, kind, pmap_static, mhz,
-            max_iter=max_iter,
-        ), None
+
+        def planar(re_s, im_s, u_s, t, lower, upper, kind):
+            return lm_fit_batched_planar(
+                re_s, im_s, t, u_s, lower, upper, kind, pmap_static, mhz,
+                max_iter=max_iter)
+
+        if mesh is None:
+            return planar(re_c, im_c, u_init, t, lower, upper, kind), None
+        res = map_shards(planar, mesh, (re_c, im_c, u_init),
+                         (t, lower, upper, kind), mesh.axis_names[0])
+        return LMResult(*(f[:b] for f in res)), None
 
     t_before = time.perf_counter()
     x_parts, conv_parts, h_parts, cost_parts = [], [], [], []
@@ -811,7 +865,7 @@ def fit_amares(
             # damping schedule; keep the better solution per voxel.
             u_refined = torch.as_tensor(
                 external_to_internal(x.cpu().numpy(), pk.lower, pk.upper,
-                                     pk.kind), device=dev)
+                                     pk.kind), device=x.device)
             res2, h2 = run_lm(re_c, im_c, u_refined)
             better = res2.cost < res.cost
             x = torch.where(better[:, None], res2.x_free, x)

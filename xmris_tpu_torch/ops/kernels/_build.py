@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import types
 from pathlib import Path
@@ -71,6 +72,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_LOCK = threading.Lock()
 build_seconds: float | None = None
 
 
@@ -98,10 +100,16 @@ def _target(src: Path) -> Path:
 
 def library() -> types.SimpleNamespace:
     """The C entries of every kernel library, building them first if needed
-    (one nvcc per source, all in parallel)."""
-    global _lib, build_seconds
+    (one nvcc per source, all in parallel).  One thread builds and loads
+    while the others wait (the shards of a mesh launch from threads)."""
     if _lib is not None:
         return _lib
+    with _LOCK:
+        return _lib if _lib is not None else _build_and_load()
+
+
+def _build_and_load() -> types.SimpleNamespace:
+    global _lib, build_seconds
     sources = sorted(_CSRC.glob("*.cu"))
     todo = [(src, _target(src)) for src in sources if not _target(src).exists()]
     if todo:
@@ -110,7 +118,7 @@ def library() -> types.SimpleNamespace:
         t0 = time.perf_counter()
         procs = []
         for src, out in todo:
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [
                 nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

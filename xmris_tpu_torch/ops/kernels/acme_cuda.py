@@ -110,7 +110,7 @@ def acme_polish_plain(rows_re, rows_im, coords, pivots, p_init, x_range, *,
     """Plain K5: ``(p (B, 2), score (B,))`` after ``n_iter`` polish steps
     from ``p_init`` (B, 2) degrees; with ``with_grad`` also the gradient at
     ``p_init`` (B, 2).  ``pivots`` are per-voxel pivot coordinate values."""
-    _counters.PLAIN_CALLS["acme_polish"] += 1
+    _counters.plain_called("acme_polish")
     _check(rows_re, rows_im, coords, pivots, p_init)
     span0, span1 = float(span[0]), float(span[1])
     u = _div(coords[None, :] - pivots[:, None], float(x_range))
@@ -196,5 +196,5 @@ def acme_polish(rows_re, rows_im, coords, pivots, p_init, x_range, *,
         float(span[1]), _build.stream_ptr(rows_re.device),
     )
     _build.check("xmt_acme_polish", err)
-    _counters.LAUNCHES["acme_polish"] += 1
+    _counters.launched("acme_polish")
     return (p_out, f_out, g_out) if with_grad else (p_out, f_out)

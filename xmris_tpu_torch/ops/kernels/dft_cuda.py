@@ -178,7 +178,7 @@ def spectrum_plain(xr, xi, n_out: int, window=None, with_maxmag=False,
     ``stacked_out`` — plus, with ``with_maxmag``, each voxel's max |X|^2
     (B,) float32 and its first flat index (B,) int32.
     """
-    _counters.PLAIN_CALLS["spectrum"] += 1
+    _counters.plain_called("spectrum")
     n_in = _check_inputs(xr, xi, n_out, window, stacked_out)
     if window is not None:
         xr = xr * window
@@ -223,7 +223,7 @@ def spectrum_dense(xr, xi, n_out: int, window=None, with_maxmag=False,
         xi = xi * window
     (matrix,) = _tables_on(xr.device, "dense", n_in, n_out)
     out = torch.matmul(torch.cat([xr, xi], dim=1).double(), matrix).float()
-    _counters.LAUNCHES["spectrum_dense"] += 1
+    _counters.launched("spectrum_dense")
     out_re = out[:, :n_out].contiguous()
     out_im = out[:, n_out:].contiguous()
     shaped = _shape_outputs(out_re, out_im, n_in, n_out, stacked_out)
@@ -282,6 +282,6 @@ def spectrum(xr, xi, n_out: int, window=None, with_maxmag=False,
             *outs, b, n_in, n_out, n2, int(bool(with_maxmag)), stream,
         )
         _build.check("xmt_spectrum", err)
-    _counters.LAUNCHES["spectrum"] += 1
+    _counters.launched("spectrum")
     shaped = _shape_outputs(out_re, out_im, n_in, n_out, stacked_out)
     return shaped + (mv, mi) if with_maxmag else shaped

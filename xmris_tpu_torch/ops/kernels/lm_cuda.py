@@ -190,7 +190,7 @@ def eq6_normal_equations_plain(params, y_re, y_im, t, dxdu, plan,
     ignored: every voxel is evaluated in full (the kernel leaves masked and
     gated voxels' outputs unspecified).
     """
-    _counters.PLAIN_CALLS["eq6_normal_eq_v9"] += 1
+    _counters.plain_called("eq6_normal_eq_v9")
     return normal_equations_plain_impl(params, y_re, y_im, t, dxdu, plan,
                                        voxel_mask)
 
@@ -428,7 +428,7 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None,
         int(plan.factored), plan.w_cs_unit, _build.stream_ptr(y_re.device),
     )
     _build.check("xmt_eq6_normal_eq_v9", err)
-    _counters.LAUNCHES["eq6_normal_eq_v9"] += 1
+    _counters.launched("eq6_normal_eq_v9")
     return cost, g, h
 
 
@@ -472,7 +472,7 @@ def eq6_normal_equations_v8_plain(params, y_re, y_im, t, n_peaks, mhz, active,
     """Plain K9: the three-moment form, through K2's plain evaluation with
     the identity fold (its coefficients times exactly 1.0); every voxel is
     evaluated.  Returns ``(cost (B,), g (B, A), h (B, A, A))``."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v8"] += 1
+    _counters.plain_called("eq6_normal_eq_v8")
     active = tuple(active)
     _check_v8(params, active, validate)
     plan = _v8_plan(int(n_peaks), float(mhz), active)
@@ -519,5 +519,5 @@ def eq6_normal_equations_v8(params, y_re, y_im, t, n_peaks, mhz, active,
         b, n_t, plan.n_peaks, a, plan.w_cs_unit, _build.stream_ptr(y_re.device),
     )
     _build.check("xmt_eq6_normal_eq_v8", err)
-    _counters.LAUNCHES["eq6_normal_eq_v8"] += 1
+    _counters.launched("eq6_normal_eq_v8")
     return cost, g, h

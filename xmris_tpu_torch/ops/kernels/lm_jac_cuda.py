@@ -221,28 +221,28 @@ def _all_rows(n_peaks):
 
 def eq6_normal_equations_v3_plain(params, y_re, y_im, t, n_peaks, mhz):
     """Plain K7: every physical row (P = 5K)."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v3"] += 1
+    _counters.plain_called("eq6_normal_eq_v3")
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 _all_rows(n_peaks))
 
 
 def eq6_normal_equations_v2_plain(params, y_re, y_im, t, n_peaks, mhz):
     """Plain K13: K7's function (every physical row)."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v2"] += 1
+    _counters.plain_called("eq6_normal_eq_v2")
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 _all_rows(n_peaks))
 
 
 def eq6_normal_equations_v1_plain(params, y_re, y_im, t, n_peaks, mhz):
     """Plain K14: K7's function (every physical row)."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v1"] += 1
+    _counters.plain_called("eq6_normal_eq_v1")
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 _all_rows(n_peaks))
 
 
 def eq6_normal_equations_v5_plain(params, y_re, y_im, t, n_peaks, mhz, active):
     """Plain K12: the ``active`` physical rows only."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v5"] += 1
+    _counters.plain_called("eq6_normal_eq_v5")
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 tuple(active))
 
@@ -250,7 +250,7 @@ def eq6_normal_equations_v5_plain(params, y_re, y_im, t, n_peaks, mhz, active):
 def eq6_normal_equations_v6_plain(params, y_re, y_im, t, n_peaks, mhz, active,
                                   voxel_mask=None):
     """Plain K11: K12's function; every voxel is evaluated."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v6"] += 1
+    _counters.plain_called("eq6_normal_eq_v6")
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 tuple(active), voxel_mask=voxel_mask)
 
@@ -259,7 +259,7 @@ def eq6_normal_equations_v7_plain(params, y_re, y_im, t, n_peaks, mhz, active,
                                   env_fast, voxel_mask=None, validate=True):
     """Plain K10: K11's rows on the block-factored basis; every voxel is
     evaluated."""
-    _counters.PLAIN_CALLS["eq6_normal_eq_v7"] += 1
+    _counters.plain_called("eq6_normal_eq_v7")
     _check_v7(t, y_re.shape[-1], validate)
     return _normal_eq_jac_plain(params, y_re, y_im, t, n_peaks, mhz,
                                 tuple(active), tuple(env_fast), voxel_mask)
@@ -299,7 +299,7 @@ def _launch(params, y_re, y_im, t, n_peaks, mhz, rows, counter,
         int(factored), 2.0 * math.pi * mhz, _build.stream_ptr(dev),
     )
     _build.check("xmt_eq6_normal_eq_jac", err)
-    _counters.LAUNCHES[counter] += 1
+    _counters.launched(counter)
     return cost, g, h
 
 

@@ -61,7 +61,7 @@ def lm_loop_v10_plain(u0, y_re, y_im, t, lower, upper, kind, plan,
                       plateau_streak=3, with_trips=False):
     """Plain K8: the kernel's trips over the whole batch, voxels that are
     done frozen (same contract as :func:`lm_loop_v10`)."""
-    _counters.PLAIN_CALLS["lm_loop_v10"] += 1
+    _counters.plain_called("lm_loop_v10")
     b, _ = _check_inputs(u0, y_re, y_im, t, lower, upper, kind, plan,
                          pmap_static)
     f = plan.n_free
@@ -167,6 +167,6 @@ def lm_loop_v10(u0, y_re, y_im, t, lower, upper, kind, plan, pmap_static, *,
         int(max_iter), int(plateau_streak), _build.stream_ptr(dev),
     )
     _build.check("xmt_lm_loop_v10", err)
-    _counters.LAUNCHES["lm_loop_v10"] += 1
+    _counters.launched("lm_loop_v10")
     out = (u, cost, n_acc, done, h)
     return out + (trips,) if with_trips else out

@@ -76,7 +76,7 @@ def _as_bff(h, f):
 
 def spd_solve_damped_plain(h, g, lam):
     """Plain K3: solve (A + lam*diag(max(A_kk, 1e-12)) + 1e-12 I) x = g."""
-    _counters.PLAIN_CALLS["spd_solve_damped"] += 1
+    _counters.plain_called("spd_solve_damped")
     f = _check_slab(h, g.shape[0])
     return solve_damped_bff(_as_bff(h, f), g, lam)
 
@@ -110,7 +110,7 @@ def _solve_with_factor(l, g):
 
 def spd_inverse_diag_plain(h, tikhonov: float = 0.0):
     """Plain K4: diag(A^-1) with ``tikhonov`` added to A's diagonal."""
-    _counters.PLAIN_CALLS["spd_inverse_diag"] += 1
+    _counters.plain_called("spd_inverse_diag")
     f = _check_slab(h)
     a = _as_bff(h, f).clone()
     torch.diagonal(a, dim1=1, dim2=2).add_(tikhonov)
@@ -127,7 +127,7 @@ def _check_dense(h):
 
 def spd_solve_damped_dense_plain(h, g, lam):
     """Plain K6a: K3's damped solve on dense (B, F, F) ``h``."""
-    _counters.PLAIN_CALLS["spd_solve_damped_dense"] += 1
+    _counters.plain_called("spd_solve_damped_dense")
     f = _check_dense(h)
     if g.shape != (h.shape[0], f) or lam.shape != (h.shape[0],):
         raise ValueError("g must be (B, F) and lam (B,)")
@@ -137,7 +137,7 @@ def spd_solve_damped_dense_plain(h, g, lam):
 def spd_inverse_diag_dense_plain(h):
     """Plain K6b: diag(A^-1) of dense (B, F, F) ``h`` (no ridge: the CRLB
     caller adds its own)."""
-    _counters.PLAIN_CALLS["spd_inverse_diag_dense"] += 1
+    _counters.plain_called("spd_inverse_diag_dense")
     _check_dense(h)
     return _inverse_diag_bff(h)
 
@@ -190,7 +190,7 @@ def spd_solve_damped(h, g, lam):
         _build.stream_ptr(h.device),
     )
     _build.check("xmt_spd_solve_damped", err)
-    _counters.LAUNCHES["spd_solve_damped"] += 1
+    _counters.launched("spd_solve_damped")
     return out
 
 
@@ -211,7 +211,7 @@ def spd_inverse_diag(h, tikhonov: float = 0.0):
         _build.stream_ptr(h.device),
     )
     _build.check("xmt_spd_inverse_diag", err)
-    _counters.LAUNCHES["spd_inverse_diag"] += 1
+    _counters.launched("spd_inverse_diag")
     return out
 
 
@@ -234,7 +234,7 @@ def spd_solve_damped_dense(h, g, lam):
         _build.stream_ptr(h.device),
     )
     _build.check("xmt_spd_solve_damped_dense", err)
-    _counters.LAUNCHES["spd_solve_damped_dense"] += 1
+    _counters.launched("spd_solve_damped_dense")
     return out
 
 
@@ -254,7 +254,7 @@ def spd_inverse_diag_dense(h):
         h.data_ptr(), out.data_ptr(), b, f, _build.stream_ptr(h.device),
     )
     _build.check("xmt_spd_inverse_diag_dense", err)
-    _counters.LAUNCHES["spd_inverse_diag_dense"] += 1
+    _counters.launched("spd_inverse_diag_dense")
     return out
 
 

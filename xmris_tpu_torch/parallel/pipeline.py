@@ -2,7 +2,8 @@
 port).
 
 Port of :mod:`xmris_tpu.parallel.pipeline`: :class:`PipelineConfig`, the
-host-side apodization window (:func:`_apodization_weight`), and
+host-side apodization window (:func:`_apodization_weight`),
+:func:`spectral_pipeline_raw` on a complex batch, and
 :func:`mrsi_pipeline`, which runs ``zero_fill -> apodize -> to_spectrum ->
 autophase`` over every voxel of an :class:`XmrArray` as one call of
 :func:`~xmris_tpu_torch.parallel.planar_pipeline.spectral_pipeline_planar_raw`
@@ -23,7 +24,12 @@ import torch
 
 from xmris_tpu_torch.core.array import XmrArray, torch_dtype
 from xmris_tpu_torch.core.config import ATTRS, COORDS, DIMS
-from xmris_tpu_torch.core.utils import _check_dims, as_coord, complex_planes
+from xmris_tpu_torch.core.utils import (
+    _check_dims,
+    as_coord,
+    card_device,
+    complex_planes,
+)
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
 from xmris_tpu_torch.runtime.config import matching_dtypes
 
@@ -111,6 +117,42 @@ def spectral_constants(t: np.ndarray, cfg: PipelineConfig):
     return n_out, weight, freqs
 
 
+def spectral_pipeline_raw(fids, weight, freqs, cfg: PipelineConfig,
+                          device="cuda", kernels: KernelSet = DISPATCH):
+    """The spectral stage on a ``(n_voxels, n_time)`` complex batch
+    (reference ``spectral_pipeline_raw``).
+
+    ``weight`` is the (zero_fill_to,) apodization window on the zero-
+    filled axis, ``freqs`` the centred frequency axis.  The batch splits
+    into float32 planes (a tensor where it lies, numpy on ``device``, the
+    card unless the caller passes ``"cpu"``), runs
+    :func:`~xmris_tpu_torch.parallel.planar_pipeline.spectral_pipeline_planar_raw`
+    (K1 with flat spectra, then the phase search) and recombines.  Returns
+    ``(spectrum, (p0, p1, pivot))``: centred phased spectra (B,
+    zero_fill_to) in the input's complex precision, with the phases as
+    that function returns them (0-dim for ``"single"``, (B,) for
+    ``"all"``, zeros for ``"none"``).
+    """
+    from xmris_tpu_torch.parallel.planar_pipeline import (
+        spectral_pipeline_planar_raw,
+    )
+
+    if not isinstance(fids, torch.Tensor):
+        fids = np.asarray(fids)
+    _, complex_dtype = matching_dtypes(fids.dtype)
+    re, im = complex_planes(fids, fids.device if isinstance(fids, torch.Tensor)
+                            else card_device(device, "spectral_pipeline_raw"))
+    re, im = re.to(torch.float32), im.to(torch.float32)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=re.device)
+
+    sr, si, phases = spectral_pipeline_planar_raw(
+        re, im, f32(weight), f32(freqs),
+        dataclasses.replace(cfg, spec_layout="flat"), kernels=kernels)
+    return torch.complex(sr, si).to(torch_dtype(complex_dtype)), phases
+
+
 def mrsi_pipeline(
     da: XmrArray,
     dim: str = DIMS.time,
@@ -134,9 +176,16 @@ def mrsi_pipeline(
     (:func:`spectral_constants`) and handed over as float32; ``cfg`` runs
     with ``zero_fill_to = max(cfg.zero_fill_to, n_time)``.  ``engine``
     takes the reference's ``"auto"``, ``"planar"`` and ``"complex"``, all
-    of which run this one program; ``mesh`` must be None (one device).
-    ``kernels`` selects the kernel wrappers (default) or their plain
-    versions.
+    of which run this one program.  ``kernels`` selects the kernel
+    wrappers (default) or their plain versions.
+
+    With a 1-D ``mesh`` (:class:`~xmris_tpu_torch.parallel.mesh.Mesh`) the
+    voxel rows are zero-padded to a multiple of its size and split over it
+    (:func:`~xmris_tpu_torch.parallel.planar_pipeline.spectral_pipeline_sharded`:
+    K1 per shard, one pivot election), and the result lies on the mesh's
+    first device.  As in the reference, ``mesh=None`` with several CUDA
+    devices shards over all of them (:func:`~xmris_tpu_torch.parallel.mesh.make_mesh`),
+    unless ``device`` names one (``"cuda:1"``).
 
     The result has ``dim`` replaced by ``out_dim`` (frequency coordinates,
     the other coordinates kept, ``da``'s axis order), the input's complex
@@ -147,11 +196,15 @@ def mrsi_pipeline(
     ``"single"``, voxel-shaped arrays for ``"all"``).
     """
     _check_dims(da, dim, "mrsi_pipeline")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mrsi_pipeline(mesh=...) is not ported yet (one device only); "
-            "see ROADMAP.md queue 1, item 11"
-        )
+    from xmris_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    dev = torch.device(device)
+    if mesh is None and dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+    if mesh is not None and not (isinstance(mesh, Mesh)
+                                 and len(mesh.axis_names) == 1):
+        raise ValueError(f"mesh={mesh!r}: expected a 1-D Mesh or None.")
     if engine not in ("auto", "planar", "complex"):
         raise ValueError(
             f"engine must be 'auto', 'planar', or 'complex', got {engine!r}."
@@ -174,8 +227,27 @@ def mrsi_pipeline(
     def f32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=re.device)
 
-    sr, si, (p0, p1, pivot) = spectral_pipeline_planar_raw(
-        re, im, f32(weight), f32(freqs), cfg, kernels=kernels)
+    if mesh is None:
+        sr, si, (p0, p1, pivot) = spectral_pipeline_planar_raw(
+            re, im, f32(weight), f32(freqs), cfg, kernels=kernels)
+    else:
+        from xmris_tpu_torch.parallel.planar_pipeline import (
+            spectral_pipeline_sharded,
+        )
+
+        # Zero rows are inert through the linear stage and never win the
+        # pivot election; they are sliced off below.
+        n_rows = re.shape[0]
+        pad = (-n_rows) % mesh.size
+        if pad:
+            re = torch.nn.functional.pad(re, (0, 0, 0, pad))
+            im = torch.nn.functional.pad(im, (0, 0, 0, pad))
+        sr, si, (p0, p1, pivot) = spectral_pipeline_sharded(
+            re, im, f32(weight), f32(freqs), cfg, mesh, mesh.axis_names[0],
+            kernels=kernels)
+        sr, si = sr[:n_rows], si[:n_rows]
+        if cfg.autophase == "all":
+            p0, p1, pivot = p0[:n_rows], p1[:n_rows], pivot[:n_rows]
     spec = torch.complex(sr, si)
     if isinstance(da.data, torch.Tensor):
         spec = spec.to(torch_dtype(complex_dtype))

@@ -105,6 +105,19 @@ def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
     return re, im, p0s, p1s, pivots
 
 
+def _spectrum_stage(fids_re, fids_im, weight, cfg: PipelineConfig,
+                    with_peak: bool, kernels: KernelSet):
+    """K1: window + zero-fill + ortho DFT + fftshift, with each voxel's
+    peak (max |S|^2 and its first bin) when ``with_peak``."""
+    n_time = fids_re.shape[1]
+    return kernels.spectrum(
+        fids_re, fids_im, cfg.zero_fill_to,
+        window=weight[:n_time].to(fids_re.dtype).contiguous(),
+        with_maxmag=with_peak,
+        stacked_out=cfg.spec_layout == "stacked",
+    )
+
+
 def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
                                  cfg: PipelineConfig,
                                  kernels: KernelSet = DISPATCH):
@@ -121,14 +134,8 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
     needs a Cooley-Tukey split and ``zero_fill_to < n_time`` raises
     ``ValueError``, as in the reference.
     """
-    b, n_time = fids_re.shape
     want_peak = cfg.autophase in ("single", "all")
-    out = kernels.spectrum(
-        fids_re, fids_im, cfg.zero_fill_to,
-        window=weight[:n_time].to(fids_re.dtype).contiguous(),
-        with_maxmag=want_peak,
-        stacked_out=cfg.spec_layout == "stacked",
-    )
+    out = _spectrum_stage(fids_re, fids_im, weight, cfg, want_peak, kernels)
     if not want_peak:
         zero = torch.zeros((), dtype=fids_re.dtype, device=fids_re.device)
         return out[0], out[1], (zero, zero, zero)
@@ -144,3 +151,98 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
         spec_re, spec_im, freqs, cfg, peak, kernels
     )
     return spec_re, spec_im, (p0, p1, pivot)
+
+
+# ---------------------------------------------------------------------------
+# The spectral stage over a voxel mesh
+# ---------------------------------------------------------------------------
+
+
+def _spectral_shard(fids_re, fids_im, weight, freqs, cfg: PipelineConfig,
+                   kernels: KernelSet = DISPATCH):
+    """One shard's spectral stage in a sharded program.
+
+    With ``autophase="single"`` the phase waits for the grid-wide pivot
+    election (:func:`_elect_and_phase`): the shard returns its unphased
+    spectra and its candidate ``(max |S|^2, that voxel's spectrum row re,
+    im, its peak bin)``, the first maximum of the shard as the unsharded
+    ``argmax`` takes it.  With ``"all"`` and ``"none"`` the shard runs the
+    whole stage (:func:`spectral_pipeline_planar_raw`) and returns its
+    phases.
+    """
+    if cfg.autophase != "single":
+        return spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
+                                            cfg, kernels)
+    spec_re, spec_im, mv, mi = _spectrum_stage(fids_re, fids_im, weight, cfg,
+                                               True, kernels)
+    v = torch.argmax(mv)
+    n_freq = freqs.shape[0]
+    return spec_re, spec_im, (mv[v], spec_re[v].reshape(n_freq),
+                              spec_im[v].reshape(n_freq), mi[v].long())
+
+
+def _elect_and_phase(shards, freqs, cfg: PipelineConfig,
+                    kernels: KernelSet = DISPATCH):
+    """Finish the sharded spectral stage on the calling thread.
+
+    ``shards`` are the :func:`_spectral_shard` results in mesh order and
+    ``freqs`` lies on the mesh's first device.  For ``autophase="single"``
+    the candidates are copied there and the first maximum wins (the
+    unsharded ``argmax`` over the grid); the phase is solved ONCE on the
+    winning row with the unsharded program's search
+    (:func:`_solve_phase_on_row`: the same generator seed, the same CUDA
+    graph) and the same ramp turns every shard on its device.  Returns
+    ``(spectra, (p0, p1, pivot))``: ``[(spec_re, spec_im), ...]`` per shard
+    and the phases on the first device (0-dim, or gathered per voxel for
+    ``"all"``).
+    """
+    dev0 = freqs.device
+    if cfg.autophase != "single":
+        phases = [s[2] for s in shards]
+        if cfg.autophase == "all":
+            p = tuple(torch.cat([ph[i].to(dev0) for ph in phases])
+                      for i in range(3))
+        else:
+            p = tuple(x.to(dev0) for x in phases[0])
+        return [(s[0], s[1]) for s in shards], p
+    maxs = torch.stack([s[2][0].to(dev0) for s in shards])
+    _, row_re, row_im, freq_idx = (x.to(dev0) for x in
+                                   shards[int(torch.argmax(maxs))][2])
+    pivot = freqs[freq_idx]
+    p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg, kernels)
+    x_range = freqs[-1] - freqs[0]
+    phi = torch.deg2rad(p0) + torch.deg2rad(p1) * ((freqs - pivot) / x_range)
+    out = []
+    for spec_re, spec_im, _ in shards:
+        ph = phi.to(spec_re.dtype).to(spec_re.device)
+        ph = ph.reshape(spec_re.shape[-2:])[None] if spec_re.dim() == 3 \
+            else ph[None, :]
+        out.append(_apply_phase_planar(spec_re, spec_im, ph))
+    return out, (p0, p1, pivot)
+
+
+def spectral_pipeline_sharded(fids_re, fids_im, weight, freqs,
+                              cfg: PipelineConfig, mesh, axis_name: str,
+                              kernels: KernelSet = DISPATCH):
+    """:func:`spectral_pipeline_planar_raw` with the voxel axis split over
+    ``mesh`` (the batch must divide by its axis): each shard's K1 (and per
+    voxel its search) on its device, a host thread per distinct device,
+    then the pivot election; the result is whole on the mesh's first
+    device."""
+    from xmris_tpu_torch.parallel.mesh import (
+        gather,
+        run_on_devices,
+        shard_voxels,
+    )
+
+    devices = mesh.axis_devices(axis_name)
+    res = shard_voxels(fids_re, mesh, axis_name)
+    ims = shard_voxels(fids_im, mesh, axis_name)
+    shards = run_on_devices(
+        lambda re, im, w, f: _spectral_shard(re, im, w, f, cfg, kernels),
+        devices, [(re, im, weight.to(d), freqs.to(d))
+                  for re, im, d in zip(res, ims, devices)])
+    spectra, phases = _elect_and_phase(shards, freqs.to(devices[0]), cfg,
+                                       kernels)
+    spec_re, spec_im = gather(spectra, devices[0])
+    return spec_re, spec_im, phases
