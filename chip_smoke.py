@@ -115,6 +115,19 @@ and the script exits non-zero):
    ``recon_main`` RSS and SENSE on config 3 against 4x's; one grid under
    ``runtime.profiling.trace``, whose trace names K1 and K2; printed as the
    ``slice_13`` JSON line;
+   4z. the visualization layer: the bench grid as a CUDA payload through
+   ``mrsi_pipeline`` (grid search; one K1, spectra held to 4s's) and
+   ``.xmr.fit_amares`` (K2, K3, K6b; every voxel within 2e-3 + 0.1 CRLB of
+   4c's maps), then the QC grid (16 panels) and trajectories of the
+   centre column's fit, the waterfall and carpet of its spectra, and the
+   phase, scroller and apodizer widgets, each from the card payload and a
+   CPU copy: the drawn arrays equal a numpy computation from the same
+   results (the QC spectra within 1e-5 of max|S| of a float64 FFT, the
+   rest exactly), the same from both copies, at most one device-to-host
+   copy per drawn array (4 for the QC grid), each widget's HTML holding
+   its JS engine, ms in turns; where matplotlib or traitlets is missing,
+   the figures' and widgets' host data (``visualization._host``) are
+   checked instead; printed as the ``slice_14`` JSON line;
 5. timing: median ms per single-pivot grid over synchronized grids, and
    voxels/s; the grid and its fit stage at every version in turns with
    v9; median ms of a per-voxel-autophased grid; median s of one
@@ -135,6 +148,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import io
 import json
@@ -2446,6 +2460,287 @@ def main(argv) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- 4z. item 13: the grid's spectra and fit to figures and widgets ----
+    _phase("4z mrsi_pipeline and .xmr.fit_amares on a CUDA payload, then the "
+           "plots and widgets drawn from what the card returned")
+    import importlib.util
+
+    from xmris_tpu_torch.core import array as carrier
+    from xmris_tpu_torch.core.array import XmrDataset
+    from xmris_tpu_torch.visualization import _host
+    from xmris_tpu_torch.visualization.plot import PlotQCGridConfig
+
+    # matplotlib and traitlets are the optional viz/widgets extras: where
+    # they are missing, the figures' and widgets' host data (the ops where
+    # the payload lies, then the copies) are built and checked instead.
+    missing = [m for m in ("matplotlib", "traitlets", "IPython")
+               if importlib.util.find_spec(m) is None]
+    has_mpl = "matplotlib" not in missing
+    has_widgets = "traitlets" not in missing
+    print(f"   optional extras missing: {missing or 'none'}; figures "
+          f"{'drawn' if has_mpl else 'not drawn, their host data checked'}, "
+          f"widgets {'built' if has_widgets else 'not built, their traits checked'}",
+          flush=True)
+    if has_mpl:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from matplotlib.collections import QuadMesh
+        from matplotlib.colors import to_rgba
+    if has_widgets:
+        from xmris_tpu_torch.visualization import widget as xwidget
+    slice14 = {"missing": missing, "card": smi}
+
+    # 1-2. the bench grid as a CUDA payload through mrsi_pipeline (one K1).
+    grid_da = XmrArray(torch.as_tensor(fids, device=dev).reshape(bi.GRID + (bi.N_TIME,)),
+                       dims=("x", "y", "z", "time"),
+                       coords={"time": Coord("time", t_np.astype(np.float64))},
+                       attrs={"MHz": bi.MHZ})
+    t0 = time.perf_counter()
+    spec = _mrsi_run(K, mrsi_pipeline, grid_da, mrsi_cfgs["grid search"],
+                     "mrsi_pipeline", 1)
+    slice14["mrsi_pipeline_s"] = time.perf_counter() - t0
+    if spec.data.device != dev or spec.dims != ("x", "y", "z", "frequency"):
+        raise AssertionError(f"mrsi_pipeline: dims {spec.dims} on {spec.data.device}")
+    got_s, ref_s4 = spec.values, mrsi_out["grid search"].values
+    s_err = float(np.abs(got_s - ref_s4).max())
+    slice14["spectra_bit_equal_4s"] = bool(np.array_equal(got_s, ref_s4))
+    print(f"   mrsi_pipeline (grid search) on the CUDA payload vs 4s's on the "
+          f"host payload: bit for bit {slice14['spectra_bit_equal_4s']}, max|err| "
+          f"{s_err:.3e} (limit 1e-6 of max|S| {float(np.abs(ref_s4).max()):.3e})")
+    if not s_err <= 1e-6 * float(np.abs(ref_s4).max()):
+        raise AssertionError("mrsi_pipeline on a CUDA payload off 4s's")
+    del got_s, ref_s4
+
+    # 3. .xmr.fit_amares on the CUDA FIDs (K2, K3, K6b), held to 4c's maps.
+    K.reset_counters()
+    t0 = time.perf_counter()
+    ds_z = grid_da.xmr.fit_amares(pk)
+    _sync()
+    slice14["fit_amares_s"] = time.perf_counter() - t0
+    counts = K.counters()
+    _check_path(K, counts, "fit_amares")
+    slice14["fit_launches"] = {n: counts["launches"][n] for n in K.PATHS["fit_amares"]}
+    conv_z = float(ds_z["fit_converged"].values.mean())
+    got_z = np.stack([ds_z[n].values.reshape(b, -1) for n in fams])
+    maps_4c = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    ratio_z = float((np.abs(got_z - maps_4c) / (2e-3 + 0.1 * sd)).max())
+    slice14.update(fit_converged=conv_z, fit_max_ratio_to_0_1_crlb=ratio_z,
+                   fit_bit_equal_4c=bool(np.array_equal(got_z, maps_4c)))
+    print(f"   .xmr.fit_amares in {slice14['fit_amares_s']:.3f} s, launches "
+          f"{slice14['fit_launches']}: converged {conv_z:.4f} (limit >= 0.95); "
+          f"every voxel within 2e-3 + 0.1 CRLB of 4c's maps: max ratio "
+          f"{ratio_z:.3f} (limit 1); bit for bit 4c's: "
+          f"{slice14['fit_bit_equal_4c']}", flush=True)
+    if conv_z < 0.95 or not ratio_z <= 1.0:
+        raise AssertionError(".xmr.fit_amares on the CUDA payload off 4c's maps")
+    del got_z, maps_4c
+
+    # 4. The column at the grid's centre: the fit on the card and on the
+    # host, the spectra on the card and a CPU copy, one voxel of each.
+    ix, iy, iz = bi.GRID[0] // 2, bi.GRID[1] // 2, bi.GRID[2] // 2
+    col_host = ds_z.isel(x=ix, y=iy)
+    col_card = XmrDataset({k: v.to(dev) for k, v in col_host.items()},
+                          col_host.attrs)
+    spec_col = spec.isel(x=ix, y=iy)
+    fid_v = grid_da.isel(x=ix, y=iy, z=iz).assign_attrs(
+        reference_frequency=bi.MHZ, carrier_ppm=0.0)  # the prior's PCr at 0 ppm
+    payloads = {  # name: (the card payload, its CPU copy)
+        "qc_grid": (col_card, col_host), "trajectory": (col_card, col_host),
+        "waterfall": (spec_col.real, spec_col.real.to("cpu")),
+        "carpet": (spec_col.real, spec_col.real.to("cpu")),
+        "phase_spectrum": (spec_col.isel(z=iz), spec_col.isel(z=iz).to("cpu")),
+        "scroll_spectra": (spec_col, spec_col.to("cpu")),
+        "apodize": (fid_v, fid_v.to("cpu"))}
+    n_z = bi.GRID[2]
+    # The independent host computation, from host copies of the same results.
+    raw_np, fit_np = col_host["raw_data"].values, col_host["fit_data"].values
+    amp_np, crlb_np = col_host["amplitude"].values, col_host["crlb"].values
+    col_np = spec_col.values
+    f_np = spec.coords["frequency"].values
+    fid_np = fid_v.values
+
+    def _spec64(x):
+        return np.real(np.fft.fftshift(np.fft.fft(x.astype(np.complex128), axis=-1,
+                                                  norm="ortho"), axes=-1))
+
+    raw_S, fit_S = _spec64(raw_np), _spec64(fit_np)
+    qc_scale = float(np.abs(raw_S).max())
+    dt64 = float(t_np.astype(np.float64)[1] - t_np.astype(np.float64)[0])
+    half_np = amp_np * (np.nan_to_num(crlb_np, nan=0.0) / 100.0)
+    peak_np = np.max(np.abs(col_np.real))
+    mag_np = np.abs(col_np[iz]).astype(float)
+    n2 = 1 << max(bi.N_TIME - 1, 1).bit_length()
+    want = {
+        "qc_grid": {"x": np.fft.fftshift(np.fft.fftfreq(bi.N_TIME, d=dt64)),
+                    "raw": raw_S, "fit": fit_S,
+                    "red": np.nanmax(np.nan_to_num(crlb_np, nan=np.inf), axis=1)
+                    > PlotQCGridConfig().crlb_threshold},
+        "trajectory": {"y": amp_np.T, "band": np.stack(
+            [np.minimum(amp_np - half_np, amp_np + half_np),
+             np.maximum(amp_np - half_np, amp_np + half_np)], -1).transpose(1, 0, 2)},
+        "waterfall": {  # normalised and offset as the plot does, row by row
+            "y": np.stack([(col_np.real[i] / peak_np) * 10.0 + i * 0.5
+                           for i in range(n_z)]),
+            "x": f_np[None, :] + (np.arange(n_z) * 0.5)[:, None]
+            * np.tan(np.radians(-20.0)),
+            "values": col_np.real},
+        "carpet": {"mesh": col_np.real, "values": col_np.real},
+        "phase_spectrum": {"reals": col_np[iz].real.astype(float),
+                           "imags": col_np[iz].imag.astype(float), "mag": mag_np,
+                           "pivot_val": float(f_np[int(np.argmax(mag_np))])},
+        "scroll_spectra": {"spectra": col_np.real.astype(float)},
+        "apodize": {"reals_t": np.pad(fid_np.real, (0, n2 - bi.N_TIME)).astype(float),
+                    "imags_t": np.pad(fid_np.imag, (0, n2 - bi.N_TIME)).astype(float)},
+    }
+    tol = {"qc_grid": {"raw": 1e-5 * qc_scale, "fit": 1e-5 * qc_scale,
+                       "x": 1e-9 * float(np.abs(f_np).max())}}
+
+    def _draw(name, payload):
+        """What ``name`` draws from ``payload``, as arrays, and the figure or
+        widget (None where the extra is missing)."""
+        if name == "qc_grid":
+            if has_mpl:
+                fig = payload.xmr.plot.qc_grid("z", PlotQCGridConfig(max_plots=16))
+                axs = [a for a in fig.axes if a.axison]
+                fail = to_rgba(PlotQCGridConfig().fail_color)
+                return {"x": axs[0].lines[0].get_xdata(),
+                        "raw": np.stack([a.lines[0].get_ydata() for a in axs]),
+                        "fit": np.stack([a.lines[1].get_ydata() for a in axs]),
+                        "red": np.array([a.get_facecolor() == fail for a in axs])}, fig
+            p = _host.qc_panels(payload, "z", 16, True)
+            return {"x": p.freq, "raw": p.raw.values, "fit": p.fit.values}, None
+        if name == "trajectory":
+            if has_mpl:
+                ax = payload.xmr.plot.trajectory("z")
+                bands = []
+                for c in ax.collections:
+                    v = c.get_paths()[0].vertices
+                    bands.append([(v[v[:, 0] == x, 1].min(), v[v[:, 0] == x, 1].max())
+                                  for x in range(n_z)])
+                return {"y": np.stack([ln.get_ydata() for ln in ax.lines]),
+                        "band": np.array(bands)}, ax.get_figure()
+            lines = _host.trajectory_lines(payload, "z").lines
+            return {"y": np.stack([a for _, a, _ in lines]), "band": np.stack(
+                [np.stack([np.minimum(a - h, a + h), np.maximum(a - h, a + h)], -1)
+                 for _, a, h in lines])}, None
+        if name in ("waterfall", "carpet"):
+            if not has_mpl:
+                return {"values": _host.stack_view(payload, stack_dim="z").values}, None
+            if name == "waterfall":
+                ax = payload.xmr.plot.waterfall(stack_dim="z")
+                lines = ax.lines[::-1]  # drawn back to front
+                return {"x": np.stack([ln.get_xdata() for ln in lines]),
+                        "y": np.stack([ln.get_ydata() for ln in lines])}, ax.get_figure()
+            ax = payload.xmr.plot.carpet(stack_dim="z")
+            mesh = next(c for c in ax.collections if isinstance(c, QuadMesh))
+            return {"mesh": np.asarray(mesh.get_array())}, ax.get_figure()
+        keys = [k for k in want[name]]
+        if has_widgets:
+            w = {"phase_spectrum": payload.xmr.widget.phase_spectrum,
+                 "scroll_spectra": payload.xmr.widget.scroll_spectra,
+                 "apodize": payload.xmr.widget.apodize}[name]()
+            return {k: np.asarray(getattr(w, k)) for k in keys}, w
+        traits = {"phase_spectrum": _host.phase_traits,
+                  "scroll_spectra": _host.scroll_traits,
+                  "apodize": _host.apodize_traits}[name](payload)
+        return {k: np.asarray(traits[k]) for k in keys}, None
+
+    def _held(what, got, ref, atol):
+        if got.shape != ref.shape:
+            raise AssertionError(f"{what}: shape {got.shape}, not {ref.shape}")
+        err = float(np.abs(got.astype(float) - ref.astype(float)).max()) \
+            if got.size else 0.0
+        if not (np.array_equal(got, ref) if atol == 0 else err <= atol):
+            raise AssertionError(f"{what}: max|err| {err:.3e} over {atol:.3e}")
+        return err
+
+    d2h = {"n": 0}
+    to_numpy = carrier._to_numpy
+
+    def _counting(x):
+        if isinstance(x, torch.Tensor) and x.device == dev:
+            d2h["n"] += 1
+        return to_numpy(x)
+
+    figures = ("qc_grid", "trajectory", "waterfall", "carpet")
+    copy_bound = {"qc_grid": 4, "trajectory": 2}  # else 1
+    tmp4z = Path(tempfile.mkdtemp(prefix="xmt_smoke_4z_"))
+    slice14.update(d2h_copies={}, max_err={}, png_save_ms={}, html_bytes={})
+    carrier._to_numpy = _counting
+    try:
+        for name, (card, cpu) in payloads.items():
+            d2h["n"] = 0
+            drawn, obj = _draw(name, card)
+            copies = d2h["n"]
+            d2h["n"] = 0
+            drawn_cpu, obj_cpu = _draw(name, cpu)
+            cpu_copies = d2h["n"]
+            slice14["d2h_copies"][name] = copies
+            bound = copy_bound.get(name, 1)
+            if copies > bound or (cpu_copies and dev.type == "cuda"):
+                raise AssertionError(f"{name}: {copies} device-to-host copies "
+                                     f"(bound {bound}), {cpu_copies} on the CPU copy")
+            errs = {}
+            for k, got in drawn.items():
+                atol = tol.get(name, {}).get(k, 0)
+                errs[k] = _held(f"{name} {k} vs numpy", got, np.asarray(want[name][k]),
+                                atol)
+                _held(f"{name} {k}: card vs the CPU copy", got,
+                      np.asarray(drawn_cpu[k]), atol)
+            slice14["max_err"][name] = errs
+            if obj is None:
+                pass
+            elif name in figures:
+                t0 = time.perf_counter()
+                obj.savefig(tmp4z / f"{name}.png")
+                slice14["png_save_ms"][name] = 1e3 * (time.perf_counter() - t0)
+                plt.close(obj)
+                plt.close(obj_cpu)
+            else:
+                factory = {"phase_spectrum": xwidget.phase_spectrum,
+                           "scroll_spectra": xwidget.scroll_spectra,
+                           "apodize": xwidget.apodize_interactive}[name]
+                if "IPython" in missing:
+                    html = xwidget.widget_to_iframe_html(factory(card))
+                else:
+                    html = xwidget.export_widget_static(factory, card).data
+                (tmp4z / f"{name}.html").write_text(html)
+                b64 = html.split("base64,", 1)[1].split('"', 1)[0]
+                engine = Path(type(obj)._esm).read_text()
+                if engine not in base64.b64decode(b64).decode():
+                    raise AssertionError(f"{name}: the HTML lacks its JS engine")
+                slice14["html_bytes"][name] = len(html)
+            print(f"   {name}: {copies} device-to-host copies (bound {bound}); "
+                  f"max|err| vs numpy {errs}; the CPU copy draws the same", flush=True)
+        slice14["qc_red_panels"] = np.flatnonzero(want["qc_grid"]["red"]).tolist()
+        print(f"   qc_grid panels whose worst CRLB is above 20 % or NaN: "
+              f"{slice14['qc_red_panels']}" + (" (red, as drawn)" if has_mpl else ""))
+        # Each figure and widget on the card payload, 5 rounds in turns.
+        turns = {name: [] for name in payloads}
+        for rnd in range(5):
+            names = list(payloads) if rnd % 2 == 0 else list(payloads)[::-1]
+            for name in names:
+                _sync()
+                t0 = time.perf_counter()
+                _, obj = _draw(name, payloads[name][0])
+                turns[name].append(1e3 * (time.perf_counter() - t0))
+                if obj is not None and name in figures:
+                    plt.close(obj)
+        slice14["ms_in_turns"] = {k: float(np.median(v)) for k, v in turns.items()}
+        for name, xs in turns.items():
+            print(f"   in turns, {name}: median {slice14['ms_in_turns'][name]:.3f} "
+                  f"ms ({', '.join(f'{x:.3f}' for x in xs)})")
+        slice14["files"] = sorted(p.name for p in tmp4z.iterdir())
+    finally:
+        carrier._to_numpy = to_numpy
+        shutil.rmtree(tmp4z, ignore_errors=True)
+    if not has_mpl:
+        slice14["png_save_ms"] = None
+    del spec, spec_col, grid_da, ds_z, col_card, payloads
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -2685,6 +2980,7 @@ def main(argv) -> int:
         "asls_cr_vs_scan": err, "asls_limit": lim}}))
     print(json.dumps({"slice_12": slice12}))
     print(json.dumps({"slice_13": slice13}))
+    print(json.dumps({"slice_14": slice14}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

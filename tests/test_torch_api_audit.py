@@ -5,13 +5,12 @@ AST-parses ``xmris_tpu``'s sources (the reference of the port) and holds
 
 1. every name in the ``__all__`` of the reference's top level, ``ops``,
    ``recon``, ``core``, ``fitting``, ``models``, ``vendor``,
-   ``processing``, ``parallel``, ``runtime`` and ``utils`` exists at the
-   same place in the port, and each function
-   keeps every reference parameter name (the port may add its own, such
-   as ``device``);
-2. the port's top-level ``__all__`` is the reference's without the names
-   whose modules are not ported yet, each listed with its ROADMAP.md queue
-   1 item, and each of those raises ``NotImplementedError`` citing it;
+   ``processing``, ``parallel``, ``runtime``, ``utils``, ``visualization``,
+   ``visualization.plot`` and ``visualization.widget`` exists at the same
+   place in the port, and each function keeps every reference parameter
+   name (the port may add its own, such as ``device``);
+2. every package's ``__all__`` is the reference's (the port covers every
+   module of the reference);
 3. every accessor and mixin class of ``core/accessor.py`` exists with the
    same methods and parameter names, and the carrier classes keep every
    public method (``.jax`` is ``.tensor`` in the port).
@@ -28,23 +27,16 @@ import xmris_tpu_torch
 
 REF = Path(__file__).resolve().parents[1] / "xmris_tpu"
 
-# Reference names whose modules wait for a ROADMAP.md queue 1 item.
-PENDING = {
-    "visualization": 13,
-    "WaterfallConfig": 13,
-    "CarpetConfig": 13,
-    "PlotTrajectoryConfig": 13,
-    "PlotQCGridConfig": 13,
-}
 # Carrier members renamed by design: the payload accessor.
 CARRIER_RENAMED = {"jax": "tensor"}
 
 PACKAGES = ["", "ops", "recon", "core", "fitting", "models", "vendor",
-            "processing", "parallel", "runtime", "utils"]
+            "processing", "parallel", "runtime", "utils", "visualization",
+            "visualization.plot", "visualization.widget"]
 
 
 def _init_path(sub):
-    return REF / (f"{sub}/__init__.py" if sub else "__init__.py")
+    return REF / (f"{sub.replace('.', '/')}/__init__.py" if sub else "__init__.py")
 
 
 def _literal_all(path):
@@ -93,10 +85,6 @@ def _audit_cases():
                          ids=lambda v: str(v) if not isinstance(v, Path) else "")
 def test_reference_public_name_exists_with_its_parameters(sub, name, source):
     mod = importlib.import_module("xmris_tpu_torch" + (f".{sub}" if sub else ""))
-    if not sub and name in PENDING:
-        with pytest.raises(NotImplementedError, match=f"item {PENDING[name]}"):
-            getattr(mod, name)
-        return
     ours = getattr(mod, name)
     if source is None or inspect.ismodule(ours) or isinstance(ours, type) \
             or not callable(ours):
@@ -117,11 +105,13 @@ def test_lazy_top_level_functions_keep_their_parameters():
 
 
 def test_top_level_all_is_the_references_less_the_pending_names():
-    ref_all = _literal_all(_init_path(""))
-    assert set(PENDING) <= set(ref_all)
-    assert sorted(xmris_tpu_torch.__all__) == sorted(
-        n for n in ref_all if n not in PENDING)
-    assert xmris_tpu_torch._PENDING == PENDING
+    """No name is pending any more: every ``__all__`` is the reference's,
+    and a star import of the top level resolves every name."""
+    assert sorted(xmris_tpu_torch.__all__) == sorted(_literal_all(_init_path("")))
+    assert not hasattr(xmris_tpu_torch, "_PENDING")
+    ns: dict = {}
+    exec("from xmris_tpu_torch import *", ns)  # noqa: S102
+    assert set(xmris_tpu_torch.__all__) <= set(ns)
     for sub in PACKAGES[1:]:
         mod = importlib.import_module(f"xmris_tpu_torch.{sub}")
         assert sorted(mod.__all__) == sorted(_literal_all(_init_path(sub))), sub

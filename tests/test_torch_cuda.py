@@ -1522,3 +1522,141 @@ def test_serve_once_on_the_card(dev, tmp_path, capsys):
             r.pop("wall_s")
         runs[mode] = (rc, records)
     assert runs["serial"] == runs["pipeline"]
+
+
+# ---------------------------------------------------------------------------
+# The visualization layer (item 13) on CUDA payloads
+# ---------------------------------------------------------------------------
+
+
+def _viz_payloads():
+    """A fit-like dataset over (voxel, time) x Metabolite and its spectra,
+    complex128, one CRLB NaN and one above 20 %."""
+    from xmris_tpu_torch.core.array import XmrDataset
+
+    rng = np.random.default_rng(14)
+    t = np.arange(256) / 4000.0
+    fids = (rng.normal(size=(6, 256)) + 1j * rng.normal(size=(6, 256))) * 0.1
+    fids += np.exp((2j * np.pi * 300.0 - 30.0) * t) * np.arange(1, 7)[:, None]
+    fit = np.exp((2j * np.pi * 300.0 - 30.0) * t) * np.arange(1, 7)[:, None]
+    attrs = {"MHz": 100.0, "reference_frequency": 100.0, "carrier_ppm": 4.7}
+
+    def arr(x, dims, **kw):
+        return XmrArray(x, dims=dims, **kw)
+
+    fid_da = arr(fids, ("voxel", "time"), coords={"time": Coord("time", t)},
+                 attrs=attrs)
+    metab = {"Metabolite": np.array(["a", "b"], dtype=object)}
+    crlb = rng.uniform(1.0, 10.0, (6, 2))
+    crlb[2, 1], crlb[4, 0] = np.nan, 25.0
+    ds = XmrDataset({
+        "raw_data": fid_da,
+        "fit_data": fid_da.copy(data=fit),
+        "residuals": fid_da.copy(data=fids - fit),
+        "crlb": arr(crlb, ("voxel", "Metabolite"), coords=metab),
+        "amplitude": arr(rng.uniform(1.0, 5.0, (6, 2)), ("voxel", "Metabolite"),
+                         coords=metab)})
+    return fid_da, fid_da.xmr.to_spectrum(), ds
+
+
+def _on(ds, device):
+    from xmris_tpu_torch.core.array import XmrDataset
+
+    return XmrDataset({k: v.to(device) for k, v in ds.items()}, ds.attrs)
+
+
+def test_drawn_host_data_on_the_card_is_the_cpu_copys(dev, monkeypatch):
+    """What each figure and widget draws (``visualization._host``, which
+    runs without matplotlib and traitlets) is the same from a CUDA payload
+    as from its CPU copy, with one device-to-host copy per drawn array."""
+    from xmris_tpu_torch.core import array as carrier
+    from xmris_tpu_torch.visualization import _host
+
+    fid_da, spec, ds = _viz_payloads()
+    copies = {"n": 0}
+    to_numpy = carrier._to_numpy
+
+    def counting(x):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            copies["n"] += 1
+        return to_numpy(x)
+
+    monkeypatch.setattr(carrier, "_to_numpy", counting)
+    scale = float(np.abs(np.fft.fft(fid_da.values, norm="ortho")).max())
+    calls = [
+        ("qc_panels", lambda d: _host.qc_panels(d, "voxel", 4), ds, 4),
+        ("trajectory_lines", lambda d: _host.trajectory_lines(d, "voxel"), ds, 2),
+        ("stack_view", lambda d: _host.stack_view(d), spec.real, 1),
+        ("phase_traits", _host.phase_traits, spec.isel(voxel=3), 1),
+        ("scroll_traits", lambda d: _host.scroll_traits(d, part="abs"), spec, 1),
+        ("apodize_traits", _host.apodize_traits, fid_da.isel(voxel=1)
+         .isel(time=slice(0, 200)), 1),
+    ]
+    for name, fn, payload, bound in calls:
+        card = _on(payload, dev) if hasattr(payload, "data_vars") else payload.to(dev)
+        copies["n"] = 0
+        got = fn(card)
+        assert copies["n"] <= bound, (name, copies["n"])
+        want = fn(_on(payload, "cpu") if hasattr(payload, "data_vars")
+                  else payload.to("cpu"))
+        if name == "qc_panels":
+            assert list(got.indices) == list(want.indices)
+            np.testing.assert_array_equal(got.freq, want.freq)
+            np.testing.assert_array_equal(got.crlb.values, want.crlb.values)
+            for part in ("raw", "fit", "res"):
+                np.testing.assert_allclose(getattr(got, part).values,
+                                           getattr(want, part).values,
+                                           rtol=0, atol=1e-12 * scale)
+        elif name == "trajectory_lines":
+            for (m, a, h), (m2, a2, h2) in zip(got.lines, want.lines):
+                assert m == m2
+                np.testing.assert_array_equal(a, a2)
+                np.testing.assert_array_equal(h, h2)
+        elif name == "stack_view":
+            np.testing.assert_array_equal(got.values, want.values)
+            assert got[:2] == want[:2]
+        else:
+            assert got == want, name
+
+
+def test_plots_and_widgets_on_the_card_draw_the_cpu_drawing(dev):
+    """Each plot and widget from a CUDA payload draws what its CPU copy
+    draws: exactly, but for the QC grid's spectra (cuFFT against the CPU
+    FFT) at 1e-12 of max|S|.  Needs the viz and widgets extras."""
+    pytest.importorskip("matplotlib")
+    pytest.importorskip("traitlets")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fid_da, spec, ds = _viz_payloads()
+    scale = float(np.abs(np.fft.fft(fid_da.values, norm="ortho")).max())
+
+    def lines(obj):
+        fig = obj if isinstance(obj, matplotlib.figure.Figure) else obj.get_figure()
+        out = [np.asarray(ln.get_xydata()) for ax in fig.axes for ln in ax.lines]
+        out += [np.asarray(p.vertices) for ax in fig.axes for c in ax.collections
+                for p in c.get_paths()]
+        out += [np.asarray(c.get_array()) for ax in fig.axes for c in ax.collections
+                if c.get_array() is not None]
+        faces = [ax.get_facecolor() for ax in fig.axes]
+        plt.close(fig)
+        return out, faces
+
+    for draw, payload, atol in (
+            (lambda d: d.xmr.plot.qc_grid("voxel"), ds, 1e-12 * scale),
+            (lambda d: d.xmr.plot.trajectory("voxel"), ds, 0.0),
+            (lambda d: d.xmr.plot.waterfall(), spec.real, 0.0),
+            (lambda d: d.xmr.plot.carpet(), spec.real, 0.0)):
+        card = _on(payload, dev) if hasattr(payload, "data_vars") else payload.to(dev)
+        got, got_faces = lines(draw(card))
+        want, want_faces = lines(draw(payload))
+        assert got_faces == want_faces and len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol)
+    for make, payload in (
+            (lambda d: d.xmr.widget.phase_spectrum(), spec.isel(voxel=2)),
+            (lambda d: d.xmr.widget.scroll_spectra(), spec),
+            (lambda d: d.xmr.widget.apodize(), fid_da.isel(voxel=0))):
+        assert make(payload.to(dev)).trait_values() == make(payload).trait_values()

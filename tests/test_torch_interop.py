@@ -252,10 +252,30 @@ def test_accessor_adapter_runs_the_port_through_the_stub(xr_stub):
     peak = float(ppm.coords["chemical_shift"].values[np.argmax(np.abs(ppm.values))])
     assert peak == pytest.approx(4.7 + 500.0 / 100.0, abs=0.1)
     assert out.xmr.to_spectrum.__doc__ is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        da.xmr.plot.waterfall()
-    fit_ds = stub.Dataset({"a": da})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fit_ds.xmr.plot.qc_grid("x")
+    # The plot and widget namespaces return axes, figures and widgets.
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    shift = ("chemical_shift", ppm.coords["chemical_shift"].values, {"units": "ppm"})
+    stack = stub.DataArray(np.stack([ppm.values.real, 2.0 * ppm.values.real]),
+                           dims=("repetitions", "chemical_shift"),
+                           coords={"chemical_shift": shift})
+    assert isinstance(stack.xmr.plot.waterfall(), matplotlib.axes.Axes)
+    assert type(da.xmr.widget.apodize()).__name__ == "ApodizerWidget"
+    fids = stub.DataArray(np.stack([da.values, 0.5 * da.values]), dims=("voxel", "time"),
+                          coords={"time": ("time", t, {"units": "s"})})
+    metab = {"Metabolite": ("Metabolite", np.array(["a"], dtype=object))}
+    fit_ds = stub.Dataset({
+        "raw_data": fids, "fit_data": fids,
+        "crlb": stub.DataArray([[5.0], [30.0]], dims=("voxel", "Metabolite"),
+                               coords=metab),
+        "amplitude": stub.DataArray([[1.0], [0.5]], dims=("voxel", "Metabolite"),
+                                    coords=metab)})
+    fig = fit_ds.xmr.plot.qc_grid("voxel")
+    assert isinstance(fig, matplotlib.figure.Figure) and len(fig.axes) == 2
+    assert isinstance(fit_ds.xmr.plot.trajectory("voxel"), matplotlib.axes.Axes)
+    plt.close("all")
     # Registration is idempotent.
     assert txr.register_xarray_accessors() is True

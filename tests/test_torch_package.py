@@ -2,7 +2,9 @@
 
 * ``import xmris_tpu_torch`` (and every module of it) pulls in neither jax
   nor triton — checked in a fresh interpreter, since this test process has
-  imported jax already;
+  imported jax already; the package alone pulls in neither matplotlib nor
+  traitlets (the optional ``viz`` and ``widgets`` extras), and what a
+  figure or widget draws is built without them;
 * the kernel wrappers refuse devices they have no kernel for, and the
   build refuses to run without nvcc;
 * ``chip_smoke.py`` exits non-zero without a CUDA device and prints no
@@ -11,6 +13,7 @@
 """
 
 import ast
+import importlib
 import os
 import pkgutil
 import shutil
@@ -70,6 +73,11 @@ def test_import_pulls_in_neither_jax_nor_triton():
     "xmris_tpu_torch.models.lineshapes", "xmris_tpu_torch.recon.kspace",
     "xmris_tpu_torch.recon.sense", "xmris_tpu_torch.vendor.bruker",
     "xmris_tpu_torch.processing", "xmris_tpu_torch.config",
+    "xmris_tpu_torch.visualization", "xmris_tpu_torch.visualization.plot",
+    "xmris_tpu_torch.visualization.widget", "xmris_tpu_torch._scripts",
+    "xmris_tpu_torch.visualization.widget.phase.phase",
+    "xmris_tpu_torch.visualization.widget.scroller.scroller",
+    "xmris_tpu_torch.visualization.widget.apodizer.apodizer",
 ])
 def test_new_module_import_pulls_in_neither_jax_nor_triton(module):
     """Each module of the port's entry points, alone in a fresh
@@ -88,6 +96,61 @@ def test_new_module_import_pulls_in_neither_jax_nor_triton(module):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def _fresh(code):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_pulls_in_neither_matplotlib_nor_traitlets():
+    proc = _fresh(
+        "import sys\n"
+        "import xmris_tpu_torch as xt\n"
+        "assert xt.WaterfallConfig().cmap == 'magma'\n"
+        "import xmris_tpu_torch.visualization\n"
+        "bad = [m for m in ('matplotlib', 'traitlets', 'IPython', 'jax',\n"
+        "                   'triton', 'xmris_tpu') if m in sys.modules]\n"
+        "print('LOADED', bad)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_drawn_data_builds_without_matplotlib_or_traitlets():
+    """``visualization._host``, which ``chip_smoke.py`` drives where the
+    extras are missing, imports and runs with both blocked; drawing then
+    raises ImportError naming matplotlib."""
+    proc = _fresh(
+        "import sys\n"
+        "sys.modules['matplotlib'] = sys.modules['traitlets'] = None\n"
+        "import numpy as np\n"
+        "from xmris_tpu_torch import XmrArray, XmrDataset\n"
+        "from xmris_tpu_torch.visualization import _host, plot_waterfall\n"
+        "t = np.arange(16) / 1e3\n"
+        "fid = XmrArray(np.exp(-t * 50 + 2j * np.pi * 100 * t), dims=('time',),\n"
+        "               coords={'time': t}, attrs={'reference_frequency': 100.0,\n"
+        "                                          'carrier_ppm': 0.0})\n"
+        "fids = XmrArray(np.stack([fid.values] * 3), dims=('voxel', 'time'),\n"
+        "                coords={'time': t})\n"
+        "crlb = XmrArray(np.ones((3, 1)), dims=('voxel', 'Metabolite'),\n"
+        "                coords={'Metabolite': np.array(['a'], dtype=object)})\n"
+        "ds = XmrDataset({'raw_data': fids, 'fit_data': fids, 'crlb': crlb,\n"
+        "                 'amplitude': crlb})\n"
+        "p = _host.qc_panels(ds, 'voxel', max_plots=2)\n"
+        "assert p.raw.values.shape == (2, 16) and list(p.indices) == [0, 2]\n"
+        "assert len(_host.trajectory_lines(ds, 'voxel').lines) == 1\n"
+        "assert len(_host.apodize_traits(fid)['reals_t']) == 16\n"
+        "spec = fid.xmr.to_spectrum()\n"
+        "assert len(_host.phase_traits(spec)['mag']) == 16\n"
+        "assert _host.scroll_traits(fids.xmr.to_spectrum())['scroll_dim'] == 'voxel'\n"
+        "try:\n"
+        "    plot_waterfall(fids.xmr.to_spectrum().real)\n"
+        "except ImportError as e:\n"
+        "    print('DRAWING', e)\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DRAWING" in proc.stdout and "matplotlib" in proc.stdout
 
 
 def test_package_source_never_imports_jax():
@@ -115,6 +178,13 @@ def test_packaging_names_the_port():
                     "lm_v9.cu", "lm_v9_eval.cuh", "lm_v9_warp.cuh", "spd.cu",
                     "spd_factor.cuh", "spectrum.cu"]
     assert "ops/kernels/csrc/*.cu" in globs
+    assert {"**/*.js", "**/*.css"} <= set(globs)
+    scripts = cfg["project"]["scripts"]
+    for name in ("test", "docs-api", "test-gen", "docs", "bench"):
+        fn = scripts[f"xmris-tpu-torch-{name}"].split(":")[1]
+        assert scripts[f"xmris-tpu-torch-{name}"] == f"xmris_tpu_torch._scripts:{fn}"
+        assert callable(getattr(importlib.import_module("xmris_tpu_torch._scripts"),
+                                fn))
     assert any(
         "cuda" in m for m in cfg["tool"]["pytest"]["ini_options"]["markers"]
     )

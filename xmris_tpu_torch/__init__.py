@@ -15,10 +15,11 @@ it: the ``.xmr`` accessor chain on :class:`XmrArray`, the op functions,
 (:mod:`xmris_tpu_torch.recon`), Bruker ingest, the file formats, and the
 runtime layer (:mod:`xmris_tpu_torch.runtime`: precision defaults,
 profiling, the ``xmris-tpu-torch-fit`` / ``-recon`` / ``-serve`` console
-scripts).  Entry points that search or fit run on the card unless the
-caller passes ``device="cpu"``; transforms run where the payload lies.  Not
-ported yet: the visualization (ROADMAP.md queue 1, item 13), whose names
-raise ``NotImplementedError``.
+scripts), and the visualization (:mod:`xmris_tpu_torch.visualization`:
+plots, widgets and their browser engines, on the optional matplotlib and
+traitlets, which only drawing imports).  Entry points that search or fit
+run on the card unless the caller passes ``device="cpu"``; transforms run
+where the payload lies.
 """
 
 # --- Submodules -------------------------------------------------------------
@@ -51,17 +52,6 @@ __version__ = "0.1.0"
 
 register_xarray_accessors()
 
-# Names of the reference's __all__ whose modules are not ported yet, with
-# the ROADMAP.md queue 1 item that ports them.  They stay out of __all__
-# (so that a star import works) and raise on access.
-_PENDING = {
-    "visualization": 13,
-    "WaterfallConfig": 13,
-    "CarpetConfig": 13,
-    "PlotTrajectoryConfig": 13,
-    "PlotQCGridConfig": 13,
-}
-
 
 def __getattr__(name):
     # Heavier layers resolve lazily to keep `import xmris_tpu_torch` light.
@@ -73,11 +63,11 @@ def __getattr__(name):
         from xmris_tpu_torch.config import DEFAULTS
 
         return DEFAULTS
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"xmris_tpu_torch.{name} is not ported yet; see ROADMAP.md queue "
-            f"1, item {_PENDING[name]}")
-    if name in ("parallel", "recon"):
+    if name in ("WaterfallConfig", "CarpetConfig", "PlotTrajectoryConfig", "PlotQCGridConfig"):
+        from xmris_tpu_torch import visualization
+
+        return getattr(visualization.plot, name)
+    if name in ("visualization", "parallel", "recon"):
         import importlib
 
         return importlib.import_module(f"xmris_tpu_torch.{name}")
@@ -96,6 +86,7 @@ __all__ = [
     "recon",
     "runtime",
     "vendor",
+    "visualization",
     # --- 1. Config & singletons ---
     "ATTRS",
     "COORDS",
@@ -130,6 +121,11 @@ __all__ = [
     "simulate_fid",
     # --- 5. Vendor ---
     "remove_digital_filter",
+    # --- 6. Visualization configs ---
+    "WaterfallConfig",
+    "CarpetConfig",
+    "PlotTrajectoryConfig",
+    "PlotQCGridConfig",
     # --- Interop ---
     "register_xarray_accessors",
 ]

@@ -9,8 +9,9 @@ composed from the same mixins, on :class:`~xmris_tpu_torch.core.array.XmrArray`
 Each operation runs where its function runs: the transforms and the
 window on the payload's own namespace, ``autophase``, ``baseline_als`` and
 ``fit_amares`` on the card unless the caller passes ``device="cpu"``.  The
-plotting and widget namespaces keep the reference's method names and
-signatures and raise ``NotImplementedError`` (ROADMAP.md queue 1, item 13).
+plotting and widget namespaces call :mod:`xmris_tpu_torch.visualization`,
+imported on first use: the plots and widgets run the port's ops where the
+payload lies and copy what they draw to the host once.
 """
 
 from __future__ import annotations
@@ -29,12 +30,6 @@ from xmris_tpu_torch.ops.fourier import fft, fftc, fftshift, ifft, ifftc, ifftsh
 from xmris_tpu_torch.ops.phasing import autophase, phase
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md queue 1, item 13 "
-        "(visualization)")
-
-
 # =============================================================================
 # Sub-accessors (terminal / visualization tools)
 # =============================================================================
@@ -48,11 +43,17 @@ class XmrisDatasetPlotAccessor:
 
     def trajectory(self, dim: str, metabolites=None, ax=None, config=None):
         """Plot kinetic trajectories with CRLB shading."""
-        _not_ported("xmr.plot.trajectory")
+        from xmris_tpu_torch.visualization.plot.plot_trajectory import plot_trajectory
+
+        return plot_trajectory(
+            self._obj, dim=dim, metabolites=metabolites, ax=ax, config=config
+        )
 
     def qc_grid(self, dim: str, config=None):
         """Plot a grid of spectra and fits for visual quality inspection."""
-        _not_ported("xmr.plot.qc_grid")
+        from xmris_tpu_torch.visualization.plot.plot_qc_grid import plot_qc_grid
+
+        return plot_qc_grid(self._obj, dim=dim, config=config)
 
 
 class XmrisPlotAccessor:
@@ -63,11 +64,19 @@ class XmrisPlotAccessor:
 
     def waterfall(self, x_dim=None, stack_dim=None, ax=None, config=None):
         """Ridge plot (2-D waterfall) of stacked 1-D spectra."""
-        _not_ported("xmr.plot.waterfall")
+        from xmris_tpu_torch.visualization.plot import plot_waterfall as _plot_waterfall
+
+        return _plot_waterfall(
+            da=self._obj, x_dim=x_dim, stack_dim=stack_dim, ax=ax, config=config
+        )
 
     def carpet(self, x_dim=None, stack_dim=None, ax=None, config=None):
         """2-D carpet (heatmap) plot of stacked 1-D spectra."""
-        _not_ported("xmr.plot.carpet")
+        from xmris_tpu_torch.visualization.plot import plot_carpet as _plot_carpet
+
+        return _plot_carpet(
+            da=self._obj, x_dim=x_dim, stack_dim=stack_dim, ax=ax, config=config
+        )
 
 
 class XmrisWidgetAccessor:
@@ -85,7 +94,16 @@ class XmrisWidgetAccessor:
         **kwargs,
     ):
         """Interactive zero/first-order phase correction widget."""
-        _not_ported("xmr.widget.phase_spectrum")
+        from xmris_tpu_torch.visualization.widget import phase_spectrum
+
+        return phase_spectrum(
+            self._obj,
+            width=width,
+            height=height,
+            show_grid=show_grid,
+            show_pivot=show_pivot,
+            **kwargs,
+        )
 
     def scroll_spectra(
         self,
@@ -100,7 +118,20 @@ class XmrisWidgetAccessor:
         **kwargs,
     ):
         """Interactive scroller through a 2-D series of spectra."""
-        _not_ported("xmr.widget.scroll_spectra")
+        from xmris_tpu_torch.visualization.widget import scroll_spectra
+
+        return scroll_spectra(
+            self._obj,
+            scroll_axis=scroll_axis,
+            part=part,
+            xlim=xlim,
+            ylim=ylim,
+            show_trace=show_trace,
+            trace_count=trace_count,
+            width=width,
+            height=height,
+            **kwargs,
+        )
 
     def apodize(
         self,
@@ -113,7 +144,18 @@ class XmrisWidgetAccessor:
         **kwargs,
     ):
         """Interactive apodization (line broadening / Lorentz-to-Gauss) widget."""
-        _not_ported("xmr.widget.apodize")
+        from xmris_tpu_torch.visualization.widget import apodize_interactive
+
+        return apodize_interactive(
+            da=self._obj,
+            dim=dim,
+            unit=unit,
+            width=width,
+            height=height,
+            lb_range=lb_range,
+            gb_range=gb_range,
+            **kwargs,
+        )
 
 
 # =============================================================================

@@ -108,8 +108,8 @@ def _build_dataarray_adapter():
 
         Every method is delegated explicitly so each return type's
         conversion is visible; ``plot``/``widget`` return the native
-        sub-accessors directly (their methods raise ``NotImplementedError``
-        until ROADMAP.md queue 1, item 13 ports the visualization).
+        sub-accessors directly (terminal namespaces: they return figures,
+        axes and widgets, not arrays).
         """
 
         def __init__(self, xarray_obj):
