@@ -128,6 +128,21 @@ and the script exits non-zero):
    its JS engine, ms in turns; where matplotlib or traitlets is missing,
    the figures' and widgets' host data (``visualization._host``) are
    checked instead; printed as the ``slice_14`` JSON line;
+   4za. the planar matmul DFT (``ops/kernels/dft.py``, no kernel):
+   ``dft_planar`` in float32 on the card at n = 13, 100, 2048, every
+   variant, forward and inverse, within 5e-6 max|S| of numpy's float64 FFT
+   and bit for bit the same with TF32 on; the emulated precisions
+   (``"high"`` within 2^-16, ``"default"`` within 1e-2 and above 10x
+   ``"highest"``); the bench grid through ``process_grid_planar_raw`` at
+   ``dft_variant`` None, "pallas", "fused", "einsum", "flat", "block" and
+   "full" (K1 exactly for the first two, never for the others; spectra
+   turned onto None's phases within 5e-6 max|S|; the pivot row's ACME
+   within x1.001; the fit within 2e-3 + 0.1 CRLB; the stage at None bit
+   for bit one K1 call); the stacked layout with "pallas", and its
+   ``ValueError`` with "einsum"; ``mrsi_pipeline`` at "fused" (no kernel)
+   against 4s's, then ``.xmr.fit_amares`` against 4c's maps; each
+   variant's spectral stage timed in turns with K1's; printed as the
+   ``slice_16`` JSON line;
 5. timing: median ms per single-pivot grid over synchronized grids, and
    voxels/s; the grid and its fit stage at every version in turns with
    v9; median ms of a per-voxel-autophased grid; median s of one
@@ -334,6 +349,8 @@ def _time_ms(fn, reps, warmup=2):
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# and float64 on the tensor cores (the matmul DFT's contractions).
+PEAK_FP64_TENSOR_FLOPS = 67e12
 
 
 def _bound(nbytes, flops):
@@ -2741,6 +2758,268 @@ def main(argv) -> int:
     del spec, spec_col, grid_da, ds_z, col_card, payloads
     torch.cuda.empty_cache()
 
+    # ---- 4za. the planar matmul DFT and PipelineConfig.dft_variant ----
+    _phase("4za the planar matmul DFT: dft_planar on the card, then the bench "
+           "grid at every dft_variant")
+    from xmris_tpu_torch.ops.kernels import dft as mdft
+    from xmris_tpu_torch.parallel.planar_pipeline import _spectrum_stage
+
+    @contextlib.contextmanager
+    def _tf32_on():
+        old = (torch.backends.cuda.matmul.allow_tf32,
+               torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old[0]
+            torch.set_float32_matmul_precision(old[1])
+
+    slice16 = {"card": smi, "dft_planar": {}, "precision": {}, "grid": {}}
+    matmul_variants = ("einsum", "flat", "block", "full")
+    # 1. dft_planar in float32 on the card against numpy's float64 FFT of
+    # the same float32 inputs (5e-6 max|S|, tests/test_planar.py's bar),
+    # then bit for bit the same call with TF32 on.
+    rng16 = np.random.default_rng(16)
+    for n in (13, 100, 2048):
+        z = (rng16.normal(size=(256, n)) + 1j * rng16.normal(size=(256, n))
+             ).astype(np.complex64)
+        xr16, xi16 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                      for a in (z.real, z.imag))
+        for variant in matmul_variants:
+            for inverse in (False, True):
+                want = (np.fft.ifft if inverse else np.fft.fft)(
+                    z.astype(np.complex128), norm="ortho")
+                got = mdft.dft_planar(xr16, xi16, n, inverse=inverse,
+                                      variant=variant)
+                with _tf32_on():
+                    got_tf = mdft.dft_planar(xr16, xi16, n, inverse=inverse,
+                                             variant=variant)
+                _sync()
+                err = float(np.abs(got[0].double().cpu().numpy()
+                                   + 1j * got[1].double().cpu().numpy()
+                                   - want).max() / np.abs(want).max())
+                same = all(_same_bits(a, b) for a, b in zip(got, got_tf))
+                key = f"{variant} n={n}{' inverse' if inverse else ''}"
+                slice16["dft_planar"][key] = {"err_over_max": err,
+                                              "tf32_bit_equal": same}
+                if not (err <= 5e-6 and same):
+                    raise AssertionError(f"dft_planar {key}: error {err:.3e} of "
+                                         f"max|S| (limit 5e-6), TF32 on bit "
+                                         f"for bit: {same}")
+    worst = max(v["err_over_max"] for v in slice16["dft_planar"].values())
+    print(f"   dft_planar float32 on the card, {len(slice16['dft_planar'])} "
+          f"calls (4 variants x n 13/100/2048 x forward/inverse, 256 rows): "
+          f"worst error {worst:.3e} of max|S| (limit 5e-6); with TF32 on, "
+          f"bit for bit every call", flush=True)
+    # 2. The emulated TPU precisions at n = 2048 (einsum) and the bench's
+    # rectangular fused matrix (1024 -> 2048): "high" within 2^-16 of
+    # max|S|, "default" within 1e-2 and measurably worse than "highest".
+    z = (rng16.normal(size=(256, 2048)) + 1j * rng16.normal(size=(256, 2048))
+         ).astype(np.complex64)
+    xr16, xi16 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                  for a in (z.real, z.imag))
+    for name, fn, want in (
+            ("einsum n=2048", lambda p: mdft.dft_planar(
+                xr16, xi16, 2048, variant="einsum", precision=p),
+             np.fft.fft(z.astype(np.complex128), norm="ortho")),
+            ("fused 1024 -> 2048", lambda p: mdft.dft_rect_shifted_planar(
+                xr16[:, :1024], xi16[:, :1024], 2048, precision=p),
+             np.fft.fftshift(np.fft.fft(z[:, :1024].astype(np.complex128), 2048,
+                                        norm="ortho"), axes=-1))):
+        errs = {}
+        for prec in ("highest", "high", "default"):
+            out = fn(prec)
+            with _tf32_on():
+                out_tf = fn(prec)
+            _sync()
+            errs[prec] = float(np.abs(out[0].double().cpu().numpy()
+                                      + 1j * out[1].double().cpu().numpy()
+                                      - want).max() / np.abs(want).max())
+            if not all(_same_bits(a, b) for a, b in zip(out, out_tf)):
+                raise AssertionError(f"{name} {prec}: TF32 changed the result")
+        slice16["precision"][name] = errs
+        print(f"   {name}: error of max|S| highest {errs['highest']:.3e}, high "
+              f"{errs['high']:.3e} (limit 2^-16 = 1.526e-05), default "
+              f"{errs['default']:.3e} (limit 1e-2, and > 10x highest); TF32 "
+              f"on bit for bit", flush=True)
+        if not (errs["highest"] <= 5e-6 and errs["high"] <= 2.0**-16
+                and 10 * errs["highest"] < errs["default"] <= 1e-2):
+            raise AssertionError(f"{name}: a precision is off its stated error")
+    del xr16, xi16, got, got_tf, out, out_tf
+    # 3. The bench grid through process_grid_planar_raw at every variant:
+    # K1 exactly for None and "pallas", never for the matmul variants; the
+    # spectra turned onto the None run's phases within 5e-6 max|S|; the
+    # pivot row's ACME within x1.001 both ways; the fit within 2e-3 + 0.1
+    # CRLB (it reads the FIDs).
+    cfg16 = PipelineConfig(zero_fill_to=bi.ZERO_FILL, autophase="single",
+                           ap_optimizer="grid")
+    runs16 = {}
+    for variant in (None, "pallas", "fused") + matmul_variants:
+        c16 = dataclasses.replace(cfg16, dft_variant=variant)
+        K.reset_counters()
+        runs16[variant] = process_grid_planar_raw(*args, **dict(fit_kw, cfg=c16))
+        _sync()
+        counts = K.counters()
+        kernel_dft = variant in (None, "pallas")
+        _check_path(K, counts, "grid_single_pivot" if kernel_dft
+                    else "grid_single_pivot_dft")
+        if counts["launches"]["spectrum"] != int(kernel_dft):
+            raise AssertionError(f"dft_variant={variant!r}: K1 launched "
+                                 f"{counts['launches']['spectrum']} times")
+        slice16["grid"][str(variant)] = {"k1_launches": counts["launches"]["spectrum"]}
+    # The stage at None is the parent's: one K1 call, bit for bit.
+    stage = _spectrum_stage(re, im, w_d, cfg16, True, K.DISPATCH)
+    direct = dft_cuda.spectrum(re, im, bi.ZERO_FILL, window=win, with_maxmag=True)
+    _sync()
+    if not all(torch.equal(a, b) for a, b in zip(stage, direct)):
+        raise AssertionError("dft_variant=None: the stage is not K1's call")
+    un_re, un_im = direct[0], direct[1]
+    v_piv = int(torch.argmax(direct[2]))
+    row16 = (un_re[v_piv:v_piv + 1].double(), un_im[v_piv:v_piv + 1].double())
+    f64 = f_d.double()
+    sr0, si0, (a0, a1, apiv), x0, _, _, sds0 = runs16[None]
+
+    def _ramp(q0, q1, qpiv):
+        return (torch.deg2rad(q0.double()) + torch.deg2rad(q1.double())
+                * ((f64 - qpiv.double()) / (f64[-1] - f64[0])))
+
+    def _acme16(q0, q1, qpiv):
+        return float(_acme_scores(acme_score_raw, _phased_real_planar, *row16,
+                                  f64, q0.double()[None], q1.double()[None],
+                                  qpiv.double()[None], float(f64[-1] - f64[0]))[0])
+
+    s_none = _acme16(a0, a1, apiv)
+    sc16 = float(torch.maximum(sr0.abs().max(), si0.abs().max()))
+    for variant, out16 in runs16.items():
+        sr_v, si_v, (q0, q1, qpiv), x_v = out16[:4]
+        d = (_ramp(a0, a1, apiv) - _ramp(q0, q1, qpiv)).float()[None]
+        c, s_ = torch.cos(d), torch.sin(d)
+        rec = slice16["grid"][str(variant)]
+        rec["spectra_err"] = max(
+            _assert_close(f"dft_variant={variant!r} spectra re (turned onto "
+                          "None's phases)", sr0, sr_v * c - si_v * s_, 0.0,
+                          5e-6 * sc16),
+            _assert_close(f"dft_variant={variant!r} spectra im",
+                          si0, sr_v * s_ + si_v * c, 0.0, 5e-6 * sc16))
+        ratio = _acme16(q0, q1, qpiv) / s_none
+        rec.update(p0=float(q0), p1=float(q1), pivot=float(qpiv),
+                   acme_ratio=ratio, bit_equal_none=bool(
+                       torch.equal(sr_v, sr0) and torch.equal(si_v, si0)))
+        print(f"   dft_variant={variant!r}: K1 {rec['k1_launches']}, phases "
+              f"({float(q0):.5f}, {float(q1):.5f}) at pivot {float(qpiv):.4f}; "
+              f"ACME of the pivot row / None's {ratio:.7f} (limit x1.001 both "
+              f"ways); spectra bit for bit None's: {rec['bit_equal_none']}",
+              flush=True)
+        if not 1 / 1.001 <= ratio <= 1.001:
+            raise AssertionError(f"dft_variant={variant!r}: ACME off None's")
+        _within_crlb(f"dft_variant={variant!r} x_free vs None's", x_v, x0, sds0)
+    if not slice16["grid"]["pallas"]["bit_equal_none"]:
+        raise AssertionError("dft_variant='pallas' differs from None")
+    del runs16, stage, direct, un_re, un_im, sr0, si0
+    # 4. The stacked layout needs the kernel.
+    stk = spectral_pipeline_planar_raw(re, im, w_d, f_d, dataclasses.replace(
+        cfg16, dft_variant="pallas", spec_layout="stacked"))
+    if stk[0].dim() != 3:
+        raise AssertionError("stacked pallas spectra are not (B, n2, n1)")
+    try:
+        spectral_pipeline_planar_raw(re, im, w_d, f_d, dataclasses.replace(
+            cfg16, dft_variant="einsum", spec_layout="stacked"))
+    except ValueError as e:
+        print(f"   stacked + 'pallas': {tuple(stk[0].shape)}; stacked + "
+              f"'einsum' raises ValueError: {e}")
+    else:
+        raise AssertionError("stacked + einsum did not raise")
+    del stk
+    # 5. mrsi_pipeline at dft_variant="fused" on the labeled grid, then
+    # .xmr.fit_amares: no K1; spectra within 5e-6 max|S| of 4s's turned
+    # onto this run's phases; the maps within 2e-3 + 0.1 CRLB of 4c's.
+    cfg_f = dataclasses.replace(mrsi_cfgs["grid search"], dft_variant="fused")
+    out_f = _mrsi_run(K, mrsi_pipeline, da, cfg_f, "mrsi_pipeline_dft", 0)
+    ref_f = torch.as_tensor(mrsi_out["grid search"].values, device=dev)
+    f_m64t = torch.as_tensor(f_m64, device=dev)
+
+    def _factor16(o):
+        return phase_factor_raw(f_m64t, float(o.attrs["phase_p0"]),
+                                float(o.attrs["phase_p1"]),
+                                float(o.attrs["phase_pivot"]),
+                                float(f_m64t.max() - f_m64t.min()))
+
+    got_f = torch.as_tensor(out_f.values, device=dev)
+    turned = ref_f * (_factor16(out_f) / _factor16(mrsi_out["grid search"])
+                      ).to(ref_f.dtype)
+    s_f = float(ref_f.abs().max())
+    slice16["mrsi_fused_err"] = max(
+        _assert_close("mrsi_pipeline fused vs 4s's turned re", got_f.real,
+                      turned.real, 0.0, 5e-6 * s_f),
+        _assert_close("mrsi_pipeline fused vs 4s's turned im", got_f.imag,
+                      turned.imag, 0.0, 5e-6 * s_f))
+    K.reset_counters()
+    ds_f = da.xmr.fit_amares(pk)
+    _sync()
+    _check_path(K, K.counters(), "fit_amares")
+    got_m = np.stack([ds_f[n].values.reshape(b, -1) for n in fams])
+    maps_4c = np.stack([ds[n].values.reshape(b, -1) for n in fams])
+    slice16["fit_max_ratio_to_0_1_crlb"] = float(
+        (np.abs(got_m - maps_4c) / (2e-3 + 0.1 * sd)).max())
+    print(f"   .xmr.fit_amares after it: max |dx| / (2e-3 + 0.1 CRLB) vs 4c's "
+          f"{slice16['fit_max_ratio_to_0_1_crlb']:.3f} (limit 1)", flush=True)
+    if not slice16["fit_max_ratio_to_0_1_crlb"] <= 1.0:
+        raise AssertionError("the fit after the fused mrsi_pipeline is off 4c's")
+    del out_f, ref_f, got_f, turned, ds_f, got_m, maps_4c
+    # 6. Each variant's spectral stage (autophase "none") against K1's, one
+    # call a turn timed by CUDA events, 7 rounds, the order reversed every
+    # other round; the peak memory of one call.
+    cfg_t = dataclasses.replace(cfg16, autophase="none")
+    turns16 = {str(v): [] for v in (None, "fused") + matmul_variants}
+    peak16 = {}
+    for v in turns16:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        spectral_pipeline_planar_raw(re, im, w_d, f_d, dataclasses.replace(
+            cfg_t, dft_variant=None if v == "None" else v))
+        _sync()
+        peak16[v] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for rnd in range(7):
+        order = list(turns16) if rnd % 2 == 0 else list(turns16)[::-1]
+        for v in order:
+            c_v = dataclasses.replace(cfg_t, dft_variant=None if v == "None" else v)
+            _sync()
+            ev0.record()
+            spectral_pipeline_planar_raw(re, im, w_d, f_d, c_v)
+            ev1.record()
+            _sync()
+            turns16[v].append(ev0.elapsed_time(ev1))
+    slice16["stage_ms_in_turns"] = {v: float(np.median(x)) for v, x in turns16.items()}
+    slice16["stage_peak_gib"] = peak16
+    # The least time of each stage: its planes read and spectra written
+    # once over the memory rate, or its contractions' operations (K1's
+    # FFT: 5 n log2 n a voxel) over the rate of their type, float64 on
+    # the tensor cores for the matmul DFT (data sheet, like the fp32 rate).
+    n_in, n_f = bi.N_TIME, bi.ZERO_FILL
+    n1, n2 = mdft.plan_dft(n_f)[1:3]
+    flops16 = {"None": 5 * n_f * np.log2(n_f) * b,
+               "fused": 2 * b * (2 * n_in) * (2 * n_f),
+               "full": 2 * b * (2 * n_f) ** 2,
+               **{v: 8 * b * n_f * (n1 + n2) for v in ("einsum", "flat", "block")}}
+    bytes16 = 4 * b * 2 * (n_in + n_f)
+    slice16["stage_bound_ms"] = {}
+    for v, x in turns16.items():
+        t_ops = 1e3 * flops16[v] / (PEAK_FP32_FLOPS if v == "None"
+                                    else PEAK_FP64_TENSOR_FLOPS)
+        bound = max((1e3 * bytes16 / PEAK_BYTES_PER_S, "bytes"),
+                    (t_ops, "operations"))
+        slice16["stage_bound_ms"][v] = bound
+        print(f"   spectral stage (autophase 'none'), dft_variant={v}: median "
+              f"{slice16['stage_ms_in_turns'][v]:.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in x)}); bound {bound[0]:.4f} ms "
+              f"({bound[1]}); peak {peak16[v]:.3f} GiB above the inputs",
+              flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 5. timing ----
     _phase("5 timing")
     times = []
@@ -2981,6 +3260,7 @@ def main(argv) -> int:
     print(json.dumps({"slice_12": slice12}))
     print(json.dumps({"slice_13": slice13}))
     print(json.dumps({"slice_14": slice14}))
+    print(json.dumps({"slice_16": slice16}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ except that the normal equations' g and H are held per entry at the scale
 of their rows (``_assert_normal_eq_close``).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1660,3 +1661,87 @@ def test_plots_and_widgets_on_the_card_draw_the_cpu_drawing(dev):
             (lambda d: d.xmr.widget.scroll_spectra(), spec),
             (lambda d: d.xmr.widget.apodize(), fid_da.isel(voxel=0))):
         assert make(payload.to(dev)).trait_values() == make(payload).trait_values()
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 on for float32 matmuls around the body, the flags restored
+    after it."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.set_float32_matmul_precision(old[1])
+
+
+@pytest.mark.parametrize("variant", ["einsum", "flat", "block", "full", "rect"])
+def test_matmul_dft_on_the_card_ignores_tf32(dev, variant):
+    """The matmul DFT in float32 on the card against numpy's float64 FFT at
+    5e-6 max|S| (``tests/test_planar.py``'s float32 bar), forward and
+    inverse, and bit for bit the same with TF32 turned on."""
+    from xmris_tpu_torch.ops.kernels import dft
+
+    rng = np.random.default_rng(4)
+    for n in (13, 100, 2048):
+        z = rng.normal(size=(8, n)) + 1j * rng.normal(size=(8, n))
+        xr, xi = (torch.as_tensor(a.astype(np.float32), device=dev)
+                  for a in (z.real, z.imag))
+        for inverse in ((False,) if variant == "rect" else (False, True)):
+            if variant == "rect":
+                def run():
+                    return dft.dft_rect_shifted_planar(xr, xi, 2 * n)
+                want = np.fft.fftshift(np.fft.fft(z, 2 * n, norm="ortho"),
+                                       axes=-1)
+            else:
+                def run():
+                    return dft.dft_planar(xr, xi, n, inverse=inverse,
+                                          variant=variant)
+                want = (np.fft.ifft if inverse else np.fft.fft)(z, norm="ortho")
+            got = run()
+            with _tf32_on():
+                got_tf32 = run()
+            torch.cuda.synchronize()
+            assert got[0].is_cuda and got[0].dtype == torch.float32
+            err = np.abs(got[0].double().cpu().numpy()
+                         + 1j * got[1].double().cpu().numpy() - want).max()
+            assert err <= 5e-6 * np.abs(want).max(), (n, inverse, err)
+            for a, b in zip(got, got_tf32):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["fused", "einsum", "full"])
+def test_grid_at_a_matmul_variant_launches_no_spectrum_kernel(dev, variant):
+    """process_grid_planar_raw at a matmul ``dft_variant``: the fit's
+    kernels and no K1; the spectra within 5e-6 max|S| of K1's run."""
+    re, im, w, f = _planes(dev)
+    fids, _, _ = bi.make_inputs(GRID)
+    pk = prior_from_csv_text(bi.PK_CSV, "bench PK_CSV")
+    amp_slots, ls_plan = seed_plan(pk)
+    t_np = (np.arange(bi.N_TIME) / bi.SW).astype(np.float32)
+    from xmris_tpu_torch.fitting.amares import template_optimum
+
+    xt = template_optimum(fids, pk, torch.from_numpy(t_np).to(dev), bi.MHZ)
+    args = grid_inputs_from_numpy(fids, np.asarray(w.cpu()), np.asarray(f.cpu()),
+                                  t_np, xt, pk, dev)
+    kw = dict(pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    base = dict(zero_fill_to=bi.ZERO_FILL, autophase="none")
+    ref = process_grid_planar_raw(*args, cfg=PipelineConfig(**base), **kw)
+    K.reset_counters()
+    got = process_grid_planar_raw(
+        *args, cfg=PipelineConfig(**base, dft_variant=variant), **kw)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    path = K.PATHS["grid_single_pivot_dft"]
+    assert {n for n, c in counts["launches"].items() if c} == set(path)
+    assert not any(counts["plain_calls"].values())
+    scale = float(torch.maximum(ref[0].abs().max(), ref[1].abs().max()))
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-6 * scale)
+    # The fit reads the FIDs, not the spectra (repeated grids may differ
+    # in the last bits: test_torch_slice's bars).
+    torch.testing.assert_close(got[3], ref[3], rtol=2e-3, atol=2e-3)

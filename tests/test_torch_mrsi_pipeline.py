@@ -210,11 +210,9 @@ def test_mesh_and_engine_arguments():
 
 
 def test_pipeline_config_lb_gb_match_reference():
-    """The reference's fields in its order, without the XLA DFT knobs and
-    ``phase_barrier``; the same defaults and validation."""
-    dropped = {"dft_variant", "dft_precision", "phase_barrier"}
-    ref_fields = [f for f in dataclasses.fields(RefConfig)
-                  if f.name not in dropped]
+    """The reference's fields in its order, the DFT knobs and
+    ``phase_barrier`` included; the same defaults and validation."""
+    ref_fields = dataclasses.fields(RefConfig)
     fields = dataclasses.fields(PipelineConfig)
     assert [f.name for f in fields] == [f.name for f in ref_fields]
     assert [f.default for f in fields] == [f.default for f in ref_fields]

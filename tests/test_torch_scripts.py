@@ -63,8 +63,7 @@ def test_every_page_converts_as_the_reference_converts_it():
 def test_api_modules_are_the_references_counterparts():
     ref = {m.replace("xmris_tpu", "xmris_tpu_torch", 1)
            for m in jscripts._API_MODULES}
-    kernels = {"xmris_tpu_torch.ops.kernels.dft",
-               "xmris_tpu_torch.ops.kernels.dft_pallas",
+    kernels = {"xmris_tpu_torch.ops.kernels.dft_pallas",
                "xmris_tpu_torch.ops.kernels.lm_pallas"}
     ours = set(_scripts._API_MODULES)
     assert ours - ref == {"xmris_tpu_torch.ops.kernels.dft_cuda",

@@ -30,9 +30,9 @@ DOC_PYTHON_BLOCK_RE = re.compile(
     r"(<!--[^>]*no-test[^>]*-->\s*)?```python\n(.*?)```", re.DOTALL
 )
 
-# The JAX package's list with its kernel modules' counterparts: the XLA DFT
-# layouts (``ops.kernels.dft``) are not ported, and ``lm_pallas`` is split
-# into the three LM wrapper modules.
+# The JAX package's list with its kernel modules' counterparts:
+# ``dft_pallas`` is ``dft_cuda``, and ``lm_pallas`` is split into the three
+# LM wrapper modules.
 _API_MODULES = [
     "xmris_tpu_torch",
     "xmris_tpu_torch.core.config",
@@ -45,6 +45,7 @@ _API_MODULES = [
     "xmris_tpu_torch.ops.baseline",
     "xmris_tpu_torch.ops.optim",
     "xmris_tpu_torch.ops.utils",
+    "xmris_tpu_torch.ops.kernels.dft",
     "xmris_tpu_torch.ops.kernels.dft_cuda",
     "xmris_tpu_torch.ops.kernels.lm_cuda",
     "xmris_tpu_torch.ops.kernels.lm_jac_cuda",

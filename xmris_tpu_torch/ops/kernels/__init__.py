@@ -18,6 +18,10 @@ K13    ``lm_jac_cuda.eq6_normal_equations_v2``  ``lm_pallas.eq6_normal_equations
 K14    ``lm_jac_cuda.eq6_normal_equations_v1``  ``lm_pallas.eq6_normal_equations_pallas``
 =====  =======================================  ===============================================
 
+``dft.py`` (the matmul DFT, ``dft_planar`` and its variants) is no kernel:
+the reference computes it as XLA matmuls outside any Pallas kernel, so the
+port computes it with ``torch.matmul``.
+
 K13 and K14 launch K7's kernel (the same function), K11 and K10 K12's
 with a voxel mask (K10 on the block-factored basis), K9 K2's evaluation
 with an identity fold; each under its own counter.
@@ -45,6 +49,12 @@ from xmris_tpu_torch.ops.kernels import (
     lm_jac_cuda,
     lm_loop_cuda,
     spd,
+)
+from xmris_tpu_torch.ops.kernels.dft import (
+    dft_planar,
+    fft_ortho_planar,
+    ifft_ortho_planar,
+    plan_dft,
 )
 from xmris_tpu_torch.ops.kernels._counters import (
     LAUNCHES,
@@ -127,6 +137,9 @@ PATHS = {
     # fitting.amares.fit_amares, engine="pallas"
     "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
                    "spd_inverse_diag_dense"),
+    # process_grid_planar_raw, autophase="single", with a matmul dft_variant
+    # ("fused", "einsum", "flat", "block", "full"): no K1
+    "grid_single_pivot_dft": _FIT,
     # process_grid_planar_raw, autophase="single", kernel_version=10, 3, 5
     # and (the bench's Lorentzian prior, n_t % 128 == 0) 8, 6, 7, 2, 1
     "grid_single_pivot_v10": ("spectrum", "lm_loop_v10",
@@ -139,6 +152,8 @@ PATHS = {
     # parallel.pipeline.mrsi_pipeline, the single pivot (either search) or
     # autophase="none"
     "mrsi_pipeline": ("spectrum",),
+    # mrsi_pipeline with a matmul dft_variant and the single pivot
+    "mrsi_pipeline_dft": (),
     # mrsi_pipeline, autophase="all" with the grid search and the "auto" or
     # "fused" polish
     "mrsi_pipeline_per_voxel": ("spectrum", "acme_polish"),
@@ -150,5 +165,6 @@ PATHS = {
 
 __all__ = [
     "DISPATCH", "KernelSet", "LAUNCHES", "PATHS", "PLAIN", "PLAIN_CALLS",
-    "counters", "reset_counters",
+    "counters", "dft_planar", "fft_ortho_planar", "ifft_ortho_planar",
+    "plan_dft", "reset_counters",
 ]

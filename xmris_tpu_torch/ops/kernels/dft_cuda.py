@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from xmris_tpu_torch.ops.kernels import _build, _counters
+from xmris_tpu_torch.ops.kernels.dft import _rect_shifted_block_matrix
 
 
 def _pick_n2(n_in: int, n_out: int) -> int:
@@ -129,7 +130,7 @@ def _tables_on(device, kind: str, *shape: int):
         if kind == "split":
             tables = _factor_tables(*shape)
         elif kind == "dense":
-            tables = (_dense_matrix(*shape),)
+            tables = (_rect_shifted_block_matrix(*shape, "float64"),)
         else:  # one (n_out, 2) table of interleaved (cos, sin) pairs
             tables = (np.stack(fft_twiddles(*shape), axis=1),)
         _device_tables[key] = tuple(torch.as_tensor(a, device=device)
@@ -194,25 +195,13 @@ def spectrum_plain(xr, xi, n_out: int, window=None, with_maxmag=False,
     return shaped + (mv, mi.to(torch.int32))
 
 
-def _dense_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """Block-complex (2 n_in, 2 n_out) float64 matrix of the zero-filled
-    ortho DFT with fftshifted columns: ``[x_re | x_im] @ M = [S_re | S_im]``
-    (the reference's ``_rect_shifted_block_matrix``; :func:`_tables_on`
-    keeps it on the device)."""
-    j = np.arange(n_in)[:, None]
-    k = (np.arange(n_out)[None, :] - n_out // 2) % n_out
-    ang = -2.0 * np.pi * j * k / n_out
-    scale = 1.0 / math.sqrt(n_out)
-    fr, fi = np.cos(ang) * scale, np.sin(ang) * scale
-    top = np.concatenate([fr, fi], axis=1)
-    bot = np.concatenate([-fi, fr], axis=1)
-    return np.concatenate([top, bot], axis=0)
-
-
 def spectrum_dense(xr, xi, n_out: int, window=None, with_maxmag=False,
                    stacked_out=False):
     """The dense route: window, zero-fill, ortho DFT and fftshift as one
-    matmul against :func:`_dense_matrix`, summed in float64 and rounded to
+    matmul against the block-complex (2 n_in, 2 n_out) float64 matrix of
+    the zero-filled ortho DFT with fftshifted columns
+    (:func:`~xmris_tpu_torch.ops.kernels.dft._rect_shifted_block_matrix`,
+    kept on the device by :func:`_tables_on`), summed in float64 and rounded to
     float32 (see the module docstring), then each
     voxel's max |X|^2 and its first index.  Plain PyTorch on any device;
     :func:`spectrum` takes it on the card for the shapes :func:`route`

@@ -7,11 +7,10 @@ host-side apodization window (:func:`_apodization_weight`),
 :func:`mrsi_pipeline`, which runs ``zero_fill -> apodize -> to_spectrum ->
 autophase`` over every voxel of an :class:`XmrArray` as one call of
 :func:`~xmris_tpu_torch.parallel.planar_pipeline.spectral_pipeline_planar_raw`
-(kernel K1, then the phase search) and returns the labeled spectra with the
-op-by-op chain's coordinates and lineage.  The spectrum always runs the
-hand-written kernel (the reference's ``dft_variant="pallas"``), so there is
-no variant or precision field; the reference's ``phase_barrier`` knob is
-dropped.
+(kernel K1 or a matmul DFT, then the phase search) and returns the labeled
+spectra with the op-by-op chain's coordinates and lineage.  Every engine
+runs that one planar program, so ``dft_variant``, ``dft_precision`` and
+``phase_barrier`` act on all of them.
 """
 
 from __future__ import annotations
@@ -50,8 +49,19 @@ class PipelineConfig:
     ``"grid"``; ``ap_polish``: the grid search's polish, ``"gd"``,
     ``"fused"`` (``"auto"``: the fused kernel K5 for a grid of voxels on
     the card, gd for the single pivot row or on the CPU), ``"newton"`` or
-    ``"bfgs"``.  ``spec_layout``: ``"flat"`` (B, n_out) or ``"stacked"``
-    (B, n2, n1) spectra.
+    ``"bfgs"``.  ``dft_variant``: the spectral transform, None or
+    ``"pallas"`` (kernel K1, where the reference's None picks the einsum
+    formulation off a single TPU), ``"fused"`` (zero-fill, ortho DFT and
+    fftshift as one matmul) or a :func:`~xmris_tpu_torch.ops.kernels.dft.
+    dft_planar` variant (``"einsum"``, ``"flat"``, ``"block"``, ``"full"``);
+    ``dft_precision``: the matmul DFT's emulated TPU precision (None,
+    ``"default"``, ``"high"``, ``"highest"``; with ``dft_variant=None`` it
+    selects ``"einsum"``, as the reference turns its kernel off for it).
+    ``spec_layout``: ``"flat"`` (B, n_out) or ``"stacked"`` (B, n2, n1)
+    spectra, the kernel's layout (``dft_variant`` None or ``"pallas"``).
+    ``phase_barrier``: the reference's XLA fusion barrier on the phase
+    ramp's cos/sin vectors; eager PyTorch always materializes them, so
+    both values run the same code (a bool is required).
     """
 
     zero_fill_to: int = 2048
@@ -64,7 +74,10 @@ class PipelineConfig:
     de_seed: int = 42
     ap_optimizer: str = "de"  # "de" | "grid"
     ap_polish: str = "auto"
+    dft_variant: str | None = None
+    dft_precision: str | None = None
     spec_layout: str = "flat"  # "flat" | "stacked"
+    phase_barrier: bool = False
 
     def __post_init__(self):
         if self.autophase not in ("single", "all", "none"):

@@ -1,13 +1,16 @@
 """Planar (split real/imag) fused MRSI spectral stage (PyTorch port).
 
-Port of :func:`xmris_tpu.parallel.planar_pipeline.spectral_pipeline_planar_raw`
-on its kernel variant: window + zero-fill + ortho DFT + fftshift and the
-per-voxel peak search in ONE kernel launch (K1), then the ACME autophase:
-on the grid's loudest row, applied to every voxel (``autophase="single"``),
-or on every voxel with its own pivot (``autophase="all"``).  The search is
-differential evolution (``ap_optimizer="de"``, the default) or the
-candidate grid, whose per-voxel polish is kernel K5 on the card
-(``ap_polish="auto"``/``"fused"``) or the torch gd, Newton or BFGS polish.
+Port of :func:`xmris_tpu.parallel.planar_pipeline.spectral_pipeline_planar_raw`:
+window + zero-fill + ortho DFT + fftshift, then the ACME autophase: on the
+grid's loudest row, applied to every voxel (``autophase="single"``), or on
+every voxel with its own pivot (``autophase="all"``).  The transform is
+``cfg.dft_variant``'s: kernel K1 for None and ``"pallas"`` (the spectra and
+each voxel's peak in ONE launch), or a matmul DFT of
+:mod:`xmris_tpu_torch.ops.kernels.dft` where the payload lies (the peak
+then read from its spectra).  The search is differential evolution
+(``ap_optimizer="de"``, the default) or the candidate grid, whose per-voxel
+polish is kernel K5 on the card (``ap_polish="auto"``/``"fused"``) or the
+torch gd, Newton or BFGS polish.
 """
 
 from __future__ import annotations
@@ -15,6 +18,12 @@ from __future__ import annotations
 import torch
 
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
+from xmris_tpu_torch.ops.kernels.dft import (
+    DEFAULT_VARIANT,
+    _check_precision,
+    dft_planar,
+    dft_rect_shifted_planar,
+)
 from xmris_tpu_torch.ops.phasing import (
     _de_phase_search,
     _grid_phase_search,
@@ -24,7 +33,12 @@ from xmris_tpu_torch.ops.phasing import (
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
 
 
-def _apply_phase_planar(re, im, phi):
+def _apply_phase_planar(re, im, phi, barrier: bool = False):
+    """Rotate the spectra by ``phi``.  ``barrier`` is the reference's XLA
+    optimization barrier on the cos/sin vectors; eager PyTorch always
+    materializes them, so both values run this same code."""
+    if not isinstance(barrier, bool):
+        raise TypeError(f"phase_barrier must be a bool, got {barrier!r}.")
     c, s = torch.cos(phi), torch.sin(phi)
     return re * c - im * s, re * s + im * c
 
@@ -73,7 +87,7 @@ def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak,
     phi = (torch.deg2rad(p0)
            + torch.deg2rad(p1) * ((freqs - pivot) / x_range)).to(re.dtype)
     phi = phi.reshape(re.shape[-2:])[None] if stacked else phi[None, :]
-    re, im = _apply_phase_planar(re, im, phi)
+    re, im = _apply_phase_planar(re, im, phi, barrier=cfg.phase_barrier)
     return re, im, p0, p1, pivot
 
 
@@ -105,23 +119,66 @@ def _autophase_all_planar(re, im, freqs, cfg: PipelineConfig, t_idx,
     return re, im, p0s, p1s, pivots
 
 
+def _resolve_variant(cfg: PipelineConfig) -> str:
+    """The transform ``cfg`` runs: ``"pallas"`` (K1) for ``dft_variant``
+    None, or ``"einsum"`` when a ``dft_precision`` is asked for (the
+    reference's kernel hard-codes HIGHEST, so a precision turns its
+    automatic choice of the kernel off); else ``cfg.dft_variant``."""
+    _check_precision(cfg.dft_precision)
+    variant = cfg.dft_variant
+    if variant is None and cfg.dft_precision is None:
+        variant = "pallas"
+    if cfg.spec_layout == "stacked" and variant != "pallas":
+        raise ValueError(
+            "spec_layout='stacked' requires the pallas DFT variant "
+            f"(resolved variant: {variant!r}; shapes must satisfy "
+            "pallas_split_ok and the backend must select/force it)."
+        )
+    return variant or DEFAULT_VARIANT
+
+
 def _spectrum_stage(fids_re, fids_im, weight, cfg: PipelineConfig,
                     with_peak: bool, kernels: KernelSet):
-    """K1: window + zero-fill + ortho DFT + fftshift, with each voxel's
-    peak (max |S|^2 and its first bin) when ``with_peak``."""
-    n_time = fids_re.shape[1]
-    return kernels.spectrum(
-        fids_re, fids_im, cfg.zero_fill_to,
-        window=weight[:n_time].to(fids_re.dtype).contiguous(),
-        with_maxmag=with_peak,
-        stacked_out=cfg.spec_layout == "stacked",
-    )
+    """Window + zero-fill + ortho DFT + fftshift, with each voxel's peak
+    (max |S|^2 and its first bin) when ``with_peak``: K1 (``kernels.
+    spectrum``) for the ``"pallas"`` variant, else the matmul DFT, its peak
+    read from the spectra (the first maximum, as K1 and ``argmax`` take
+    it)."""
+    variant = _resolve_variant(cfg)
+    n_time, n_out = fids_re.shape[1], cfg.zero_fill_to
+    window = weight[:n_time].to(fids_re.dtype)
+    if variant == "pallas":
+        return kernels.spectrum(
+            fids_re, fids_im, n_out, window=window.contiguous(),
+            with_maxmag=with_peak, stacked_out=cfg.spec_layout == "stacked",
+        )
+    if n_out < n_time:
+        raise ValueError(
+            f"zero_fill_to={n_out} < n_time={n_time}: the spectral stage "
+            "only zero-fills"
+        )
+    xr, xi = fids_re * window, fids_im * window
+    if variant == "fused":
+        spec_re, spec_im = dft_rect_shifted_planar(
+            xr, xi, n_out, precision=cfg.dft_precision)
+    else:
+        pad = (0, n_out - n_time)
+        spec_re, spec_im = dft_planar(
+            torch.nn.functional.pad(xr, pad), torch.nn.functional.pad(xi, pad),
+            n_out, ortho=True, variant=variant, precision=cfg.dft_precision)
+        spec_re = torch.roll(spec_re, n_out // 2, dims=-1)
+        spec_im = torch.roll(spec_im, n_out // 2, dims=-1)
+    if not with_peak:
+        return spec_re, spec_im
+    mv, mi = torch.max(spec_re * spec_re + spec_im * spec_im, dim=1)
+    return spec_re, spec_im, mv, mi
 
 
 def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
                                  cfg: PipelineConfig,
                                  kernels: KernelSet = DISPATCH):
-    """Fused spectral stage on planar (B, n_time) float32 batches.
+    """Fused spectral stage on planar (B, n_time) batches (float32; the
+    matmul variants of ``cfg.dft_variant`` also take float64).
 
     ``weight`` is the (zero_fill_to,) apodization window on the zero-
     filled axis (its first n_time entries are applied), ``freqs`` the
@@ -130,9 +187,9 @@ def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
     ``spec_layout="stacked"`` (flat k = k1 + n1*k2) — with 0-dim phase
     tensors (zeros for ``autophase="none"``), or (B,) per-voxel phases and
     pivots for ``autophase="all"``.  Every zero-fill runs (K1's FFT or split
-    kernel, or the dense route; ``dft_cuda.route``); the stacked layout
-    needs a Cooley-Tukey split and ``zero_fill_to < n_time`` raises
-    ``ValueError``, as in the reference.
+    kernel, or the dense route; ``dft_cuda.route``; or the matmul DFT); the
+    stacked layout needs K1 and a Cooley-Tukey split, and
+    ``zero_fill_to < n_time`` raises ``ValueError``.
     """
     want_peak = cfg.autophase in ("single", "all")
     out = _spectrum_stage(fids_re, fids_im, weight, cfg, want_peak, kernels)
@@ -217,7 +274,8 @@ def _elect_and_phase(shards, freqs, cfg: PipelineConfig,
         ph = phi.to(spec_re.dtype).to(spec_re.device)
         ph = ph.reshape(spec_re.shape[-2:])[None] if spec_re.dim() == 3 \
             else ph[None, :]
-        out.append(_apply_phase_planar(spec_re, spec_im, ph))
+        out.append(_apply_phase_planar(spec_re, spec_im, ph,
+                                       barrier=cfg.phase_barrier))
     return out, (p0, p1, pivot)
 
 
