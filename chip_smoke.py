@@ -60,7 +60,7 @@ and the script exits non-zero):
    4p. ``fit_amares`` on the same array with that prior (K2, K3, K6b),
    again with planes staged by ``stage_device_fids`` (bit for bit), its
    residual cost against the plain path's within the same bounds, and its
-   stage split (``XMT_FIT_STAGE_TIMERS``);
+   stage split (its ``fit_amares.*`` spans under ``profiling.recording``);
    4q. ``process_grid_planar_raw`` at ``PipelineConfig(zero_fill_to=2048)``
    defaults (differential evolution on the pivot row): its phases and ACME
    score beside the grid search's, and ms in turns with the grid search;
@@ -167,7 +167,6 @@ import base64
 import contextlib
 import io
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -490,7 +489,7 @@ def main(argv) -> int:
     from xmris_tpu_torch.parallel.fit import lm_fit_batched_pallas_sharded
     from xmris_tpu_torch.parallel.mesh import Mesh
     from xmris_tpu_torch.parallel.process import process_grid_sharded
-    from xmris_tpu_torch.runtime import cli
+    from xmris_tpu_torch.runtime import cli, profiling
     from xmris_tpu_torch.runtime.profiling import Timings, stage_timer, trace
 
     profile_dir = (argv[argv.index("--profile-dir") + 1]
@@ -1623,15 +1622,18 @@ def main(argv) -> int:
     print(f"   fit_amares maps vs the plain KernelSet: {share_fg:.5f} of voxels "
           f"within rtol/atol 2e-3 (reported)")
     del ds_gp, fams_g
-    os.environ["XMT_FIT_STAGE_TIMERS"] = "1"
     fit_g_times = []
     for _ in range(3):
         _sync()
         t0 = time.perf_counter()
-        fit_amares(da, pk_g)
+        with profiling.recording() as rec:
+            fit_amares(da, pk_g)
         _sync()
         fit_g_times.append(time.perf_counter() - t0)
-    del os.environ["XMT_FIT_STAGE_TIMERS"]
+        stages = {n: (round(v["host_ms"], 3), v["card_ms"] and round(v["card_ms"], 3))
+                  for n, v in rec.snapshot()["spans"].items()
+                  if n.startswith("fit_amares")}
+        print(f"   fit_amares spans (host ms, card ms): {stages}")
     fit_g_med = float(np.median(fit_g_times))
     print(f"   fit_amares (free g) times s: {[round(x, 3) for x in fit_g_times]}; "
           f"median {fit_g_med:.3f} s = {b / fit_g_med:.1f} voxels/s")

@@ -30,6 +30,7 @@ from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.fitting import amares as tam
 from xmris_tpu_torch.fitting import lm as tlm
 from xmris_tpu_torch.ops import kernels as K
+from xmris_tpu_torch.runtime import profiling
 
 from _torch_parity import TEST_PK_CSV, load_priors
 import test_process
@@ -475,29 +476,37 @@ def test_fit_amares_staged_planes_equal_unstaged(free_g_fits):
 
 def test_fit_amares_stage_timers_print_the_reference_keys(free_g_fits,
                                                           monkeypatch, capsys):
+    """The port's ``fit_amares.*`` spans under ``recording()`` are the
+    stages the JAX package prints with ``XMT_FIT_STAGE_TIMERS``, in its
+    order; without recording the port prints and records nothing."""
     _, _, port_da, path = free_g_fits
     ref_da = xmt.XmrArray(port_da.values, dims=port_da.dims,
                           coords={"time": JCoord("time", port_da.coords["time"].values)},
                           attrs=dict(port_da.attrs))
     monkeypatch.setenv("XMT_FIT_STAGE_TIMERS", "1")
-
-    def stages(fn, da):
-        capsys.readouterr()
-        fn(da, path, engine="xla", return_curves=False,
-           **({"device": "cpu"} if fn is tam.fit_amares else {}))
-        lines = [ln for ln in capsys.readouterr().out.splitlines()
-                 if ln.startswith('{"fit_amares_stages_s"')]
-        assert len(lines) == 1
-        return json.loads(lines[0])["fit_amares_stages_s"]
-
-    got, want = stages(tam.fit_amares, port_da), stages(jam.fit_amares, ref_da)
-    assert list(got) == list(want)
-    assert all(v >= 0.0 for v in got.values())
+    capsys.readouterr()
+    jam.fit_amares(ref_da, path, engine="xla", return_curves=False)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"fit_amares_stages_s"')]
+    assert len(lines) == 1
+    want = json.loads(lines[0])["fit_amares_stages_s"]
     monkeypatch.delenv("XMT_FIT_STAGE_TIMERS")
+
+    with profiling.recording() as rec:
+        tam.fit_amares(port_da, path, engine="xla", device="cpu",
+                       return_curves=False)
+    spans = rec.snapshot()["spans"]
+    got = [n.split(".", 1)[1] for n in spans if n.startswith("fit_amares.")]
+    assert got == list(want)
+    assert all(spans[f"fit_amares.{k}"]["host_ms"] >= 0.0 for k in got)
+    assert spans["fit_amares"]["calls"] == 1
+
+    before = profiling.snapshot()
     capsys.readouterr()
     tam.fit_amares(port_da, path, engine="xla", device="cpu",
                    return_curves=False)
     assert "fit_amares_stages_s" not in capsys.readouterr().out
+    assert profiling.snapshot() == before
 
 
 def test_fit_amares_g_scan_auto_is_the_ladder(free_g_fits):

@@ -12,6 +12,7 @@ import torch
 
 from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.core.config import XmrTerm
+from xmris_tpu_torch.runtime.profiling import to_card
 
 
 def _dim_error(method_name: str, missing: list[str], available) -> str:
@@ -57,8 +58,8 @@ def complex_planes(data, device):
     (float32 planes for complex64, float64 for complex128); a real payload
     gives itself and zeros."""
     if not isinstance(data, torch.Tensor):
-        data = torch.as_tensor(np.ascontiguousarray(data))
-    z = data.to(device)
+        data = np.ascontiguousarray(data)
+    z = to_card(data, device)
     if not z.is_complex():
         return z.contiguous(), torch.zeros_like(z)
     return z.real.contiguous(), z.imag.contiguous()

@@ -15,9 +15,7 @@ the reference's variables, dims, coords and attrs.
 
 from __future__ import annotations
 
-import json
 import math
-import os
 import time
 import warnings
 from pathlib import Path
@@ -48,6 +46,7 @@ from xmris_tpu_torch.fitting.lm import (
 )
 from xmris_tpu_torch.fitting.prior import PriorKnowledge, load_prior_knowledge
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
+from xmris_tpu_torch.runtime.profiling import span, spanned, to_card, to_host
 
 
 def select_template_fid(fid_arrs: np.ndarray, announce: bool = True) -> int:
@@ -85,25 +84,23 @@ def template_optimum(
     if template_fid is None:
         template_fid = fid_arrs[select_template_fid(fid_arrs, announce=False)]
     dev = t.device
-    u0_t = torch.as_tensor(
+    u0_t = to_card(
         external_to_internal(pk.init_free[None, :], pk.lower, pk.upper, pk.kind),
-        device=dev,
+        dev,
     )
     res = lm_fit_batched_planar(
-        torch.as_tensor(np.ascontiguousarray(template_fid.real)[None, :],
-                        device=dev),
-        torch.as_tensor(np.ascontiguousarray(template_fid.imag)[None, :],
-                        device=dev),
+        to_card(np.ascontiguousarray(template_fid.real)[None, :], dev),
+        to_card(np.ascontiguousarray(template_fid.imag)[None, :], dev),
         t, u0_t,
-        torch.as_tensor(pk.lower, device=dev),
-        torch.as_tensor(pk.upper, device=dev),
-        torch.as_tensor(pk.kind, device=dev),
+        to_card(pk.lower, dev),
+        to_card(pk.upper, dev),
+        to_card(pk.kind, dev),
         hashable_pmap(pk.pmap), mhz, max_iter=max_iter,
     )
-    x_t = res.x_free[0].cpu().numpy()
-    if bool(res.converged[0]) and np.isfinite(x_t).all():
+    x_t = to_host(res.x_free[0]).numpy()
+    if to_host(res.converged[0]) and np.isfinite(x_t).all():
         if verbose:
-            print(f"Template fit converged (cost {float(res.cost[0]):.3e}); "
+            print(f"Template fit converged (cost {to_host(res.cost[0]):.3e}); "
                   "seeding grid.")
         return x_t
     return pk.init_free
@@ -293,6 +290,7 @@ def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
     ).to(torch.float32)
 
 
+@spanned("fit")
 def seeded_fit_grid_raw(
     re,
     im,
@@ -337,25 +335,28 @@ def seeded_fit_grid_raw(
     im = im.to(torch.float32)
     t = t.to(torch.float32)
     x_template = x_template.to(torch.float32)
-    u0 = seed_grid(
-        re, im, t, x_template, lower, upper, kind, pmap_static=pmap_static,
-        mhz=mhz, amp_slots=amp_slots, ls_plan=ls_plan, g_scan=g_scan,
-        g_plan=g_plan,
-    )
+    with span("fit.seed"):
+        u0 = seed_grid(
+            re, im, t, x_template, lower, upper, kind,
+            pmap_static=pmap_static, mhz=mhz, amp_slots=amp_slots,
+            ls_plan=ls_plan, g_scan=g_scan, g_plan=g_plan,
+        )
     if engine != "pallas":
-        res = lm_fit_batched_planar(re, im, t, u0, lower, upper, kind,
-                                    pmap_static, mhz, max_iter=max_iter)
+        with span("fit.lm"):
+            res = lm_fit_batched_planar(re, im, t, u0, lower, upper, kind,
+                                        pmap_static, mhz, max_iter=max_iter)
         sds, _ = crlb_batched_planar(re, im, t, res.x_free, pmap_static, mhz)
         return res.x_free, res.cost, res.converged, sds
     slab = uses_slab_hessian(spd_pallas, kernel_version)
-    res, h = _lm_fit_batched_pallas_impl(
-        re, im, t, u0, lower, upper, kind, pmap_static, mhz, kernels=kernels,
-        max_iter=max_iter, lam0=lam0, ftol=1e-10,
-        kernel_version=kernel_version,
-        return_hessian="slab" if slab else True, uniform_t_ok=uniform_t_ok,
-        plateau_streak=plateau_streak, varpro=auto_varpro(pmap_static),
-        spd_pallas=spd_pallas,
-    )
+    with span("fit.lm"):
+        res, h = _lm_fit_batched_pallas_impl(
+            re, im, t, u0, lower, upper, kind, pmap_static, mhz,
+            kernels=kernels, max_iter=max_iter, lam0=lam0, ftol=1e-10,
+            kernel_version=kernel_version,
+            return_hessian="slab" if slab else True,
+            uniform_t_ok=uniform_t_ok, plateau_streak=plateau_streak,
+            varpro=auto_varpro(pmap_static), spd_pallas=spd_pallas,
+        )
     if slab:
         sds, _ = crlb_from_hessian_slab(
             h, res.cost, re.shape[-1], f=x_template.shape[-1],
@@ -396,7 +397,10 @@ def _flatten_to_spectra(da: XmrArray, dim: str):
     other_dims = [d for d in da.dims if d != dim]
     da_t = da.transpose(*(other_dims + [dim]))
     n_time = da.sizes[dim]
-    fid_arrs = np.asarray(da_t.values).reshape(-1, n_time)
+    data = da_t.data
+    if isinstance(data, torch.Tensor):
+        data = to_host(data.detach()).numpy()
+    fid_arrs = np.asarray(data).reshape(-1, n_time)
     return fid_arrs, tuple(da_t.shape[:-1]), other_dims
 
 
@@ -566,7 +570,7 @@ def template_seeded_x0(
             if g_slots:
                 amp, ph, g_best, _ = _linear_seed_scan_g(
                     *args, tuple(float(g) for g in g_scan))
-                g_best = g_best.cpu()
+                g_best = to_host(g_best)
             elif ls_plan:
                 amp, ph = _linear_seed_solve(*args)
             # Staged, then written all together.
@@ -581,8 +585,8 @@ def template_seeded_x0(
                     vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
                     if col == 3:
                         vals = _wrap_phase_window_torch(vals, lo, hi)
-                    staged[slot] = _nudge_into_bounds_torch(
-                        vals, lo, hi).cpu().numpy()
+                    staged[slot] = to_host(_nudge_into_bounds_torch(
+                        vals, lo, hi)).numpy()
             for slot, vals in staged.items():
                 ok = np.isfinite(vals)
                 x0[ok, slot] = vals[ok]
@@ -607,7 +611,7 @@ def _reconstruct_batch(x_free, t, pk: PriorKnowledge, mhz: float):
         torch.as_tensor(x_free, device=t.device), t, hashable_pmap(pk.pmap),
         float(mhz),
     )
-    return m_re.cpu().numpy() + 1j * m_im.cpu().numpy()
+    return to_host(m_re).numpy() + 1j * to_host(m_im).numpy()
 
 
 def _resolve_mesh(mesh, dev: torch.device):
@@ -640,6 +644,7 @@ def _resolve_mesh(mesh, dev: torch.device):
     return mesh
 
 
+@spanned("fit_amares")
 def fit_amares(
     da: XmrArray,
     prior_knowledge_file: str | Path | PriorKnowledge,
@@ -705,11 +710,11 @@ def fit_amares(
     ``device_fids`` takes the grid's planes uploaded ahead of the call by
     :func:`stage_device_fids` on the same array and ``dim`` (or a plain
     ``(re, im)`` pair): their shapes, and a :class:`StagedFids`' layout,
-    must be this call's.  With ``XMT_FIT_STAGE_TIMERS`` set, the call
-    prints one JSON line ``{"fit_amares_stages_s": {...}}`` with the
-    seconds of its stages (``ingest``, ``seed``, ``fit``, ``crlb_model``,
-    ``pack``); on the card each mark synchronizes first, so that a stage's
-    time is its own.
+    must be this call's.  The call and its stages are spans of
+    :mod:`~xmris_tpu_torch.runtime.profiling` (``fit_amares`` and
+    ``fit_amares.ingest``, ``.seed``, ``.fit``, ``.crlb_model``,
+    ``.pack``), recorded under a profiler or inside
+    :func:`~xmris_tpu_torch.runtime.profiling.recording`.
 
     ``mesh`` splits the voxel axis of each chunk over a 1-D
     :class:`~xmris_tpu_torch.parallel.mesh.Mesh` (a device count, a mesh,
@@ -734,86 +739,72 @@ def fit_amares(
             pad_to_multiple,
         )
 
-    # Opt-in stage split (XMT_FIT_STAGE_TIMERS): host-clock seconds per
-    # stage; on the card each mark waits for the stage's device work.
-    stage_t = {} if os.environ.get("XMT_FIT_STAGE_TIMERS") else None
-    mark = time.perf_counter()
-
-    def stage(name):
-        nonlocal mark
-        if stage_t is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            stage_t[name] = round(now - mark, 3)
-            mark = now
-
     # 1. Physical parameter inference.
-    if mhz is None:
-        mhz = da.attrs.get("MHz")
+    with span("fit_amares.ingest"):
         if mhz is None:
-            raise ValueError("mhz must be provided or present in da.attrs['MHz']")
-    mhz = float(mhz)
-    t_coords = da.coords[dim].values.astype(np.float64)
-    if sw is None:
-        sw = 1.0 / float(t_coords[1] - t_coords[0])
-    if deadtime is None:
-        deadtime = float(t_coords[0])
+            mhz = da.attrs.get("MHz")
+            if mhz is None:
+                raise ValueError("mhz must be provided or present in da.attrs['MHz']")
+        mhz = float(mhz)
+        t_coords = da.coords[dim].values.astype(np.float64)
+        if sw is None:
+            sw = 1.0 / float(t_coords[1] - t_coords[0])
+        if deadtime is None:
+            deadtime = float(t_coords[0])
 
-    # 2. Flatten N-D -> (n_spectra, n_time).
-    fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
-    n_spectra, n_time = fid_arrs.shape
+        # 2. Flatten N-D -> (n_spectra, n_time).
+        fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
+        n_spectra, n_time = fid_arrs.shape
 
-    # 3. The template FID: the caller's or the highest-SNR voxel.
-    if init_fid is not None:
-        template_fid = np.asarray(init_fid).reshape(-1)
-        if template_fid.shape[0] != n_time:
-            raise ValueError(
-                f"init_fid has {template_fid.shape[0]} points, expected {n_time}."
-            )
-    else:
-        template_fid = fid_arrs[select_template_fid(fid_arrs)]
-    stage("ingest")
+        # 3. The template FID: the caller's or the highest-SNR voxel.
+        if init_fid is not None:
+            template_fid = np.asarray(init_fid).reshape(-1)
+            if template_fid.shape[0] != n_time:
+                raise ValueError(
+                    f"init_fid has {template_fid.shape[0]} points, expected {n_time}."
+                )
+        else:
+            template_fid = fid_arrs[select_template_fid(fid_arrs)]
 
     # 4. Prior knowledge.
-    pk = (
-        prior_knowledge_file
-        if isinstance(prior_knowledge_file, PriorKnowledge)
-        else load_prior_knowledge(prior_knowledge_file)
-    )
-    pmap_static = hashable_pmap(pk.pmap)
-    if engine == "auto":
-        engine = "pallas" if dev.type == "cuda" else "xla"
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
+    with span("fit_amares.seed"):
+        pk = (
+            prior_knowledge_file
+            if isinstance(prior_knowledge_file, PriorKnowledge)
+            else load_prior_knowledge(prior_knowledge_file)
+        )
+        pmap_static = hashable_pmap(pk.pmap)
+        if engine == "auto":
+            engine = "pallas" if dev.type == "cuda" else "xla"
+        if engine not in ("pallas", "xla"):
+            raise ValueError(f"engine must be 'auto', 'pallas' or 'xla', got {engine!r}")
 
-    timeaxis = np.arange(n_time, dtype=np.float64) * (1.0 / sw) + deadtime
-    t = torch.as_tensor(timeaxis, device=dev)
-    lower = torch.as_tensor(pk.lower, device=dev)
-    upper = torch.as_tensor(pk.upper, device=dev)
-    kind = torch.as_tensor(pk.kind, device=dev)
+        timeaxis = np.arange(n_time, dtype=np.float64) * (1.0 / sw) + deadtime
+        t = to_card(timeaxis, dev)
+        lower = to_card(pk.lower, dev)
+        upper = to_card(pk.upper, dev)
+        kind = to_card(pk.kind, dev)
 
-    # ONE upload of the planes, shared by the seed and the fit, unless the
-    # caller staged them.
-    if device_fids is not None:
-        _check_staged(device_fids, (n_spectra, n_time),
-                      (tuple(other_dims) + (dim,),
-                       tuple(voxel_shape) + (n_time,)), dim)
-        _wait_staged(device_fids)
-        re_all, im_all = (p.to(dev) for p in device_fids[:2])
-    else:
-        re_all, im_all = complex_planes(fid_arrs, dev)
-    if g_scan == "auto":
-        g_scan = (0.0, 0.2, 0.4, 0.6, 0.8) if g_seed_plan(pk) else None
-    x0 = template_seeded_x0(
-        fid_arrs, pk, t, mhz, template_fid=template_fid,
-        fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
-        max_iter=max_iter, verbose=verbose, g_scan=g_scan,
-        device_fids=(re_all, im_all),
-    )
-    u0 = torch.as_tensor(external_to_internal(x0, pk.lower, pk.upper, pk.kind),
-                         device=dev)
-    stage("seed")
+        # ONE upload of the planes, shared by the seed and the fit, unless the
+        # caller staged them.
+        if device_fids is not None:
+            _check_staged(device_fids, (n_spectra, n_time),
+                          (tuple(other_dims) + (dim,),
+                           tuple(voxel_shape) + (n_time,)), dim)
+            _wait_staged(device_fids)
+            re_all, im_all = (p.to(dev) for p in device_fids[:2])
+        else:
+            re_all, im_all = complex_planes(fid_arrs, dev)
+        if g_scan == "auto":
+            g_scan = (0.0, 0.2, 0.4, 0.6, 0.8) if g_seed_plan(pk) else None
+        x0 = template_seeded_x0(
+            fid_arrs, pk, t, mhz, template_fid=template_fid,
+            fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
+            max_iter=max_iter, verbose=verbose, g_scan=g_scan,
+            device_fids=(re_all, im_all),
+        )
+        u0 = to_card(external_to_internal(x0, pk.lower, pk.upper, pk.kind),
+                     dev)
 
     # 5. Batched bounded LM over voxel chunks.
     if chunk_size is None:
@@ -853,163 +844,161 @@ def fit_amares(
                          (t, lower, upper, kind), mesh.axis_names[0])
         return LMResult(*(f[:b] for f in res)), None
 
-    t_before = time.perf_counter()
-    x_parts, conv_parts, h_parts, cost_parts = [], [], [], []
-    for start in range(0, n_spectra, chunk_size):
-        rows = slice(start, start + chunk_size)
-        re_c, im_c = re_all[rows], im_all[rows]
-        res, h_pick = run_lm(re_c, im_c, u0[rows])
-        x, cost_pick, conv = res.x_free, res.cost, res.converged
-        if initialize_with_lm:
-            # Refinement pass from each voxel's own optimum with a fresh
-            # damping schedule; keep the better solution per voxel.
-            u_refined = torch.as_tensor(
-                external_to_internal(x.cpu().numpy(), pk.lower, pk.upper,
-                                     pk.kind), device=x.device)
-            res2, h2 = run_lm(re_c, im_c, u_refined)
-            better = res2.cost < res.cost
-            x = torch.where(better[:, None], res2.x_free, x)
-            cost_pick = torch.where(better, res2.cost, res.cost)
+    with span("fit_amares.fit"):
+        t_before = time.perf_counter()
+        x_parts, conv_parts, h_parts, cost_parts = [], [], [], []
+        for start in range(0, n_spectra, chunk_size):
+            rows = slice(start, start + chunk_size)
+            re_c, im_c = re_all[rows], im_all[rows]
+            res, h_pick = run_lm(re_c, im_c, u0[rows])
+            x, cost_pick, conv = res.x_free, res.cost, res.converged
+            if initialize_with_lm:
+                # Refinement pass from each voxel's own optimum with a fresh
+                # damping schedule; keep the better solution per voxel.
+                u_refined = to_card(
+                    external_to_internal(to_host(x).numpy(), pk.lower,
+                                         pk.upper, pk.kind), x.device)
+                res2, h2 = run_lm(re_c, im_c, u_refined)
+                better = res2.cost < res.cost
+                x = torch.where(better[:, None], res2.x_free, x)
+                cost_pick = torch.where(better, res2.cost, res.cost)
+                if h_pick is not None:
+                    h_pick = torch.where(better[:, None, None], h2, h_pick)
+                conv = res.converged | res2.converged
+            x_parts.append(to_host(x).numpy())
+            conv_parts.append(to_host(conv).numpy())
+            cost_parts.append(cost_pick)
             if h_pick is not None:
-                h_pick = torch.where(better[:, None, None], h2, h_pick)
-            conv = res.converged | res2.converged
-        x_parts.append(x.cpu().numpy())
-        conv_parts.append(conv.cpu().numpy())
-        cost_parts.append(cost_pick)
-        if h_pick is not None:
-            h_parts.append(h_pick)
+                h_parts.append(h_pick)
 
-    x_free = np.concatenate(x_parts, axis=0)
-    converged = np.concatenate(conv_parts, axis=0)
-    print(f"Fitting {n_spectra} spectra with batched device LM took "
-          f"{time.perf_counter() - t_before:.2f} seconds.")
-    stage("fit")
+        x_free = np.concatenate(x_parts, axis=0)
+        converged = np.concatenate(conv_parts, axis=0)
+        print(f"Fitting {n_spectra} spectra with batched device LM took "
+              f"{time.perf_counter() - t_before:.2f} seconds.")
 
     # 6. Physical parameters, CRLBs, reconstructed fits.
-    metabolites = np.asarray(pk.metabolites, dtype=object)
-    n_metab = pk.n_peaks
-    pm = pk.pmap
-    safe_idx = np.maximum(pm.idx, 0)
-    full_flat = pm.offset[None, :] + np.where(
-        pm.idx[None, :] >= 0, pm.scale[None, :] * x_free[:, safe_idx], 0.0
-    )
-    grids = full_flat.reshape(n_spectra, n_metab, 5)
-
-    sds_parts, sigma_parts, fit_parts = [], [], []
-    for ci, start in enumerate(range(0, n_spectra, chunk_size)):
-        rows = slice(start, start + chunk_size)
-        xs = torch.as_tensor(x_free[rows], device=dev)
-        if h_parts:
-            # The LM returned the GN Hessian (the Fisher information) at
-            # each voxel's chosen optimum: no extra model evaluation.
-            sds, sigma2 = crlb_from_hessian(h_parts[ci], cost_parts[ci],
-                                            n_time, kernels=kernels)
-        else:
-            sds, sigma2 = crlb_batched_planar(re_all[rows], im_all[rows], t,
-                                              xs, pmap_static, mhz)
-        sds_parts.append(sds.cpu().numpy())
-        sigma_parts.append(sigma2.cpu().numpy())
-        if return_curves:
-            fit_parts.append(_reconstruct_batch(xs, t, pk, mhz))
-
-    sds_free = np.concatenate(sds_parts, axis=0)  # (B, F)
-    sigma2 = np.concatenate(sigma_parts, axis=0)  # (B,)
-    fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
-    stage("crlb_model")
-
-    amplitudes = grids[:, :, 0]
-    chem_shifts = grids[:, :, 1]
-    linewidths = grids[:, :, 2]
-    phases = grids[:, :, 3]
-
-    # CRLB(%) of each amplitude; a tied amplitude scales its slot's bound.
-    crlbs = np.zeros((n_spectra, n_metab))
-    for k in range(n_metab):
-        j = k * 5
-        slot = int(pk.pmap.idx[j])
-        if slot >= 0:
-            sd_amp = np.abs(pk.pmap.scale[j]) * sds_free[:, slot]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                crlbs[:, k] = np.where(
-                    amplitudes[:, k] != 0,
-                    100.0 * sd_amp / np.abs(amplitudes[:, k]),
-                    0.0,
-                )
-
-    # SNR per metabolite: amplitude over the per-real-channel noise std.
-    noise_std = np.sqrt(np.maximum(sigma2, 0.0))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        snrs = np.where(
-            noise_std[:, None] > 0, np.abs(amplitudes) / noise_std[:, None], 0.0
+    with span("fit_amares.crlb_model"):
+        metabolites = np.asarray(pk.metabolites, dtype=object)
+        n_metab = pk.n_peaks
+        pm = pk.pmap
+        safe_idx = np.maximum(pm.idx, 0)
+        full_flat = pm.offset[None, :] + np.where(
+            pm.idx[None, :] >= 0, pm.scale[None, :] * x_free[:, safe_idx], 0.0
         )
+        grids = full_flat.reshape(n_spectra, n_metab, 5)
 
-    # Failed voxels keep zeros.
-    failed = ~converged | ~np.isfinite(grids).all(axis=(1, 2))
-    for arr in (amplitudes, chem_shifts, linewidths, phases, crlbs, snrs):
-        arr[failed] = 0.0
-    if return_curves:
-        fit_data[failed] = 0.0
+        sds_parts, sigma_parts, fit_parts = [], [], []
+        for ci, start in enumerate(range(0, n_spectra, chunk_size)):
+            rows = slice(start, start + chunk_size)
+            xs = to_card(x_free[rows], dev)
+            if h_parts:
+                # The LM returned the GN Hessian (the Fisher information) at
+                # each voxel's chosen optimum: no extra model evaluation.
+                sds, sigma2 = crlb_from_hessian(h_parts[ci], cost_parts[ci],
+                                                n_time, kernels=kernels)
+            else:
+                sds, sigma2 = crlb_batched_planar(re_all[rows], im_all[rows], t,
+                                                  xs, pmap_static, mhz)
+            sds_parts.append(to_host(sds).numpy())
+            sigma_parts.append(to_host(sigma2).numpy())
+            if return_curves:
+                fit_parts.append(_reconstruct_batch(xs, t, pk, mhz))
 
-    # 7. Pack the dataset in the original layout.
-    def to_voxel_shape(arr, extra=()):
-        return arr.reshape(voxel_shape + extra)
+        sds_free = np.concatenate(sds_parts, axis=0)  # (B, F)
+        sigma2 = np.concatenate(sigma_parts, axis=0)  # (B,)
+        fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
 
-    ds = XmrDataset()
-    param_dims = tuple(other_dims) + ("Metabolite",)
-    metab_coord = {"Metabolite": Coord("Metabolite", metabolites)}
+    with span("fit_amares.pack"):
+        amplitudes = grids[:, :, 0]
+        chem_shifts = grids[:, :, 1]
+        linewidths = grids[:, :, 2]
+        phases = grids[:, :, 3]
 
-    def voxel_coords(dims):
-        return {cname: Coord(c.dim, c.values, c.attrs)
-                for cname, c in da.coords.items() if c.dim in dims}
+        # CRLB(%) of each amplitude; a tied amplitude scales its slot's bound.
+        crlbs = np.zeros((n_spectra, n_metab))
+        for k in range(n_metab):
+            j = k * 5
+            slot = int(pk.pmap.idx[j])
+            if slot >= 0:
+                sd_amp = np.abs(pk.pmap.scale[j]) * sds_free[:, slot]
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    crlbs[:, k] = np.where(
+                        amplitudes[:, k] != 0,
+                        100.0 * sd_amp / np.abs(amplitudes[:, k]),
+                        0.0,
+                    )
 
-    time_dims = tuple(other_dims) + (dim,)
+        # SNR per metabolite: amplitude over the per-real-channel noise std.
+        noise_std = np.sqrt(np.maximum(sigma2, 0.0))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            snrs = np.where(
+                noise_std[:, None] > 0, np.abs(amplitudes) / noise_std[:, None], 0.0
+            )
 
-    def back(arr, dims):
-        x = XmrArray(arr, dims=dims)
-        x.coords = voxel_coords(dims)
-        if set(dims) == set(da.dims):
-            return x.transpose(*(d for d in da.dims if d in dims))
-        return x
+        # Failed voxels keep zeros.
+        failed = ~converged | ~np.isfinite(grids).all(axis=(1, 2))
+        for arr in (amplitudes, chem_shifts, linewidths, phases, crlbs, snrs):
+            arr[failed] = 0.0
+        if return_curves:
+            fit_data[failed] = 0.0
 
-    if return_curves:
-        raw_nd = to_voxel_shape(fid_arrs, (n_time,))
-        fit_nd = to_voxel_shape(fit_data, (n_time,))
-        ds["raw_data"] = back(raw_nd, time_dims)
-        ds["fit_data"] = back(fit_nd, time_dims)
-        ds["residuals"] = back(raw_nd - fit_nd, time_dims)
+        # 7. Pack the dataset in the original layout.
+        def to_voxel_shape(arr, extra=()):
+            return arr.reshape(voxel_shape + extra)
 
-    for name, arr in (
-        ("amplitude", amplitudes),
-        ("chem_shift", chem_shifts),
-        ("linewidth", linewidths),
-        ("phase", phases),
-        ("crlb", crlbs),
-        ("snr", snrs),
-    ):
-        var = XmrArray(to_voxel_shape(arr, (n_metab,)), dims=param_dims)
-        var.coords = {**voxel_coords(other_dims),
-                      **{k: c.copy() for k, c in metab_coord.items()}}
-        ds[name] = var
+        ds = XmrDataset()
+        param_dims = tuple(other_dims) + ("Metabolite",)
+        metab_coord = {"Metabolite": Coord("Metabolite", metabolites)}
 
-    if other_dims:
-        conv_var = XmrArray(to_voxel_shape(converged.astype(bool)),
-                            dims=tuple(other_dims))
-        conv_var.coords = voxel_coords(other_dims)
-    else:
-        conv_var = XmrArray(np.asarray(converged[:1]), dims=("spectrum",))
-    ds["fit_converged"] = conv_var
+        def voxel_coords(dims):
+            return {cname: Coord(c.dim, c.values, c.attrs)
+                    for cname, c in da.coords.items() if c.dim in dims}
 
-    # 8. Lineage.
-    ds.attrs = da.attrs.copy()
-    ds.attrs.update({
-        "fit_method": method,
-        "prior_knowledge_file": str(
-            pk.source if isinstance(prior_knowledge_file, PriorKnowledge)
-            else prior_knowledge_file
-        ),
-        "amares_version": f"xmris_tpu_torch-{_version}",
-    })
-    stage("pack")
-    if stage_t is not None:
-        print(json.dumps({"fit_amares_stages_s": stage_t}), flush=True)
+        time_dims = tuple(other_dims) + (dim,)
+
+        def back(arr, dims):
+            x = XmrArray(arr, dims=dims)
+            x.coords = voxel_coords(dims)
+            if set(dims) == set(da.dims):
+                return x.transpose(*(d for d in da.dims if d in dims))
+            return x
+
+        if return_curves:
+            raw_nd = to_voxel_shape(fid_arrs, (n_time,))
+            fit_nd = to_voxel_shape(fit_data, (n_time,))
+            ds["raw_data"] = back(raw_nd, time_dims)
+            ds["fit_data"] = back(fit_nd, time_dims)
+            ds["residuals"] = back(raw_nd - fit_nd, time_dims)
+
+        for name, arr in (
+            ("amplitude", amplitudes),
+            ("chem_shift", chem_shifts),
+            ("linewidth", linewidths),
+            ("phase", phases),
+            ("crlb", crlbs),
+            ("snr", snrs),
+        ):
+            var = XmrArray(to_voxel_shape(arr, (n_metab,)), dims=param_dims)
+            var.coords = {**voxel_coords(other_dims),
+                          **{k: c.copy() for k, c in metab_coord.items()}}
+            ds[name] = var
+
+        if other_dims:
+            conv_var = XmrArray(to_voxel_shape(converged.astype(bool)),
+                                dims=tuple(other_dims))
+            conv_var.coords = voxel_coords(other_dims)
+        else:
+            conv_var = XmrArray(np.asarray(converged[:1]), dims=("spectrum",))
+        ds["fit_converged"] = conv_var
+
+        # 8. Lineage.
+        ds.attrs = da.attrs.copy()
+        ds.attrs.update({
+            "fit_method": method,
+            "prior_knowledge_file": str(
+                pk.source if isinstance(prior_knowledge_file, PriorKnowledge)
+                else prior_knowledge_file
+            ),
+            "amares_version": f"xmris_tpu_torch-{_version}",
+        })
     return ds

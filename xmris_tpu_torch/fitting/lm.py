@@ -58,6 +58,7 @@ from xmris_tpu_torch.ops.kernels.spd import (
     spd_inverse_diag_small,
     spd_solve_small,
 )
+from xmris_tpu_torch.runtime.profiling import count, to_host
 
 def classify_bounds(lower: np.ndarray, upper: np.ndarray) -> np.ndarray:
     kind = np.full(lower.shape, FREE, dtype=np.int32)
@@ -451,8 +452,9 @@ def lm_fit_batched_planar(
 
     for _ in range(max_iter):
         active = ~done
-        if not bool(active.any()):
+        if not to_host(active.any()):
             break
+        count("lm.iterations")
         j_re_p, j_im_p = eq6_jacobian_planar(
             t, st["grid"], st["b_re"], st["b_im"], mhz
         )
@@ -654,8 +656,9 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
         return torch.where(ok.reshape(shape), new, old)
 
     for _ in range(max_iter):
-        if bool(done.all()):
+        if to_host(done.all()):
             break
+        count("lm.iterations")
         delta_raw = solve(h, g, lam)
         solve_ok = torch.isfinite(delta_raw).all(-1)
         delta = torch.where(

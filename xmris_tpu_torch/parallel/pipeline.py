@@ -31,6 +31,7 @@ from xmris_tpu_torch.core.utils import (
 )
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
 from xmris_tpu_torch.runtime.config import matching_dtypes
+from xmris_tpu_torch.runtime.profiling import spanned, to_host
 
 
 @dataclass(frozen=True)
@@ -166,6 +167,7 @@ def spectral_pipeline_raw(fids, weight, freqs, cfg: PipelineConfig,
     return torch.complex(sr, si).to(torch_dtype(complex_dtype)), phases
 
 
+@spanned("front")
 def mrsi_pipeline(
     da: XmrArray,
     dim: str = DIMS.time,
@@ -265,7 +267,7 @@ def mrsi_pipeline(
     if isinstance(da.data, torch.Tensor):
         spec = spec.to(torch_dtype(complex_dtype))
     else:
-        spec = spec.cpu().numpy().astype(complex_dtype, copy=False)
+        spec = to_host(spec).numpy().astype(complex_dtype, copy=False)
     out = XmrArray(
         spec.reshape(voxel_shape + (n_out,)),
         dims=tuple(order[:-1]) + (out_dim,),
@@ -283,12 +285,13 @@ def mrsi_pipeline(
     if cfg.gb:
         out.attrs[ATTRS.apodization_gb] = cfg.gb
     if cfg.autophase != "none":
-        def to_host(v):
-            v = v.cpu()
-            return v.numpy().reshape(voxel_shape) if v.ndim else float(v)
+        def host_attr(v):
+            v = to_host(v)
+            return (v.numpy().reshape(voxel_shape)
+                    if isinstance(v, torch.Tensor) else float(v))
 
-        out.attrs[ATTRS.phase_p0] = to_host(p0)
-        out.attrs[ATTRS.phase_p1] = to_host(p1)
-        out.attrs[ATTRS.phase_pivot] = to_host(pivot)
+        out.attrs[ATTRS.phase_p0] = host_attr(p0)
+        out.attrs[ATTRS.phase_p1] = host_attr(p1)
+        out.attrs[ATTRS.phase_pivot] = host_attr(pivot)
         out.attrs[ATTRS.phase_pivot_coord] = out_dim
     return out

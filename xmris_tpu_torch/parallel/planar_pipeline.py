@@ -31,6 +31,7 @@ from xmris_tpu_torch.ops.phasing import (
     resolve_polish,
 )
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
+from xmris_tpu_torch.runtime.profiling import span, spanned
 
 
 def _apply_phase_planar(re, im, phi, barrier: bool = False):
@@ -82,7 +83,9 @@ def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak,
     row_re = re[voxel_idx].reshape(n_freq)
     row_im = im[voxel_idx].reshape(n_freq)
 
-    p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg, kernels)
+    with span("spectral.phase_search"):
+        p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg,
+                                     kernels)
 
     phi = (torch.deg2rad(p0)
            + torch.deg2rad(p1) * ((freqs - pivot) / x_range)).to(re.dtype)
@@ -174,6 +177,7 @@ def _spectrum_stage(fids_re, fids_im, weight, cfg: PipelineConfig,
     return spec_re, spec_im, mv, mi
 
 
+@spanned("spectral")
 def spectral_pipeline_planar_raw(fids_re, fids_im, weight, freqs,
                                  cfg: PipelineConfig,
                                  kernels: KernelSet = DISPATCH):

@@ -19,6 +19,7 @@ from xmris_tpu_torch.core.array import XmrArray, get_namespace
 from xmris_tpu_torch.core.config import DIMS
 from xmris_tpu_torch.core.utils import _check_dims
 from xmris_tpu_torch.ops.fourier import ifftc
+from xmris_tpu_torch.runtime.profiling import spanned
 
 
 def _axes(ndim: int, axes) -> tuple[int, ...]:
@@ -50,6 +51,7 @@ def rss_reconstruct_planar_raw(k_re, k_im, axes: tuple[int, ...], coil_axis: int
     return torch.sqrt(torch.sum(re * re + im * im, dim=coil_axis))
 
 
+@spanned("recon")
 def kspace_to_image(
     da: XmrArray,
     dims: list[str] | None = None,

@@ -28,6 +28,7 @@ from xmris_tpu_torch.core.array import XmrArray
 from xmris_tpu_torch.core.config import DIMS
 from xmris_tpu_torch.core.utils import _check_dims, card_device
 from xmris_tpu_torch.recon.kspace import _axes, centered_ifftn
+from xmris_tpu_torch.runtime.profiling import spanned
 
 _EPS = 1e-12
 
@@ -234,6 +235,7 @@ def estimate_sensitivities(
     return out
 
 
+@spanned("recon")
 def sense_combine(
     img: XmrArray, sens: XmrArray, coil_dim: str = DIMS.coil, *, device="cuda"
 ) -> XmrArray:
