@@ -488,6 +488,41 @@ def test_fit_amares_runs_on_the_kernels(dev):
                                rtol=2e-2, atol=1e-4)
 
 
+def test_fit_amares_keeps_a_card_payload_on_the_card(dev):
+    """fit_amares on a CUDA payload of the bench grid without curves splits
+    the grid where it lies: its copies come to under an eighth of the
+    grid's bytes, the call counts as resident, and the maps are the numpy
+    payload's (test_fit_amares_runs_on_the_kernels' tolerances)."""
+    from xmris_tpu_torch.runtime import profiling
+
+    fids, _, _ = bi.make_inputs()
+    t = np.arange(bi.N_TIME) / bi.SW
+    host = fids.reshape(bi.GRID + (bi.N_TIME,))
+    pk = prior_from_csv_text(bi.PK_CSV)
+
+    def fit(data):
+        da = XmrArray(data, dims=("x", "y", "z", "time"),
+                      coords={"time": Coord("time", t)}, attrs={"MHz": bi.MHZ})
+        return fit_amares(da, pk, return_curves=False)
+
+    card = torch.as_tensor(host, device=dev)
+    with profiling.recording() as rec:
+        ds = fit(card)
+    counters = rec.snapshot()["counters"]
+    copies = counters.get("host.d2h_bytes", 0) + counters.get("host.h2d_bytes", 0)
+    assert copies < fids.nbytes / 8, copies
+    assert counters["fit_amares.resident"] == 1
+    ds2 = fit(host)
+    assert ds["fit_converged"].values.all()
+    for name in ("amplitude", "chem_shift", "linewidth"):
+        np.testing.assert_allclose(ds[name].values, ds2[name].values,
+                                   rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(ds["phase"].values, ds2["phase"].values,
+                               rtol=0, atol=0.05)
+    np.testing.assert_allclose(ds["crlb"].values, ds2["crlb"].values,
+                               rtol=2e-2, atol=1e-4)
+
+
 def test_spd_solve_damped_dense_kernel_matches_plain(dev):
     """K6a against its plain twin and against K3 on the same matrices in
     slab form: bit for bit, with NaN rows exactly at non-SPD voxels."""

@@ -32,12 +32,15 @@ from xmris_tpu_torch.core.array import Coord, XmrArray
 from xmris_tpu_torch.fitting import lm as tlm
 from xmris_tpu_torch.fitting.amares import (
     fit_amares,
+    select_template_fid,
+    select_template_planes,
     stage_device_fids,
     template_seeded_x0,
 )
 from xmris_tpu_torch.fitting.prior import prior_from_csv_text
 from xmris_tpu_torch.ops import kernels as K
 from xmris_tpu_torch.ops.kernels import spd
+from xmris_tpu_torch.runtime import profiling
 
 from _phantom31p import MHZ as ORACLE_MHZ
 from _phantom31p import PRIOR as ORACLE_PRIOR
@@ -283,6 +286,98 @@ def test_template_seeded_x0_matches_reference(tmp_path):
     want = ref_seed(fids, pk, jnp.asarray(t), bi.MHZ)
     got = template_seeded_x0(fids, pkt, _t(t), bi.MHZ)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def _template_grid(case, dtype):
+    """A (33, 128) grid for the template scan: seeded noise with a few
+    strong rows, and the case's edge rows (a NaN in the strongest row, a
+    strong row whose tail is constant, or nothing but zeros or NaNs)."""
+    rng = np.random.default_rng(11)
+    z = rng.normal(size=(33, 128)) + 1j * rng.normal(size=(33, 128))
+    z[[4, 17, 29], :10] *= [[6.0], [9.0], [7.5]]
+    if case == "nan_row":
+        z[17, 3] = np.nan
+    elif case == "zero_noise":
+        z[17, -40:] = 0.25 - 0.5j
+    elif case == "all_zero":
+        z[:] = 0.0
+    elif case == "all_nan":
+        z[:] = np.nan
+    return z.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("case", ["random", "nan_row", "zero_noise",
+                                  "all_zero", "all_nan"])
+def test_select_template_planes_matches_select_template_fid(case, dtype):
+    """The scan on the planes picks ``select_template_fid``'s voxel, with
+    the SNR that its rule gives in float64 (NaN rows skipped, SNR 0 where
+    the noise is 0, an all-NaN grid raises)."""
+    z = _template_grid(case, dtype)
+    re, im = _t(z.real), _t(z.imag)
+    if case == "all_nan":
+        with pytest.raises(ValueError):
+            select_template_fid(z, announce=False)
+        with pytest.raises(ValueError):
+            select_template_planes(re, im, announce=False)
+        return
+    idx, snr = select_template_planes(re, im, announce=False)
+    assert idx == select_template_fid(z, announce=False)
+    z64 = z.astype(np.complex128)
+    signal = np.mean(np.abs(z64[idx, :10]))
+    noise = np.std(z64[idx, -max(10, z.shape[1] // 5):])
+    want = 0.0 if noise == 0 else signal / noise
+    np.testing.assert_allclose(snr, want, rtol=1e-12, atol=0)
+    if case in ("nan_row", "zero_noise"):
+        assert idx != 17
+    if case == "all_zero":
+        assert (idx, snr) == (0, 0.0)
+
+
+@pytest.mark.parametrize("return_curves", [True, False])
+def test_fit_amares_tensor_payload_matches_numpy_payload(bench_fits,
+                                                         return_curves):
+    """A tensor payload is fitted from its own planes (no host copy of the
+    grid; resident) and gives the numpy payload's dataset; with curves its
+    ``raw_data`` is the payload."""
+    _, path = bench_fits
+    _, port_da = _grid_arrays()
+    kw = dict(engine="pallas", device="cpu", return_curves=return_curves)
+    want = fit_amares(port_da, path, **kw)
+    payload = port_da.to("cpu")
+    assert isinstance(payload.data, torch.Tensor)
+    with profiling.recording() as rec:
+        got = fit_amares(payload, path, **kw)
+    counters = rec.snapshot()["counters"]
+    assert counters["fit_amares.resident"] == 1
+    assert set(got.data_vars) == set(want.data_vars)
+    assert ("raw_data" in got.data_vars) == return_curves
+    for name in want.data_vars:
+        np.testing.assert_allclose(got[name].values, want[name].values,
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    if return_curves:
+        np.testing.assert_array_equal(got["raw_data"].values,
+                                      payload.data.numpy())
+
+
+def test_stage_device_fids_splits_a_tensor_payload_where_it_lies(bench_fits):
+    """``stage_device_fids`` on a tensor payload copies nothing to the host,
+    and ``fit_amares`` fits the staged planes as it fits the payload."""
+    _, path = bench_fits
+    _, port_da = _grid_arrays()
+    payload = port_da.to("cpu")
+    with profiling.recording() as rec:
+        staged = stage_device_fids(payload, device="cpu")
+    assert not rec.snapshot()["counters"].get("host.d2h_bytes", 0)
+    assert staged.dims == DIMS and staged.shape == payload.shape
+    np.testing.assert_array_equal(
+        staged.re.numpy() + 1j * staged.im.numpy(),
+        payload.data.numpy().reshape(-1, bi.N_TIME))
+    kw = dict(engine="pallas", device="cpu", return_curves=False)
+    a = fit_amares(payload, path, device_fids=staged, **kw)
+    b = fit_amares(payload, path, **kw)
+    for name in b.data_vars:
+        np.testing.assert_array_equal(a[name].values, b[name].values)
 
 
 # ---------------------------------------------------------------------------

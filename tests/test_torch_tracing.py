@@ -138,9 +138,9 @@ def test_a_profiler_session_records_spans_as_ranges():
     assert "prof.after" not in P.snapshot()["spans"]
 
 
-def _grid_inputs():
+def _grid_inputs(**phantom):
     pk = prior_from_csv_text(BENCH_PK_CSV, "bench")
-    fids, t, _ = bench_phantom(n_voxels=8)
+    fids, t, _ = bench_phantom(**{"n_voxels": 8, **phantom})
 
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32))
@@ -171,7 +171,9 @@ def test_grid_fit_is_bit_identical_and_counts_its_trips():
 
 
 def test_fit_amares_is_bit_identical_and_counts_its_trips(monkeypatch):
-    pk, fids, t, _, _ = _grid_inputs()
+    # The bench's 1024-point FIDs: the grid then outweighs the fixed
+    # per-call copies (time axis, bounds, seeds and maps) as on the card.
+    pk, fids, t, _, _ = _grid_inputs(n_voxels=16, n_t=1024)
     da = XmrArray(torch.as_tensor(fids), dims=("voxel", "time"),
                   coords={"time": Coord("time", t.astype(np.float64))},
                   attrs={"MHz": MHZ})
@@ -198,8 +200,12 @@ def test_fit_amares_is_bit_identical_and_counts_its_trips(monkeypatch):
     snap = rec.snapshot()
     assert planar["trips"] > 0 and trips == snap["counters"]["lm.iterations"]
     assert snap["counters"]["host.syncs"] >= trips
-    assert snap["counters"]["host.d2h_bytes"] >= fids.nbytes
-    assert snap["counters"]["host.h2d_bytes"] >= fids.nbytes
+    # The tensor payload is split where it lies: without curves the grid
+    # crosses neither way, and the call counts as resident.
+    copies = (snap["counters"].get("host.d2h_bytes", 0)
+              + snap["counters"].get("host.h2d_bytes", 0))
+    assert copies < fids.nbytes / 4
+    assert snap["counters"]["fit_amares.resident"] == 1
     assert list(_spans(snap, "fit_amares.")) == [
         "fit_amares.ingest", "fit_amares.seed", "fit_amares.fit",
         "fit_amares.crlb_model", "fit_amares.pack"]

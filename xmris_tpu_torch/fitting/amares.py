@@ -2,7 +2,8 @@
 public :func:`fit_amares` (PyTorch port).
 
 Port of :mod:`xmris_tpu.fitting.amares`: the highest-SNR template voxel
-(:func:`select_template_fid`, :func:`template_optimum`), the static seeding
+(:func:`select_template_fid`, its twin on a grid's planes where they lie
+:func:`select_template_planes`, :func:`template_optimum`), the static seeding
 plans (:func:`seed_plan`, :func:`g_seed_plan`), the shared-basis linear LS
 amplitude/phase seed and its scan over candidate g values for a free-g
 prior (:func:`_linear_seed_scan_g`), :func:`seeded_fit_grid_raw` (amplitude
@@ -46,7 +47,13 @@ from xmris_tpu_torch.fitting.lm import (
 )
 from xmris_tpu_torch.fitting.prior import PriorKnowledge, load_prior_knowledge
 from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
-from xmris_tpu_torch.runtime.profiling import span, spanned, to_card, to_host
+from xmris_tpu_torch.runtime.profiling import (
+    count,
+    span,
+    spanned,
+    to_card,
+    to_host,
+)
 
 
 def select_template_fid(fid_arrs: np.ndarray, announce: bool = True) -> int:
@@ -67,12 +74,43 @@ def select_template_fid(fid_arrs: np.ndarray, announce: bool = True) -> int:
     return best_idx
 
 
+def select_template_planes(re, im, announce: bool = True) -> tuple[int, float]:
+    """:func:`select_template_fid`'s rule on a grid's ``(re, im)`` planes,
+    (B, n_t), where they lie: signal = mean |first 10 points|, noise = the
+    population std of the complex last ``max(10, n_t // 5)`` points, SNR 0
+    where the noise is 0, NaN SNRs skipped (an all-NaN grid raises
+    ``ValueError`` as ``np.nanargmax`` does), the first of equal maxima.
+    Computed in float64 over those columns only; the index and its SNR come
+    to the host in one read.  Returns ``(index, snr)``."""
+    n_time = re.shape[-1]
+    noise_pts = max(10, n_time // 5)
+    f64 = torch.float64
+    s_re, s_im = re[:, 0:10].to(f64), im[:, 0:10].to(f64)
+    signal = torch.sqrt(s_re * s_re + s_im * s_im).mean(1)
+    n_re, n_im = re[:, -noise_pts:].to(f64), im[:, -noise_pts:].to(f64)
+    d_re = n_re - n_re.mean(1, keepdim=True)
+    d_im = n_im - n_im.mean(1, keepdim=True)
+    noise = torch.sqrt((d_re * d_re + d_im * d_im).mean(1))
+    snr = torch.where(noise == 0, torch.zeros_like(signal), signal / noise)
+    best = torch.argmax(torch.where(torch.isnan(snr), -math.inf, snr))
+    best_idx, best_snr = to_host(torch.stack([best.to(f64), snr[best]])).tolist()
+    if math.isnan(best_snr):
+        raise ValueError("All-NaN slice encountered")
+    best_idx = int(best_idx)
+    if announce:
+        print(
+            f"Auto-selected FID index {best_idx} for initialization "
+            f"(SNR: {best_snr:.2f})"
+        )
+    return best_idx, best_snr
+
+
 def template_optimum(
     fid_arrs: np.ndarray,
     pk: PriorKnowledge,
     t,
     mhz: float,
-    template_fid: np.ndarray | None = None,
+    template_fid: np.ndarray | torch.Tensor | None = None,
     max_iter: int = 60,
     verbose: bool = False,
 ) -> np.ndarray:
@@ -80,17 +118,28 @@ def template_optimum(
     LM and return its free-parameter optimum, the template every voxel's
     seed starts from.  Falls back to the prior's initial values when the
     template fit fails.  ``t`` is the (n_t,) time axis tensor; the fit runs
-    on its device, in the template FID's precision."""
+    on its device, in the template FID's precision.  ``template_fid`` may
+    be a tensor (a row of the grid where it lies), else numpy; without it
+    the template is :func:`select_template_fid`'s voxel of the numpy
+    ``fid_arrs``."""
     if template_fid is None:
         template_fid = fid_arrs[select_template_fid(fid_arrs, announce=False)]
     dev = t.device
+    if isinstance(template_fid, torch.Tensor):
+        z = template_fid.detach()
+        re_t, im_t = ((z.real, z.imag) if z.is_complex()
+                      else (z, torch.zeros_like(z)))
+        re_t, im_t = re_t.contiguous(), im_t.contiguous()
+    else:
+        re_t = np.ascontiguousarray(template_fid.real)
+        im_t = np.ascontiguousarray(template_fid.imag)
     u0_t = to_card(
         external_to_internal(pk.init_free[None, :], pk.lower, pk.upper, pk.kind),
         dev,
     )
     res = lm_fit_batched_planar(
-        to_card(np.ascontiguousarray(template_fid.real)[None, :], dev),
-        to_card(np.ascontiguousarray(template_fid.imag)[None, :], dev),
+        to_card(re_t[None, :], dev),
+        to_card(im_t[None, :], dev),
         t, u0_t,
         to_card(pk.lower, dev),
         to_card(pk.upper, dev),
@@ -390,8 +439,10 @@ def g_seed_plan(pk: PriorKnowledge):
 
 
 def _flatten_to_spectra(da: XmrArray, dim: str):
-    """Time-last transpose + row-major flatten to ``(n_spectra, n_time)``
-    host numpy, with the voxel shape and the other dims."""
+    """Time-last transpose + row-major flatten to ``(n_spectra, n_time)``,
+    with the voxel shape and the other dims: a tensor payload stays a
+    tensor on its device (a view where its layout allows), anything else
+    becomes numpy."""
     if dim not in da.dims:
         raise ValueError(f"Dimension '{dim}' missing in DataArray.")
     other_dims = [d for d in da.dims if d != dim]
@@ -399,9 +450,10 @@ def _flatten_to_spectra(da: XmrArray, dim: str):
     n_time = da.sizes[dim]
     data = da_t.data
     if isinstance(data, torch.Tensor):
-        data = to_host(data.detach()).numpy()
-    fid_arrs = np.asarray(data).reshape(-1, n_time)
-    return fid_arrs, tuple(da_t.shape[:-1]), other_dims
+        fids = data.detach().reshape(-1, n_time)
+    else:
+        fids = np.asarray(data).reshape(-1, n_time)
+    return fids, tuple(da_t.shape[:-1]), other_dims
 
 
 class StagedFids(NamedTuple):
@@ -439,16 +491,20 @@ def _check_staged(device_fids, expected, layout, dim):
             f"dim={dim!r}) on the same array.")
 
 
-def _stage_planes(fid_arrs: np.ndarray, device):
-    """``(re, im, ready)``: on a CUDA device the complex array goes from
-    pinned host memory to the card with ``non_blocking`` copies on a side
-    stream, split there into planes allocated on the current stream, and
-    ``ready`` is the event recorded after the split; elsewhere a plain
-    copy and ``None``."""
+def _stage_planes(fids, device):
+    """``(re, im, ready)``: from the host to a CUDA device the complex
+    array goes from pinned memory to the card with ``non_blocking`` copies
+    on a side stream, split there into planes allocated on the current
+    stream, and ``ready`` is the event recorded after the split; a tensor
+    already on a card, or a CPU ``device``, gets :func:`complex_planes`
+    (no copy for a tensor on ``device``) and ``None``."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return (*complex_planes(fid_arrs, device), None)
-    host = torch.from_numpy(np.ascontiguousarray(fid_arrs)).pin_memory()
+    on_host = not isinstance(fids, torch.Tensor) or fids.device.type == "cpu"
+    if device.type != "cuda" or not on_host:
+        return (*complex_planes(fids, device), None)
+    host = (fids if isinstance(fids, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(fids)))
+    host = host.contiguous().pin_memory()
     real = torch.float64 if host.dtype in (torch.complex128, torch.float64) \
         else torch.float32
     cur = torch.cuda.current_stream(device)
@@ -483,27 +539,19 @@ def stage_device_fids(da: XmrArray, dim: str = "time", device="cuda"):
     """Upload a grid's planes for ``fit_amares(device_fids=...)`` (reference
     ``stage_device_fids``): flattened as :func:`fit_amares` flattens the
     grid (time-last transpose, row-major voxels), on ``device`` (the card
-    unless the caller passes ``"cpu"``).  On the card the upload is
-    asynchronous (:func:`_stage_planes`); the consuming fit waits for it.
+    unless the caller passes ``"cpu"``).  From the host the upload to the
+    card is asynchronous (:func:`_stage_planes`); the consuming fit waits
+    for it.  A tensor payload on ``device`` is split where it lies.
     Returns a :class:`StagedFids` tagged with the staged layout."""
-    fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
-    re, im, ready = _stage_planes(fid_arrs, device)
+    fids, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
+    re, im, ready = _stage_planes(fids, device)
     return StagedFids(re, im, dims=tuple(other_dims) + (dim,),
-                      shape=tuple(voxel_shape) + (fid_arrs.shape[1],),
+                      shape=tuple(voxel_shape) + (fids.shape[1],),
                       ready=ready)
 
 
-def _seed_planes(fid_arrs, device_fids, device):
-    """float32 planes of the grid for the LS seed solves: the caller's
-    uploaded planes cast on their device, else a new upload."""
-    if device_fids is None:
-        device_fids = complex_planes(fid_arrs, device)
-    _wait_staged(device_fids)
-    return device_fids[0].to(torch.float32), device_fids[1].to(torch.float32)
-
-
 def template_seeded_x0(
-    fid_arrs: np.ndarray,
+    fid_arrs: np.ndarray | None,
     pk: PriorKnowledge,
     t,
     mhz: float,
@@ -534,12 +582,22 @@ def template_seeded_x0(
     :func:`fit_amares`'s).  The writes are staged and applied together
     once every solve is done; a solve that fails warns (``RuntimeWarning``)
     and leaves the scaled template seed.  ``t`` is the time-axis tensor (the device
-    of the work); ``device_fids`` the grid's planes already uploaded
-    there.
+    of the work).  Everything reads the grid's planes there: ``device_fids``
+    when the caller holds them (``fid_arrs`` may then be None), else one
+    upload of ``fid_arrs``; the default template is
+    :func:`select_template_planes`' voxel, and only the first points'
+    column comes to the host, for the amplitude scaling.
     """
-    n_spectra = fid_arrs.shape[0]
+    if device_fids is None:
+        device_fids = complex_planes(fid_arrs, t.device)
+    _wait_staged(device_fids)
+    re_all, im_all = device_fids[0], device_fids[1]
+    n_spectra = re_all.shape[0]
     x_template = pk.init_free
     if fit_template:
+        if template_fid is None:
+            idx, _ = select_template_planes(re_all, im_all, announce=False)
+            template_fid = torch.complex(re_all[idx], im_all[idx])
         x_template = template_optimum(
             fid_arrs, pk, t, mhz, template_fid=template_fid,
             max_iter=max_iter, verbose=verbose,
@@ -550,7 +608,8 @@ def template_seeded_x0(
         slots = list(amp_slots)
         template_total = float(np.sum(np.abs(x_template[slots])) if slots else 0.0)
         if slots and template_total > 0:
-            factor = np.clip(np.abs(fid_arrs[:, 0]) / template_total, 0.1, 100.0)
+            z0 = to_host(torch.complex(re_all[:, 0], im_all[:, 0])).numpy()
+            factor = np.clip(np.abs(z0) / template_total, 0.1, 100.0)
             x0[:, slots] *= factor[:, None]
 
     if linear_seed:
@@ -562,7 +621,7 @@ def template_seeded_x0(
             g_slots = g_seed_plan(pk) if g_scan else ()
             amp = ph = None
             if g_slots or ls_plan:
-                re, im = _seed_planes(fid_arrs, device_fids, t.device)
+                re, im = re_all.to(torch.float32), im_all.to(torch.float32)
                 xt = torch.as_tensor(x_template, dtype=torch.float32,
                                      device=t.device)
                 args = (re, im, xt, t.to(torch.float32),
@@ -707,6 +766,12 @@ def fit_amares(
     (:func:`~xmris_tpu_torch.fitting.lm.lm_fit_batched_pallas`), so
     ``kernel_version`` 10 then runs the v9 loop.
 
+    The grid becomes (re, im) planes on ``device`` once, at the start:
+    a tensor payload is split where it lies (no copy when it is on
+    ``device``), a numpy one is uploaded once.  The template scan
+    (:func:`select_template_planes`), the seed and the fit read those
+    planes; the grid comes back to the host only for ``raw_data`` and
+    ``residuals`` (``return_curves=True``, a CUDA payload: one copy).
     ``device_fids`` takes the grid's planes uploaded ahead of the call by
     :func:`stage_device_fids` on the same array and ``dim`` (or a plain
     ``(re, im)`` pair): their shapes, and a :class:`StagedFids`' layout,
@@ -714,7 +779,10 @@ def fit_amares(
     :mod:`~xmris_tpu_torch.runtime.profiling` (``fit_amares`` and
     ``fit_amares.ingest``, ``.seed``, ``.fit``, ``.crlb_model``,
     ``.pack``), recorded under a profiler or inside
-    :func:`~xmris_tpu_torch.runtime.profiling.recording`.
+    :func:`~xmris_tpu_torch.runtime.profiling.recording`; counter
+    ``fit_amares.resident`` adds 1 for a call that copies the grid neither
+    way: its planes come from a tensor payload or staged planes on
+    ``device``, and no curves come back from a card.
 
     ``mesh`` splits the voxel axis of each chunk over a 1-D
     :class:`~xmris_tpu_torch.parallel.mesh.Mesh` (a device count, a mesh,
@@ -752,9 +820,25 @@ def fit_amares(
         if deadtime is None:
             deadtime = float(t_coords[0])
 
-        # 2. Flatten N-D -> (n_spectra, n_time).
-        fid_arrs, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
-        n_spectra, n_time = fid_arrs.shape
+        # 2. Flatten N-D -> (n_spectra, n_time), a tensor where it lies.
+        fids, voxel_shape, other_dims = _flatten_to_spectra(da, dim)
+        n_spectra, n_time = fids.shape
+
+        # The planes on the fit's device, shared by the template scan, the
+        # seed and the fit: the caller's staged ones, or the payload split
+        # where it lies, or ONE upload.  ``moved``: this call copies the
+        # grid.
+        if device_fids is not None:
+            _check_staged(device_fids, (n_spectra, n_time),
+                          (tuple(other_dims) + (dim,),
+                           tuple(voxel_shape) + (n_time,)), dim)
+            _wait_staged(device_fids)
+            re_all, im_all = (p.to(dev) for p in device_fids[:2])
+            moved = re_all.device != device_fids[0].device
+        else:
+            re_all, im_all = complex_planes(fids, dev)
+            moved = not (isinstance(fids, torch.Tensor)
+                         and fids.device == re_all.device)
 
         # 3. The template FID: the caller's or the highest-SNR voxel.
         if init_fid is not None:
@@ -764,7 +848,8 @@ def fit_amares(
                     f"init_fid has {template_fid.shape[0]} points, expected {n_time}."
                 )
         else:
-            template_fid = fid_arrs[select_template_fid(fid_arrs)]
+            idx, _ = select_template_planes(re_all, im_all)
+            template_fid = torch.complex(re_all[idx], im_all[idx])
 
     # 4. Prior knowledge.
     with span("fit_amares.seed"):
@@ -785,20 +870,10 @@ def fit_amares(
         upper = to_card(pk.upper, dev)
         kind = to_card(pk.kind, dev)
 
-        # ONE upload of the planes, shared by the seed and the fit, unless the
-        # caller staged them.
-        if device_fids is not None:
-            _check_staged(device_fids, (n_spectra, n_time),
-                          (tuple(other_dims) + (dim,),
-                           tuple(voxel_shape) + (n_time,)), dim)
-            _wait_staged(device_fids)
-            re_all, im_all = (p.to(dev) for p in device_fids[:2])
-        else:
-            re_all, im_all = complex_planes(fid_arrs, dev)
         if g_scan == "auto":
             g_scan = (0.0, 0.2, 0.4, 0.6, 0.8) if g_seed_plan(pk) else None
         x0 = template_seeded_x0(
-            fid_arrs, pk, t, mhz, template_fid=template_fid,
+            None, pk, t, mhz, template_fid=template_fid,
             fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
             max_iter=max_iter, verbose=verbose, g_scan=g_scan,
             device_fids=(re_all, im_all),
@@ -964,7 +1039,12 @@ def fit_amares(
             return x
 
         if return_curves:
-            raw_nd = to_voxel_shape(fid_arrs, (n_time,))
+            raw = fids
+            if isinstance(fids, torch.Tensor):  # one host copy from a card
+                on_card = fids.device.type != "cpu"
+                raw = to_host(fids).numpy() if on_card else fids.numpy()
+                moved |= on_card
+            raw_nd = to_voxel_shape(raw, (n_time,))
             fit_nd = to_voxel_shape(fit_data, (n_time,))
             ds["raw_data"] = back(raw_nd, time_dims)
             ds["fit_data"] = back(fit_nd, time_dims)
@@ -1001,4 +1081,6 @@ def fit_amares(
             ),
             "amares_version": f"xmris_tpu_torch-{_version}",
         })
+    if not moved:
+        count("fit_amares.resident")
     return ds
