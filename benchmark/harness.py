@@ -17,6 +17,7 @@ import importlib
 import importlib.util
 import json
 import math
+import re
 import statistics
 import sys
 import time
@@ -143,18 +144,27 @@ class Spans:
 
 
 class KernelEvents:
-    """CUDA events around each call of a ``KernelSet`` slot, and the work
-    the benchmark's roofline functions count from the call."""
+    """The calls of the ``KernelSet`` slots that kernel metrics read.  In
+    the profiled part (``part == "profiled"``) a slot whose metric names
+    its kernel keeps the work of each call, counted from shapes alone, no
+    operation on the card; the profile's records of that kernel give the
+    time.  In the synced part (``part == "synced"``) every such slot has
+    CUDA events around each call, kept with the call's work."""
 
     def __init__(self):
-        self.calls: dict[str, list] = {}
-        self.on = False  # timing only while set
+        self.calls: dict[str, list] = {}  # synced part: (event, event, work)
+        self.work: dict[str, list] = {}  # profiled part: (bytes, operations)
+        self.part = None
 
-    def wrap(self, slot, fn, work):
+    def wrap(self, slot, fn, work, profiled=False):
         import torch
 
         def wrapped(*args, **kwargs):
-            if not self.on:
+            if self.part == "profiled" and profiled:
+                out = fn(*args, **kwargs)
+                self.work.setdefault(slot, []).append(work(args, kwargs, out))
+                return out
+            if self.part != "synced":
                 return fn(*args, **kwargs)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -167,7 +177,7 @@ class KernelEvents:
 
     def totals(self, slot):
         """(least seconds the card could take, seconds measured) over the
-        slot's calls."""
+        slot's calls in the synced part."""
         from benchmark import roofline
 
         least = measured = 0.0
@@ -188,15 +198,43 @@ class Trace:
     window_s: float | None = None
     device_kernels: int | None = None
     profile_requests: int = 0
+    kernel_records: dict = dataclasses.field(default_factory=dict)
 
     def span_ms(self, targets):
         if not self.span_requests or not any(t in self.span_seconds for t in targets):
             return None
         return 1e3 * sum(self.span_seconds.get(t, 0.0) for t in targets) / self.span_requests
 
-    def roofline_pct(self, slot):
+    def roofline_pct(self, slot, kernel=None):
+        """The least time of the slot's calls over their measured time, in
+        %.  With ``kernel``, a regular expression on the profile's kernel
+        names: the profiled part's records of that kernel, one a call that
+        launches (a call with no bytes launches none).  Where CUPTI lost a
+        record or a few (at most one, or 1 % of the calls) the time of the
+        rest stands for them at its mean; more lost, or more records than
+        calls (the kernel launched from outside the slot), reads nothing.  Without
+        ``kernel``: CUDA events around the synced part's calls, which take
+        in the call's host work while the card waits."""
+        from benchmark import roofline
+
         least, measured = self.kernels.totals(slot)
-        return 100.0 * least / measured if measured > 0 else None
+        bracket = 100.0 * least / measured if measured > 0 else None
+        if kernel is None:
+            return bracket
+        pat = re.compile(kernel)
+        hits = [v for name, v in self.kernel_records.items() if pat.search(name)]
+        n = sum(h[0] for h in hits)
+        seconds = sum(h[1] for h in hits)
+        works = [w for w in self.kernels.work.get(slot, ()) if float(w[0]) > 0]
+        least = sum(roofline.least_seconds(float(b), float(f)) for b, f in works)
+        lost = len(works) - n
+        pct = (100.0 * least * n / (len(works) * seconds)
+               if works and 0 <= lost <= max(1, 0.01 * len(works)) and seconds > 0
+               else None)
+        print(f"kernel {slot}: {n} records of /{kernel}/ for {len(works)} calls, "
+              f"{pct} % of the roofline; {bracket} % by events around the calls",
+              file=sys.stderr)
+        return pct
 
     def idle_pct(self):
         if not self.window_s or self.busy_s is None:
@@ -226,7 +264,8 @@ def _union(intervals):
 
 def read_profile(prof):
     """Device busy seconds (the union of CUDA activity), the kernel count,
-    the top device operations by time, and the longest gaps between device
+    ``{name: (records, seconds)}`` of the device operations, the top
+    device operations by time, and the longest gaps between device
     activity, each labelled by the CUDA runtime call the host was in at
     its middle ("host" where it was in none: Python, numpy, the
     allocator).  The profile records CUDA activity only, so that its cost
@@ -243,10 +282,12 @@ def read_profile(prof):
             host.append((s, s + d, e.name()))
     busy_ns, merged = _union([(s, e) for s, e, _ in dev])
     kernels = sum(1 for _, _, n in dev if not n.startswith(("Memcpy", "Memset")))
-    by_name: dict[str, int] = {}
+    by_name: dict[str, list] = {}
     for s, e, n in dev:
-        by_name[n] = by_name.get(n, 0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        rec = by_name.setdefault(n, [0, 0])
+        rec[0] += 1
+        rec[1] += e - s
+    top = sorted(((n, ns) for n, (_, ns) in by_name.items()), key=lambda kv: -kv[1])[:10]
     gaps = sorted(((a[1], b[0]) for a, b in zip(merged, merged[1:])),
                   key=lambda g: g[0] - g[1])[:10]
     idle = []
@@ -255,7 +296,9 @@ def read_profile(prof):
         around = [h for h in host if h[0] <= mid <= h[1]]
         label = min(around, key=lambda h: h[1] - h[0])[2] if around else "host"
         idle.append([label[:120], (e - s) / 1e9])
-    return busy_ns / 1e9, kernels, [[n[:120], v / 1e9] for n, v in top], idle
+    records = {n: (c, ns / 1e9) for n, (c, ns) in by_name.items()}
+    return (busy_ns / 1e9, kernels, records, [[n[:120], v / 1e9] for n, v in top],
+            idle)
 
 
 # ---------------------------------------------------------------------------

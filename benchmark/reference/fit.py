@@ -22,38 +22,80 @@ import torch
 
 DEG = math.pi / 180.0
 COLS = ("amplitude", "chemicalshift", "linewidth", "phase")
+JUDGES = "the reference judges untied Lorentzian priors (Eq. 6 with g = 0)"
+SECTIONS = ("Initial Values", "Bounds")
+
+
+def _refuse(name, key, cell, what):
+    raise ValueError(f"prior column {name!r}, row {key!r}, cell {cell!r}: {what}; "
+                     f"{JUDGES}")
+
+
+def _number(name, key, cell):
+    try:
+        return float(cell)
+    except ValueError:
+        _refuse(name, key, cell, "a tie to another line's parameter" if "*" in cell
+                else "not a number")
+
+
+def _bounds(name, key, cell):
+    """``(lo, hi)`` of a bound cell, infinite where a side is empty."""
+    lo, _, hi = cell.strip("()").partition(",")
+    return (_number(name, key, lo.strip()) if lo.strip() else -math.inf,
+            _number(name, key, hi.strip()) if hi.strip() else math.inf)
 
 
 def parse_prior(text: str):
     """The prior CSV (the upstream pyAMARES layout): ``(init, lower, upper)``
     as (K, 4) float64 tensors, columns amplitude, shift, linewidth, phase.
-    Rows above ``Bounds`` hold initial values, rows below it bounds: a
-    cell ``"(lo, hi)"``, ``"(lo, "`` with no upper bound.  The g row is
-    left out (g is fixed at 0 in these configurations)."""
+    Below the header, ``Initial Values`` and its rows of numbers, then
+    ``Bounds`` and its rows of cells ``"(lo, hi)"``, ``"(lo, "`` with no
+    upper bound; a row per parameter, the four above and g.
+
+    Raises ``ValueError``, naming the column and the cell, for what the
+    model above cannot judge: a tie (``factor*Metab``), a parameter of the
+    four pinned by ``fixed`` or by equal bounds, and a g that is not fixed
+    at 0 (a g left out of ``Bounds`` is free upstream); and, naming the
+    row, for any other row (``Expressions``, ``LessConstraints``)."""
     rows = [r for r in csv.reader(io.StringIO(text)) if r]
-    names = [c for c in rows[0][1:] if c.strip()]
+    names = [c.strip() for c in rows[0][1:] if c.strip()]
     k = len(names)
     init = torch.zeros((k, 4), dtype=torch.float64)
     lower = torch.full((k, 4), -math.inf, dtype=torch.float64)
     upper = torch.full((k, 4), math.inf, dtype=torch.float64)
+    g_init, g_bound = ["0"] * k, [""] * k
     in_bounds = False
     for row in rows[1:]:
         key = row[0].strip()
-        if key == "Bounds":
-            in_bounds = True
-        if key not in COLS:
-            continue
-        c = COLS.index(key)
-        for p, cell in enumerate(row[1:k + 1]):
-            cell = cell.strip()
-            if not in_bounds:
-                init[p, c] = float(cell)
-                continue
-            lo, _, hi = cell.strip("()").partition(",")
-            if lo.strip():
-                lower[p, c] = float(lo)
-            if hi.strip():
-                upper[p, c] = float(hi)
+        cells = [c.strip() for c in row[1:k + 1]] + [""] * (k + 1 - len(row))
+        if key in SECTIONS:
+            in_bounds = key == "Bounds"
+        elif key == "g" and in_bounds:
+            g_bound = cells
+        elif key == "g":
+            g_init = [c or "0" for c in cells]
+        elif key not in COLS:
+            raise ValueError(f"prior row {key!r}: not a row the reference reads; {JUDGES}")
+        elif not in_bounds:
+            init[:, COLS.index(key)] = torch.tensor(
+                [_number(n, key, c) for n, c in zip(names, cells)], dtype=torch.float64)
+        else:
+            c = COLS.index(key)
+            for p, cell in enumerate(cells):
+                if cell.lower() == "fixed":
+                    _refuse(names[p], key, cell, "a fixed parameter")
+                lower[p, c], upper[p, c] = _bounds(names[p], key, cell)
+                if lower[p, c] == upper[p, c]:
+                    _refuse(names[p], key, cell, "a parameter pinned by equal bounds")
+    for name, cell, bound in zip(names, g_init, g_bound):
+        if bound.lower() == "fixed":
+            value = _number(name, "g", cell)
+        else:
+            lo, hi = _bounds(name, "g", bound)
+            value, cell = (lo if lo == hi else math.nan), bound
+        if value != 0.0:
+            _refuse(name, "g", cell, "a g that is not fixed at 0")
     return init, lower, upper
 
 

@@ -6,8 +6,9 @@ float32 outside the tensor cores (the kernels here use none).  Each input
 byte is counted once and each output byte once; where the work depends on
 the data (the LM's done voxels, the accept gate's rejected ones) what these
 inputs need is counted.  The counts are ``chip_smoke.py``'s ``_bound`` and
-its K1/K2 arithmetic: at the bench shapes K1 is bound by its bytes at
-0.120 ms and K2 by its operations at 0.099 ms.
+its K1-K4 arithmetic: at the bench shapes K1 is bound by its bytes at
+0.120 ms, K2 by its operations at 0.099 ms, K3 and K4 by their bytes at
+0.0049 and 0.0045 ms.
 """
 
 from __future__ import annotations
@@ -73,3 +74,27 @@ def normal_equations_work(args, kwargs, out=None):
     n_cost = active.sum().double() - n_full
     return (n_full * full_bytes + n_cost * cost_bytes + 4 * n_in,
             n_full * full_ops + n_cost * cost_ops)
+
+
+def _tri(f):
+    """Entries of an F x F matrix's upper triangle, all an SPD kernel reads
+    of a voxel's H."""
+    return f * (f + 1) // 2
+
+
+def spd_solve_work(args, kwargs, out=None):
+    """K3 (``KernelSet.spd_solve_damped(h, g, lam)``, H the (F*F, B) slab):
+    per voxel H's upper triangle, g and lam in, the step out; a Cholesky
+    factor's F^3/3 operations and the two triangular solves' 2 F^2."""
+    g = args[1] if len(args) > 1 else kwargs["g"]
+    b, f = g.shape
+    return b * 4 * (_tri(f) + 2 * f + 1), b * (f ** 3 / 3 + 2 * f ** 2)
+
+
+def spd_inverse_work(args, kwargs, out=None):
+    """K4 (``KernelSet.spd_inverse_diag(h, tikhonov)``, H the (F*F, B)
+    slab): per voxel H's upper triangle in, diag(H^-1) out; the factor's
+    F^3/3 operations and L^-1's F^3/3."""
+    h = args[0] if args else kwargs["h"]
+    f, b = math.isqrt(h.shape[0]), h.shape[1]
+    return b * 4 * (_tri(f) + f), b * 2 * f ** 3 / 3

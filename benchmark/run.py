@@ -8,11 +8,12 @@ work and warms the cell's shapes with one request; then a closed loop (one
 grid in flight, the next sent when the last one's result is back, cycling
 through the pool) runs for ``--seconds``.  ``--trace 0`` prints the cell's
 end-to-end metrics; ``--trace 1`` splits the window into a profiled part
-and a part with synced spans and kernel events, and prints its per-layer
-metrics.  Requests drawn from the seed are then judged against the plain
-reference (``reference/``); each number is printed beside its limit on
-standard error and under ``checks`` in the result, the last line of
-standard output.  Without a card the run fails and prints no result.
+(CUDA activity: busy time, kernel records) and a part with synced spans
+and kernel events, and prints its per-layer metrics.  Requests drawn from
+the seed are then judged against the plain reference (``reference/``);
+each number is printed beside its limit on standard error and under
+``checks`` in the result, the last line of standard output.  Without a
+card the run fails and prints no result.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from benchmark.traffic import generator  # noqa: E402
 
 PROFILE_SHARE = 0.25  # of a traced window, the profiled part
 PROFILE_MAX_S = 10.0  # at most, so that reading its events stays short
+PROFILE_SETTLE_S = 0.5  # between the profile's start and its first request
 
 
 def _power_limit():
@@ -65,6 +67,14 @@ def _kernel_metrics(cell):
         if mod.KIND == "kernel":
             out[mod.SLOT] = getattr(roofline, mod.WORK)
     return out
+
+
+def _profiled_slots(cell):
+    """The slots of the cell's kernel metrics that name their kernel
+    (``KERNEL``), timed from the profile's records."""
+    return {mod.SLOT for mod in map(harness.metric_module,
+                                    (m["name"] for m in cell.per_layer))
+            if mod.KIND == "kernel" and getattr(mod, "KERNEL", None)}
 
 
 def _span_targets(cell):
@@ -95,7 +105,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     base = kernels or K.DISPATCH
     events = harness.KernelEvents()
     slots = _kernel_metrics(cell) if trace else {}
-    kset = dataclasses.replace(base, **{s: events.wrap(s, getattr(base, s), w)
+    profiled = _profiled_slots(cell) if trace else set()
+    kset = dataclasses.replace(base, **{s: events.wrap(s, getattr(base, s), w,
+                                                       s in profiled)
                                         for s, w in slots.items()})
     state = entry.setup(harness.context(cell, device, kset, pool))
     entry.request(state, pool[0])
@@ -127,23 +139,29 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
         targets = _span_targets(cell)
         t_prof = min(PROFILE_SHARE * seconds, PROFILE_MAX_S)
+        events.part = "profiled"
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # CUPTI now and then drops the first few kernels launched right
+            # after the trace starts; let it settle before the first request.
+            _sync(device)
+            time.sleep(PROFILE_SETTLE_S)
             loop_a = harness.closed_loop(entry, state, pool, t_prof, 1, voxels,
                                          lambda *a: None, lambda: _sync(device))
-        busy_s, n_kernels, ops, gaps = harness.read_profile(prof)
+        events.part = None
+        busy_s, n_kernels, records, ops, gaps = harness.read_profile(prof)
         del prof
         spans = harness.Spans()
         sampler = harness.Sampler(seed, n_samples, seconds - t_prof, entry)
-        events.on = True
+        events.part = "synced"
         with harness.patched(targets, spans.make):
             loop_b = harness.closed_loop(entry, state, pool, seconds - t_prof,
                                          1 + loop_a.attempted, voxels, sampler,
                                          lambda: _sync(device))
-        events.on = False
+        events.part = None
         attempted = loop_a.attempted + loop_b.attempted
         failed = loop_a.failed + loop_b.failed
         tr = harness.Trace(spans.seconds, loop_b.attempted, events, busy_s,
-                           loop_a.elapsed, n_kernels, loop_a.attempted)
+                           loop_a.elapsed, n_kernels, loop_a.attempted, records)
         for m in cell.per_layer:
             value = harness.metric_module(m["name"]).read(tr)
             if value is not None:

@@ -12,6 +12,8 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+pytest.register_assert_rewrite("config_checks")
+
 
 @pytest.fixture
 def card():
