@@ -32,6 +32,12 @@ and the script exits non-zero):
    3b. the free-g instantiations: K2 at K = 5, q_n = 2, F = 25 held per
    entry, and K3, K4, K6a and K6b at F = 25 bit for bit (NaN rows at the
    planted non-SPD voxels), each with its time and bound;
+   3c. the 12-line 7 T brain prior (the benchmark's ``p31_brain7t_k12``,
+   K = 12, F = 48) on the bench grid: K2's wide build held per entry, K3,
+   K4, K6a and K6b on the wide factor bit for bit, each with its time,
+   bound and ptxas line; the seeded grid fit against the plain path and
+   ``fit_amares`` on a CUDA payload, both through the kernels alone
+   (``brain7t_k12`` JSON line);
 4. the slice: ``process_grid_planar_raw`` (single-pivot autophase) on the
    full bench grid for three grids in a row with the launch counters
    checked, the fit checked against the phantom's ground truth, and the
@@ -1116,6 +1122,170 @@ def main(argv) -> int:
               f"{r['ms'] / r['bound'][0]:.1f}x the bound")
     del outs_g, hg_sp, hg_dense, hg_bff, cg_p, gg_p, hg_p, cg_k, gg_k, hg_k
     del grids_g, dxdu_g, x0_g
+    torch.cuda.empty_cache()
+
+    # ---- 3c. the 12-line 7 T brain prior: K = 12, F = 48, the wide builds ----
+    # The benchmark's p31_brain7t_k12 on the bench grid (its generator's
+    # seed-0 grid): K2 past the narrow caps (csrc/lm_v9_wide.cu) held per
+    # entry, K3/K4/K6a/K6b on the wide factor (two rows a lane) bit for bit,
+    # then the seeded grid fit and fit_amares on a CUDA payload through them.
+    _phase("3c 12-line prior: K2 wide at K=12, q_n=1, F=48; K3/K4/K6a/K6b at F=48")
+    from benchmark.traffic import generator
+
+    brain = json.loads((Path(__file__).resolve().parent / "benchmark" / "configs"
+                        / "p31_brain7t_k12.json").read_text())
+    pk_w = prior_from_csv_text(brain["prior_csv"], brain["name"])
+    ps_w, f_w = hashable_pmap(pk_w.pmap), pk_w.n_free
+    re_w, im_w = generator.fid_grid(brain, 0, dev)
+    fids_w = torch.complex(re_w, im_w).cpu().numpy()
+    amp_slots_w, ls_plan_w = seed_plan(pk_w)
+    xt_w = template_optimum(fids_w, pk_w, t_d, bi.MHZ)
+    _, _, _, _, _, xt_wd, lower_w, upper_w, kind_w = grid_inputs_from_numpy(
+        fids_w[:1], weight, freqs, t_np, xt_w, pk_w, dev)
+    w_kw = dict(pmap_static=ps_w, mhz=bi.MHZ, amp_slots=amp_slots_w,
+                ls_plan=ls_plan_w)
+    u0_w = seed_grid(re_w, im_w, t_d, xt_wd, lower_w, upper_w, kind_w, **w_kw)
+    x0_w, dxdu_w = internal_to_external_torch(u0_w, lower_w, upper_w, kind_w)
+    grids_w = expand_params_batched(x0_w, ps_w).contiguous()
+    dxdu_w = dxdu_w.contiguous()
+    plan_w = normal_eq_plan(ps_w, f_w, bi.MHZ, True)
+    kw_ = plan_w.n_peaks
+    if (f_w, plan_w.q_n, kw_) != (48, 1, 12) or not lm_cuda.is_wide(plan_w):
+        raise AssertionError(f"12-line plan: F={f_w}, q_n={plan_w.q_n}, K={kw_}")
+    print(f"   ptxas K2 wide (lm_v9_wide.cu, K=12, q_n=1): "
+          f"{_ptxas_summary(log, 'lm_v9_wide.cu', 'normal_eq_warp_kernelILi12ELi1E')}")
+    for tag, name, layout in (
+            ("K3", "spd_solve_damped_kernelILi48E", "SlabTile"),
+            ("K4", "spd_inverse_diag_kernelILi48E", "SlabTile"),
+            ("K6a", "spd_solve_damped_kernelILi48E", "Dense"),
+            ("K6b", "spd_inverse_diag_kernelILi48E", "Dense")):
+        print(f"   ptxas {tag} (spd.cu, kF=48): "
+              f"{_ptxas_summary(log, 'spd.cu', name, layout)}", flush=True)
+    cw_k, gw_k, hw_k = lm_cuda.eq6_normal_equations(grids_w, re_w, im_w, t_d,
+                                                     dxdu_w, plan_w)
+    cw_p, gw_p, hw_p = lm_cuda.eq6_normal_equations_plain(grids_w, re_w, im_w,
+                                                          t_d, dxdu_w, plan_w)
+    _sync()
+    _assert_close("K2 wide cost", cw_k, cw_p, 1e-5, 0.0)
+    h_atol, g_atol = _gram_atols(slab_to_bff(hw_p, f_w), cw_p, 1e-3)
+    ew = max(_assert_close("K2 wide g", gw_k, gw_p, 1e-4, g_atol),
+             _assert_close("K2 wide H", slab_to_bff(hw_k, f_w),
+                           slab_to_bff(hw_p, f_w), 1e-4, h_atol))
+    del h_atol, g_atol, cw_p, gw_p, hw_p
+    k2w_ops = n_in * (10 * kw_ + 6 + kw_ * (kw_ + 1) / 2 * (6 + 4 * 3)
+                      + kw_ * (6 + 4 * 2))
+    wide_report = {"eq6_normal_eq_v9 (K=12, F=48, wide)": dict(
+        err=ew,
+        ms=_time_ms(lambda: lm_cuda.eq6_normal_equations(
+            grids_w, re_w, im_w, t_d, dxdu_w, plan_w), 10),
+        plain_ms=_time_ms(lambda: lm_cuda.eq6_normal_equations_plain(
+            grids_w, re_w, im_w, t_d, dxdu_w, plan_w), 2),
+        bound=_bound(b * 4 * (kw_ * 5 + 2 * n_in + f_w + 1 + f_w + f_w ** 2)
+                     + 4 * n_in, b * k2w_ops))}
+    hw_sp = hw_k.clone()
+    hw_sp[0, planted] = -1.0
+    hw_dense = slab_to_bff(hw_sp, f_w)
+    outs_w = {
+        "K3": (spd.spd_solve_damped(hw_sp, gw_k, lam),
+               spd.spd_solve_damped_plain(hw_sp, gw_k, lam)),
+        "K4": (spd.spd_inverse_diag(hw_sp, 1e-12),
+               spd.spd_inverse_diag_plain(hw_sp, 1e-12)),
+        "K6a": (spd.spd_solve_damped_dense(hw_dense, gw_k, lam),
+                spd.spd_solve_damped_dense_plain(hw_dense, gw_k, lam)),
+        "K6b": (spd.spd_inverse_diag_dense(hw_dense),
+                spd.spd_inverse_diag_dense_plain(hw_dense)),
+    }
+    _sync()
+    for name, (got, ref_) in outs_w.items():
+        rows_nan = torch.isnan(got).all(1)
+        if not torch.equal(rows_nan, bad) or torch.isnan(got[~bad]).any():
+            raise AssertionError(f"{name} F=48: NaN rows are not the planted ones")
+        if not _same_bits(got, ref_):
+            raise AssertionError(f"{name} F=48: not bit for bit its plain version")
+        print(f"   {name} at F=48: bit for bit its plain version, NaN rows at "
+              f"the {int(bad.sum())} planted non-SPD voxels")
+    hw_bff = slab_to_bff(hw_k, f_w)
+    tri_w = f_w * (f_w + 1) // 2
+    spd_flops_w = b * f_w ** 3 / 3.0
+    for name, kern, plain_fn, nbytes, flops in (
+            ("spd_solve_damped (F=48)",
+             lambda: spd.spd_solve_damped(hw_k, gw_k, lam),
+             lambda: spd.spd_solve_damped_plain(hw_k, gw_k, lam),
+             b * 4 * (tri_w + 2 * f_w + 1), spd_flops_w + b * 2 * f_w ** 2),
+            ("spd_inverse_diag (F=48)",
+             lambda: spd.spd_inverse_diag(hw_k, 1e-12),
+             lambda: spd.spd_inverse_diag_plain(hw_k, 1e-12),
+             b * 4 * (tri_w + f_w), 2 * spd_flops_w),
+            ("spd_solve_damped_dense (F=48)",
+             lambda: spd.spd_solve_damped_dense(hw_bff, gw_k, lam),
+             lambda: spd.spd_solve_damped_dense_plain(hw_bff, gw_k, lam),
+             b * 4 * (tri_w + 2 * f_w + 1), spd_flops_w + b * 2 * f_w ** 2),
+            ("spd_inverse_diag_dense (F=48)",
+             lambda: spd.spd_inverse_diag_dense(hw_bff),
+             lambda: spd.spd_inverse_diag_dense_plain(hw_bff),
+             b * 4 * (tri_w + f_w), 2 * spd_flops_w)):
+        wide_report[name] = dict(err=0.0, ms=_time_ms(kern, 10),
+                                 plain_ms=_time_ms(plain_fn, 2),
+                                 bound=_bound(nbytes, flops))
+    for name, r in wide_report.items():
+        print(f"   {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+              f"{r['ms'] / r['bound'][0]:.1f}x the bound")
+    del outs_w, hw_sp, hw_dense, hw_bff, cw_k, gw_k, hw_k, grids_w, dxdu_w, x0_w
+    torch.cuda.empty_cache()
+    # The seeded grid fit at the bench protocol (v9, slab, K4 CRLB) through
+    # the wide builds, against the plain path on the card.
+    wide_fit_kw = dict(w_kw, max_iter=24, plateau_streak=3, uniform_t_ok=True)
+    K.reset_counters()
+    fit_w = seeded_fit_grid_raw(re_w, im_w, t_d, xt_wd, lower_w, upper_w,
+                                kind_w, **wide_fit_kw)
+    _sync()
+    _check_path(K, K.counters(), "seeded_fit")
+    fit_wp = seeded_fit_grid_raw(re_w, im_w, t_d, xt_wd, lower_w, upper_w,
+                                 kind_w, **wide_fit_kw, kernels=K.PLAIN)
+    _sync()
+    conv_w = float(fit_w[2].double().mean())
+    cost_w = _cost_not_worse("12-line grid fit vs plain path", fit_w[1],
+                             fit_wp[1], 0.995)
+    pcr_slot = int(pk_w.pmap.idx[5 * pk_w.metabolites.index("PCr")])
+    truth_w = torch.as_tensor(np.random.default_rng(0).uniform(
+        *brain["pcr_amplitude_range"], size=b), device=dev)
+    pcr_w = float(((fit_w[0][:, pcr_slot] - truth_w).abs() / truth_w).median())
+    if conv_w < 0.95 or pcr_w > 0.05:
+        raise AssertionError(f"12-line grid fit: converged {conv_w}, PCr "
+                             f"median error {pcr_w}")
+    fit_w_ms = _time_ms(lambda: seeded_fit_grid_raw(
+        re_w, im_w, t_d, xt_wd, lower_w, upper_w, kind_w, **wide_fit_kw), 3, 1)
+    print(f"   12-line grid fit: converged {conv_w:.5f}, PCr median error "
+          f"{pcr_w:.4f}, {fit_w_ms:.2f} ms a grid", flush=True)
+    del fit_wp
+    # fit_amares on a CUDA payload of the same grid (K2, K3, K6b).
+    da_w = XmrArray(torch.complex(re_w, im_w).reshape(bi.GRID + (bi.N_TIME,)),
+                    dims=("x", "y", "z", "time"),
+                    coords={"time": Coord("time", t_np.astype(np.float64))},
+                    attrs={"MHz": bi.MHZ})
+    K.reset_counters()
+    ds_w = fit_amares(da_w, pk_w, return_curves=False)
+    _sync()
+    _check_path(K, K.counters(), "fit_amares")
+    conv_fw = float(ds_w["fit_converged"].values.mean())
+    amp_w = ds_w["amplitude"].values.reshape(-1, kw_)[:, 6]
+    pcr_fw = float(np.median(np.abs(amp_w - truth_w.cpu().numpy())
+                             / truth_w.cpu().numpy()))
+    if conv_fw < 0.95 or pcr_fw > 0.05:
+        raise AssertionError(f"12-line fit_amares: converged {conv_fw}, PCr "
+                             f"median error {pcr_fw}")
+    print(f"   12-line fit_amares (CUDA payload): converged {conv_fw:.5f}, "
+          f"PCr median error {pcr_fw:.4f}", flush=True)
+    wide_summary = {
+        "kernels": {k: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "max_abs_err": r["err"]}
+                    for k, r in wide_report.items()},
+        "grid_fit_ms": fit_w_ms, "grid_converged": conv_w,
+        "grid_pcr_err": pcr_w, "grid_cost_vs_plain": cost_w,
+        "fit_amares_converged": conv_fw, "fit_amares_pcr_err": pcr_fw}
+    del da_w, ds_w, fit_w, re_w, im_w, u0_w
     torch.cuda.empty_cache()
 
     # ---- 4. the slice: three grids through the port's main path ----
@@ -3263,6 +3433,7 @@ def main(argv) -> int:
     print(json.dumps({"slice_13": slice13}))
     print(json.dumps({"slice_14": slice14}))
     print(json.dumps({"slice_16": slice16}))
+    print(json.dumps({"brain7t_k12": wide_summary}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

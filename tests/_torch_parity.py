@@ -7,6 +7,9 @@ parsed by the JAX package and handed to the port through
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
 
 from test_fitting import PK_CSV as TEST_PK_CSV
@@ -56,3 +59,28 @@ def spectral_constants(n_t=N_T, sw=SW, lb=5.0):
     weight = np.exp(-np.pi * lb * np.arange(zf) / sw).astype(np.float32)
     freqs = np.fft.fftshift(np.fft.fftfreq(zf, d=1.0 / sw)).astype(np.float32)
     return zf, weight, freqs
+
+
+# The 12-line 7 T brain 31P configuration of the benchmark (K = 12, F = 48,
+# g fixed): its prior and phantom lines.
+BRAIN7T = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                      / "p31_brain7t_k12.json").read_text())
+
+
+def brain7t_phantom(n_voxels=8, n_t=N_T, sw=SW, mhz=MHZ, seed=0):
+    """The 12-line 7 T brain phantom at a small size, made as
+    :func:`bench_phantom` makes the bench's: complex64 FIDs (n_voxels,
+    n_t), float32 t and the true PCr amplitudes."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_t) / sw
+    lo, hi = BRAIN7T["pcr_amplitude_range"]
+    amp = rng.uniform(lo, hi, n_voxels)[:, None]
+    fids = np.zeros((n_voxels, n_t), complex)
+    for p in BRAIN7T["peaks"]:
+        sig = np.exp((-p["linewidth_hz"] * np.pi
+                      + 2j * np.pi * p["shift_ppm"] * mhz) * t)
+        a = amp if p["amplitude"] is None else p["amplitude"]
+        fids += a * sig[None, :]
+    sigma = BRAIN7T["noise_sigma"]
+    fids += rng.normal(0, sigma, fids.shape) + 1j * rng.normal(0, sigma, fids.shape)
+    return fids.astype(np.complex64), t.astype(np.float32), amp[:, 0]

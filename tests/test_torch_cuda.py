@@ -14,6 +14,8 @@ of their rows (``_assert_normal_eq_close``).
 
 import contextlib
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from xmris_tpu_torch.fitting.amares import (
 )
 from xmris_tpu_torch.fitting.lm import (
     crlb_batched_pallas,
+    crlb_batched_planar,
     hashable_pmap,
     lm_fit_batched_pallas,
     normal_eq_plan,
@@ -607,7 +610,11 @@ def test_spd_dense_warp_kernels_match_plain_and_slab(dev, f):
 
 
 def test_spd_dense_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
-    for f in (1, 20, 32):
+    """An empty batch launches nothing, at one and two rows a lane; past
+    the wide factor's 48 rows the wrappers refuse (F = 33 was refused while
+    the factor took one row a lane: it now runs, as
+    ``test_spd_wide_warp_kernels_match_plain_and_slab`` holds)."""
+    for f in (1, 20, 32, 33, 48):
         dense = torch.zeros((0, f, f), device=dev)
         K.reset_counters()
         x = spd.spd_solve_damped_dense(dense, torch.zeros((0, f), device=dev),
@@ -616,16 +623,18 @@ def test_spd_dense_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
         torch.cuda.synchronize()
         assert x.shape == d.shape == (0, f)
         assert not any(K.counters()["launches"].values())
-    dense = torch.eye(33, device=dev).repeat(2, 1, 1)
+    dense = torch.eye(49, device=dev).repeat(2, 1, 1)
     with pytest.raises(ValueError, match="exceeds"):
-        spd.spd_solve_damped_dense(dense, torch.ones((2, 33), device=dev),
+        spd.spd_solve_damped_dense(dense, torch.ones((2, 49), device=dev),
                                    torch.ones(2, device=dev))
     with pytest.raises(ValueError, match="exceeds"):
         spd.spd_inverse_diag_dense(dense)
 
 
 def test_spd_slab_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
-    for f in (1, 20, 32):
+    """As the dense pair's test: nothing launched for an empty batch, a
+    refusal past 48 rows."""
+    for f in (1, 20, 32, 33, 48):
         slab = torch.zeros((f * f, 0), device=dev)
         K.reset_counters()
         x = spd.spd_solve_damped(slab, torch.zeros((0, f), device=dev),
@@ -634,9 +643,9 @@ def test_spd_slab_warp_kernels_take_an_empty_batch_and_refuse_f_33(dev):
         torch.cuda.synchronize()
         assert x.shape == d.shape == (0, f)
         assert not any(K.counters()["launches"].values())
-    slab = torch.eye(33, device=dev).reshape(33 * 33, 1).repeat(1, 2)
+    slab = torch.eye(49, device=dev).reshape(49 * 49, 1).repeat(1, 2)
     with pytest.raises(ValueError, match="exceeds"):
-        spd.spd_solve_damped(slab, torch.ones((2, 33), device=dev),
+        spd.spd_solve_damped(slab, torch.ones((2, 49), device=dev),
                              torch.ones(2, device=dev))
     with pytest.raises(ValueError, match="exceeds"):
         spd.spd_inverse_diag(slab, 1e-12)
@@ -804,16 +813,16 @@ def test_normal_equations_gate_skips_only_rejected_voxels(dev):
     assert torch.equal(h2[:, better], h[:, better])
 
 
-def _prior_csv(n_peaks, free_g):
+def _prior_csv(n_peaks, free_g, max_free=lm_cuda.MAX_FREE):
     """A seeded-shape prior of ``n_peaks`` peaks; with ``free_g`` every g is
     free (the t^2 rows, q_n = 2).  Phases are fixed where the free count
-    would pass the kernels' 32."""
+    would pass ``max_free`` (the narrow kernels' 32 by default)."""
     shifts = np.linspace(-16.0, 5.0, n_peaks) if n_peaks > 1 else [0.0]
 
     def row(name, vals):
         return name + "," + ",".join(str(v) for v in vals)
 
-    phase = ("fixed" if n_peaks * (4 + free_g) > lm_cuda.MAX_FREE
+    phase = ("fixed" if n_peaks * (4 + free_g) > max_free
              else '"(-180, 180)"')
     return "\n".join([
         "Index," + ",".join(f"P{i}" for i in range(n_peaks)),
@@ -1780,3 +1789,318 @@ def test_grid_at_a_matmul_variant_launches_no_spectrum_kernel(dev, variant):
     # The fit reads the FIDs, not the spectra (repeated grids may differ
     # in the last bits: test_torch_slice's bars).
     torch.testing.assert_close(got[3], ref[3], rtol=2e-3, atol=2e-3)
+
+
+
+# ---------------------------------------------------------------------------
+# The 12-line 7 T brain 31P prior (K = 12, F = 48): K2's wide build and the
+# SPD kernels' wide factor (two rows a lane)
+# ---------------------------------------------------------------------------
+
+BRAIN7T = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                      / "configs" / "p31_brain7t_k12.json").read_text())
+
+
+def _brain_planes(dev, grid=bi.GRID, seed=0):
+    """The benchmark's 12-line phantom (its generator's recipe: PCr
+    uniform in its range, the other lines at their amplitudes, Gaussian
+    noise), float32 planes (B, n_time) on ``dev``, and the true PCr
+    amplitudes."""
+    b, n = int(np.prod(grid)), BRAIN7T["n_time"]
+    t = np.arange(n) / BRAIN7T["sw_hz"]
+    rng = np.random.default_rng(seed)
+    pcr = rng.uniform(*BRAIN7T["pcr_amplitude_range"], size=b)
+    fids = np.zeros((b, n), complex)
+    for p in BRAIN7T["peaks"]:
+        sig = np.exp((-p["linewidth_hz"] * np.pi
+                      + 2j * np.pi * p["shift_ppm"] * BRAIN7T["mhz"]) * t)
+        fids += (pcr[:, None] if p["amplitude"] is None else p["amplitude"]) * sig
+    sigma = BRAIN7T["noise_sigma"]
+    re = fids.real + rng.normal(0, sigma, (b, n))
+    im = fids.imag + rng.normal(0, sigma, (b, n))
+    return (torch.as_tensor(re.astype(np.float32), device=dev),
+            torch.as_tensor(im.astype(np.float32), device=dev), pcr)
+
+
+def _wide_inputs(dev, prior):
+    """K2's inputs on the whole bench grid (16 384 voxels): the bench prior
+    and phantom (F = 20, parameters within 20 % of the prior's initial
+    values) or the 12-line ones (F = 48, parameters within 2 % of the
+    phantom's lines, phases within 2 degrees: at random points of the
+    prior's box a tenth of the 12-line Gauss-Newton H are past what float32
+    can factor without damping)."""
+    rng = np.random.default_rng(0)
+    if prior == "bench":
+        pk = prior_from_csv_text(bi.PK_CSV)
+        re, im, _, _ = _planes(dev, bi.GRID)
+        b, nf = re.shape[0], pk.n_free
+        x = pk.init_free[None] * rng.uniform(0.8, 1.2, (b, nf))
+    else:
+        pk = prior_from_csv_text(BRAIN7T["prior_csv"])
+        re, im, pcr = _brain_planes(dev)
+        b, nf = re.shape[0], pk.n_free
+        x = np.zeros((b, nf))
+        for k, p in enumerate(BRAIN7T["peaks"]):
+            amp = pcr if p["amplitude"] is None else np.full(b, p["amplitude"])
+            vals = (amp * rng.uniform(0.98, 1.02, b),
+                    p["shift_ppm"] + rng.uniform(-0.01, 0.01, b),
+                    p["linewidth_hz"] * rng.uniform(0.98, 1.02, b),
+                    rng.uniform(-2.0, 2.0, b))
+            for c, v in enumerate(vals):
+                x[:, pk.pmap.idx[5 * k + c]] = v
+    ps = hashable_pmap(pk.pmap)
+    x = np.clip(x, pk.lower, pk.upper).astype(np.float32)
+    grids = expand_params_batched(torch.as_tensor(x, device=dev), ps)
+    dxdu = torch.as_tensor(rng.uniform(0.5, 1.5, (b, nf)).astype(np.float32),
+                           device=dev)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    return ps, nf, (grids.contiguous(), re, im, t, dxdu)
+
+
+@pytest.mark.parametrize("prior", ["bench", "brain7t"])
+def test_lm_and_crlb_kernels_match_plain_on_the_bench_grid(dev, prior):
+    """On all 16 384 voxels of the bench grid, at F = 20 (the bench prior)
+    and F = 48 (the 12-line prior: K2's wide build, the SPD kernels' wide
+    factor): K2 against its plain twin per entry; K3, K4 (with the CRLB's
+    1e-12 ridge), K6a and K6b bit for bit their plain twins on K2's H (NaN
+    rows where the twin's are), the three planted non-SPD voxels NaN in
+    every output and no other; K3 equal to K6a and K4 without the ridge to
+    K6b."""
+    ps, nf, ins = _wide_inputs(dev, prior)
+    plan = normal_eq_plan(ps, nf, bi.MHZ, True)
+    assert lm_cuda.is_wide(plan) == (prior == "brain7t")
+    K.reset_counters()
+    c, g, h = lm_cuda.eq6_normal_equations(*ins, plan)
+    torch.cuda.synchronize()
+    assert K.counters()["launches"]["eq6_normal_eq_v9"] == 1
+    c2, g2, h2 = lm_cuda.eq6_normal_equations_plain(*ins, plan)
+    _assert_normal_eq_close((c, g, slab_to_bff(h, nf)),
+                            (c2, g2, slab_to_bff(h2, nf)))
+    del c2, g2, h2
+    b = g.shape[0]
+    planted = torch.tensor([5, 777, b - 3], device=dev)
+    h[0, planted] = -1.0
+    bad = torch.zeros(b, dtype=torch.bool, device=dev)
+    bad[planted] = True
+    lam = torch.logspace(-5, -1, b, device=dev)
+    dense = slab_to_bff(h, nf).contiguous()
+    x3 = spd.spd_solve_damped(h, g, lam)
+    d4 = spd.spd_inverse_diag(h, 1e-12)
+    d4n = spd.spd_inverse_diag(h, 0.0)
+    x6 = spd.spd_solve_damped_dense(dense, g, lam)
+    d6 = spd.spd_inverse_diag_dense(dense)
+    for out in (x3, d4, d4n, x6, d6):
+        assert torch.equal(torch.isnan(out).all(1), bad)
+        assert not torch.isnan(out[~bad]).any()
+    _assert_bits(x3, spd.spd_solve_damped_plain(h, g, lam))
+    _assert_bits(d4, spd.spd_inverse_diag_plain(h, 1e-12))
+    _assert_bits(x6, spd.spd_solve_damped_dense_plain(dense, g, lam))
+    _assert_bits(d6, spd.spd_inverse_diag_dense_plain(dense))
+    _assert_bits(x3, x6)
+    _assert_bits(d4n, d6)
+
+
+@pytest.mark.parametrize("n_peaks,free_g,factored,n_t,n_free", [
+    (12, False, True, 1024, 48), (12, False, False, 1000, 48),
+    (12, True, True, 1024, 48), (9, True, False, 1000, 45),
+    (8, True, True, 1024, 40), (7, True, False, 1000, 35),
+])
+def test_wide_normal_equations_shapes_mask_gate(dev, n_peaks, free_g,
+                                                factored, n_t, n_free):
+    """K2's wide build at K = 9 and 12 (q_n = 1 and 2: F = 48, 45, 48 with
+    the phases fixed) and at K = 7 and 8 with every g and phase free
+    (F = 35, 40: past the narrow 32), on both bases, against its plain
+    version per entry; masked voxels
+    skipped and the rest bit for bit; the gate's cost bit for bit on every
+    voxel, g and H on the improving ones."""
+    ps, nf, ins = _shape_inputs(
+        dev, _prior_csv(n_peaks, free_g, lm_cuda.WIDE_MAX_FREE), n_t)
+    plan = normal_eq_plan(ps, nf, bi.MHZ, factored)
+    assert plan.q_n == (2 if free_g else 1) and lm_cuda.is_wide(plan)
+    assert nf == n_free
+    c, g, h = lm_cuda.eq6_normal_equations(*ins, plan)
+    c2, g2, h2 = lm_cuda.eq6_normal_equations_plain(*ins, plan)
+    _assert_normal_eq_close((c, g, slab_to_bff(h, nf)),
+                            (c2, g2, slab_to_bff(h2, nf)))
+    b = c.shape[0]
+    mask = torch.arange(b, device=dev) % 3 != 0
+    cm, gm, hm = lm_cuda.eq6_normal_equations(*ins, plan, voxel_mask=mask)
+    assert torch.equal(cm[mask], c[mask]) and torch.equal(gm[mask], g[mask])
+    assert torch.equal(hm[:, mask], h[:, mask])
+    factor = torch.where(torch.arange(b, device=dev) % 2 == 0, 1.01, 0.99)
+    c_prev = (c * factor).contiguous()
+    cg, gg, hg = lm_cuda.eq6_normal_equations(*ins, plan, cost_prev=c_prev)
+    better = cg < c_prev
+    assert torch.equal(cg, c) and 0 < int(better.sum()) < b
+    assert torch.equal(gg[better], g[better])
+    assert torch.equal(hg[:, better], h[:, better])
+
+
+def test_wide_normal_equations_refuse_past_the_wide_caps(dev):
+    """Past 12 peaks or 48 free parameters (the SPD kernels' reach) K2
+    refuses, as past the narrow caps it did."""
+    for n_peaks, free_g, max_free in ((12, True, 60), (13, False, 52)):
+        ps, nf, ins = _shape_inputs(dev, _prior_csv(n_peaks, free_g, max_free),
+                                    1024)
+        with pytest.raises(ValueError, match="prior too large for the kernel"):
+            lm_cuda.eq6_normal_equations(*ins,
+                                         normal_eq_plan(ps, nf, bi.MHZ, True))
+
+
+@pytest.mark.parametrize("f", [33, 40, 47, 48])
+def test_spd_wide_warp_kernels_match_plain_and_slab(dev, f):
+    """Past 32 rows, two rows a lane, rows padded to 48, at B = 37 (not a
+    multiple of the wide tile's 8 voxels):
+    K6a/K6b and K3/K4 bit for bit their plain versions and each other, K4
+    with the 1e-12 ridge too, NaN rows exactly at the non-SPD voxels, one
+    launch each."""
+    dense, slab, g, lam, bad = _spd_dense_case(dev, 37, f, seed=100 + f)
+    K.reset_counters()
+    x = spd.spd_solve_damped_dense(dense, g, lam)
+    d = spd.spd_inverse_diag_dense(dense)
+    x3 = spd.spd_solve_damped(slab, g, lam)
+    d4 = spd.spd_inverse_diag(slab, 0.0)
+    torch.cuda.synchronize()
+    launches = K.counters()["launches"]
+    for name in ("spd_solve_damped_dense", "spd_inverse_diag_dense",
+                 "spd_solve_damped", "spd_inverse_diag"):
+        assert launches[name] == 1, name
+    for out in (x, d, x3, d4):
+        assert torch.equal(torch.isnan(out).all(1), bad)
+        assert not torch.isnan(out[~bad]).any()
+    _assert_bits(x, spd.spd_solve_damped_dense_plain(dense, g, lam))
+    _assert_bits(d, spd.spd_inverse_diag_dense_plain(dense))
+    _assert_bits(x3, spd.spd_solve_damped_plain(slab, g, lam))
+    _assert_bits(d4, spd.spd_inverse_diag_plain(slab, 0.0))
+    _assert_bits(x3, x)
+    _assert_bits(d4, d)
+    d4r = spd.spd_inverse_diag(slab, 1e-12)
+    _assert_bits(d4r, spd.spd_inverse_diag_plain(slab, 1e-12))
+
+
+def _brain_grid_args(dev, grid=GRID):
+    pk = prior_from_csv_text(BRAIN7T["prior_csv"])
+    re, im, pcr = _brain_planes(dev, grid)
+    t = torch.arange(bi.N_TIME, device=dev, dtype=torch.float32) / bi.SW
+    x_t = torch.as_tensor(pk.init_free, dtype=torch.float32, device=dev)
+    bounds = [torch.as_tensor(a, device=dev) for a in
+              (pk.lower.astype(np.float32), pk.upper.astype(np.float32),
+               pk.kind)]
+    amp_slots, ls_plan = seed_plan(pk)
+    kw = dict(pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    return pk, (re, im, t, x_t, *bounds), kw, pcr
+
+
+def test_grid_fit_runs_on_the_kernels_at_12_lines(dev):
+    """The seeded grid fit at the bench protocol on the 12-line prior
+    launches K2 (its wide build), K3 and K4 (the wide factor), no plain
+    version, and matches the plain path on the card."""
+    pk, args, kw, pcr = _brain_grid_args(dev)
+    K.reset_counters()
+    x, cost, conv, sds = seeded_fit_grid_raw(*args, **kw)
+    torch.cuda.synchronize()
+    counts = K.counters()
+    for name in ("eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag"):
+        assert counts["launches"][name] > 0
+        assert counts["plain_calls"][name] == 0
+    assert not any(counts["plain_calls"].values())
+    x2, cost2, _, sds2 = seeded_fit_grid_raw(*args, **kw, kernels=K.PLAIN)
+    assert conv.all() and x.shape[1] == 48
+    torch.testing.assert_close(cost, cost2, rtol=1e-4, atol=0)
+    slot = int(pk.pmap.idx[5 * pk.metabolites.index("PCr")])
+    truth = torch.as_tensor(pcr, device=dev, dtype=torch.float32)
+    assert float(((x[:, slot] - truth).abs() / truth).median()) <= 0.05
+
+
+def _map_sds(ds, pk, re, im):
+    """The Jacobian CRLB SD of every map entry at ``ds``'s solution (float64
+    on the CPU), per map name, shaped as the map."""
+    names = ("amplitude", "chem_shift", "linewidth", "phase")
+    k = pk.n_peaks
+    x = np.zeros((re.shape[0], pk.n_free))
+    for c, name in enumerate(names):
+        vals = ds[name].values.reshape(-1, k)
+        for j in range(k):
+            x[:, pk.pmap.idx[5 * j + c]] = vals[:, j]
+    t = torch.arange(bi.N_TIME, dtype=torch.float64) / bi.SW
+    sds, _ = crlb_batched_planar(re.double().cpu(), im.double().cpu(), t,
+                                 torch.as_tensor(x), hashable_pmap(pk.pmap),
+                                 bi.MHZ)
+    return {name: sds.numpy()[:, [pk.pmap.idx[5 * j + c] for j in range(k)]]
+            .reshape(ds[name].values.shape) for c, name in enumerate(names)}
+
+
+def test_fit_amares_runs_on_the_kernels_at_12_lines(dev):
+    """``.xmr.fit_amares`` on a CUDA payload with the 12-line prior (engine
+    "auto": the kernels) launches K2, K3 and K6b alone, converges and
+    recovers PCr, and matches the plain path: every map within 2e-3 + 0.1
+    of its CRLB (ROADMAP's flat valleys: the two paths' float32 sums stop a
+    few voxels of a 12-line fit at other points of a valley, where the
+    bench prior's 2e-3 held), CRLB % at 2e-2."""
+    pk = prior_from_csv_text(BRAIN7T["prior_csv"])
+    re, im, pcr = _brain_planes(dev, GRID)
+    t = np.arange(bi.N_TIME) / bi.SW
+    da = XmrArray(torch.complex(re, im).reshape(GRID + (bi.N_TIME,)),
+                  dims=("x", "y", "z", "time"), coords={"time": Coord("time", t)},
+                  attrs={"MHz": bi.MHZ})
+    K.reset_counters()
+    ds = da.xmr.fit_amares(pk, return_curves=False)
+    counts = K.counters()
+    for name in K.PATHS["fit_amares"]:
+        assert counts["launches"][name] > 0, name
+    assert not any(counts["plain_calls"].values())
+    assert ds["fit_converged"].values.all()
+    amp = ds["amplitude"].values.reshape(-1, pk.n_peaks)[:, 6]
+    assert np.median(np.abs(amp - pcr) / pcr) <= 0.05
+    ds2 = da.xmr.fit_amares(pk, return_curves=False, kernels=K.PLAIN)
+    sds = _map_sds(ds, pk, re, im)
+    for name, sd in sds.items():
+        a, b = ds[name].values, ds2[name].values
+        assert np.all(np.abs(a - b) <= 2e-3 + 2e-3 * np.abs(b) + 0.1 * sd), name
+    np.testing.assert_allclose(ds["crlb"].values, ds2["crlb"].values,
+                               rtol=2e-2, atol=1e-4)
+
+
+def test_lm_compaction_on_the_card_matches_the_whole_batch_loop(dev,
+                                                                monkeypatch):
+    """The slab LM on the 12-line phantom's whole bench grid: once it is
+    down to a sixteenth of the voxels it goes on with those alone; against
+    the same loop kept on the whole batch: the same trips and launches, the
+    same done flags and accepted steps, costs within 1e-6 (the predicted
+    decrease's sum over F may round otherwise at another batch size), H
+    where the costs agree."""
+    from xmris_tpu_torch.fitting import lm as tlm
+
+    pk, args, kw, _ = _brain_grid_args(dev, bi.GRID)
+    re, im, t, x_t, lo, hi, kind = args
+    u0 = seed_grid(re, im, t, x_t, lo, hi, kind, pmap_static=kw["pmap_static"],
+                   mhz=bi.MHZ, amp_slots=kw["amp_slots"], ls_plan=kw["ls_plan"])
+    batches = []
+
+    def normal_equations(*a, **k):
+        batches.append(a[1].shape[0])
+        return K.DISPATCH.normal_equations(*a, **k)
+
+    ks = dataclasses.replace(K.DISPATCH, normal_equations=normal_equations)
+
+    def run(min_batch):
+        monkeypatch.setattr(tlm, "COMPACT_MIN_BATCH", min_batch)
+        batches.clear()
+        out = tlm.lm_fit_batched_slab(re, im, t, u0, lo, hi, kind,
+                                      kw["pmap_static"], bi.MHZ, kernels=ks,
+                                      max_iter=24, uniform_t_ok=True)
+        torch.cuda.synchronize()
+        return out, list(batches)
+
+    (res, h), whole = run(1 << 30)
+    (res_c, h_c), part = run(1024)
+    b = re.shape[0]
+    assert set(whole) == {b} and len(part) == len(whole)
+    assert min(part) * tlm.COMPACT_SHARE <= b  # it compacted
+    assert torch.equal(res.done, res_c.done)
+    assert torch.equal(res.n_iter, res_c.n_iter)
+    torch.testing.assert_close(res_c.cost, res.cost, rtol=1e-6, atol=0)
+    same = res.cost == res_c.cost
+    assert torch.equal(res.x_free[same], res_c.x_free[same])
+    assert torch.equal(h[:, same], h_c[:, same])

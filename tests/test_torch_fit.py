@@ -29,10 +29,12 @@ from xmris_tpu_torch.ops import kernels as K
 
 from _torch_parity import (
     BENCH_PK_CSV,
+    BRAIN7T,
     MHZ,
     TEST_PK_CSV,
     TEST_PK_CSV_FIXED_G,
     bench_phantom,
+    brain7t_phantom,
     load_priors,
 )
 
@@ -298,3 +300,49 @@ def test_free_g_grid_fit_runs_on_each_kernel_path(tmp_path):
         calls = K.counters()["plain_calls"]
         assert {n for n, c in calls.items() if c} == kernels
         assert torch.isfinite(x).all() and torch.isfinite(cost).all()
+
+
+def test_lm_compaction_matches_the_whole_batch_loop(tmp_path, monkeypatch):
+    """The slab loop's compaction (its last voxels alone once the batch is
+    down to a share of them) gives the whole batch's loop's outputs, bit
+    for bit on the CPU, with the same trip count and host reads: on 24
+    voxels of the 12-line 7 T prior, whose voxels finish over several trips
+    (the bench prior's all finish at once), with the compaction forced at
+    half the batch (it starts at ``COMPACT_MIN_BATCH`` voxels otherwise)."""
+    from xmris_tpu_torch.runtime import profiling
+
+    pk, pkt = load_priors(BRAIN7T["prior_csv"], tmp_path)
+    fids, t, _ = brain7t_phantom(24)
+    _, targs, kw = _fit_inputs(pk, pkt, fids, t)
+    re, im, t_, x_t, lo, hi, kind = targs
+    ps = kw["pmap_static"]
+    u0 = tam.seed_grid(re, im, t_, x_t, lo, hi, kind, pmap_static=ps, mhz=MHZ,
+                       amp_slots=kw["amp_slots"], ls_plan=kw["ls_plan"])
+
+    batches = []
+
+    def normal_equations(*args, **kwargs):
+        batches.append(args[1].shape[0])
+        return K.PLAIN.normal_equations(*args, **kwargs)
+
+    ks = dataclasses.replace(K.PLAIN, normal_equations=normal_equations)
+
+    def run(min_batch):
+        monkeypatch.setattr(tlm, "COMPACT_MIN_BATCH", min_batch)
+        monkeypatch.setattr(tlm, "COMPACT_SHARE", 2)
+        batches.clear()
+        with profiling.recording() as rec:
+            out = tlm.lm_fit_batched_slab(re, im, t_, u0, lo, hi, kind, ps, MHZ,
+                                          kernels=ks, max_iter=24,
+                                          uniform_t_ok=True)
+        return out, rec.snapshot()["counters"], list(batches)
+
+    (res, h), n, whole = run(1 << 30)
+    (res_c, h_c), n_c, part = run(1)
+    b = re.shape[0]
+    assert set(whole) == {b} and part[0] == b and min(part) <= b / 2
+    assert n["lm.iterations"] == n_c["lm.iterations"] == len(part) - 1
+    assert n["host.syncs"] == n_c["host.syncs"]
+    for a, b in zip(res, res_c):
+        assert torch.equal(a, b)
+    assert torch.equal(h, h_c)

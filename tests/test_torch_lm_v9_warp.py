@@ -313,7 +313,64 @@ def test_shared_memory_fits_and_the_wrapper_refuses_more(q_n, factored):
 
 
 def test_wrapper_refuses_a_prior_past_the_bounds():
+    """K9 keeps the narrow caps; K2 takes a prior past them to its wide
+    build, up to the wide caps, and refuses one past those."""
     plan = _prior_plan(L.MAX_PEAKS, 2, L.MAX_FREE, True)
     too_many = dataclasses.replace(plan, n_free=L.MAX_FREE + 1)
     with pytest.raises(ValueError, match="too large"):
-        L.check_warp_plan(too_many, 1024)
+        L.check_warp_plan(too_many, 1024, caps=L.NARROW_CAPS)
+    assert not L.is_wide(plan) and L.is_wide(too_many)
+    L.check_warp_plan(too_many, 1024)
+    plan = _prior_plan(L.WIDE_MAX_PEAKS, 2, L.WIDE_MAX_FREE, True)
+    L.check_warp_plan(plan, 1024)
+    for past in (dataclasses.replace(plan, n_free=L.WIDE_MAX_FREE + 1),
+                 _prior_plan(L.WIDE_MAX_PEAKS + 1, 1, 4, True)):
+        with pytest.raises(ValueError, match="prior too large for the kernel"):
+            L.check_warp_plan(past, 1024)
+
+
+def test_wide_build_mirror_and_its_reach():
+    """K2's wide build (``csrc/lm_v9_wide.cu``): its constants are the
+    mirror's, its instantiations cover every prior past the narrow caps
+    (K = 9..12 at any q_n, K = 7, 8 with a freed g, which a narrow plan
+    past 32 free parameters needs) up to 48 free parameters, the SPD
+    kernels' reach, and its shared memory fits at the bench length and four
+    times it."""
+    text = (CSRC / "lm_v9_wide.cu").read_text()
+    assert L.K2_WIDE_PASS_BUDGET == _header_int("kPassBudget", "lm_v9_wide.cu")
+    assert L.WIDE_MAX_PEAKS == _header_int("kWidePeaks", "lm_v9_wide.cu")
+    assert "constexpr int kWideRows = 5 * kWidePeaks;" in text
+    assert L.WIDE_MAX_FREE == _header_int("kWideFree", "lm_v9_wide.cu") == 48
+    assert "launch_warp_any<Wide, 0, kMaxQn, kMaxPeaks + 1, kWidePeaks>(" in text
+    assert "launch_warp_any<Wide, kMaxQn, kMaxQn, kMaxPeaks - 1, kMaxPeaks>(" in text
+    for n_peaks in range(1, L.WIDE_MAX_PEAKS + 1):
+        for q_n in (0, 1, 2):
+            n_rows = len(_prior_plan(n_peaks, q_n, 1, True).active)
+            for n_free in range(1, min(n_rows, L.WIDE_MAX_FREE) + 1):
+                plan = _prior_plan(n_peaks, q_n, n_free, True)
+                if not L.is_wide(plan):
+                    continue
+                assert n_peaks > L.MAX_PEAKS or (
+                    n_peaks >= L.MAX_PEAKS - 1 and plan.q_n == 2)
+                for n_t in (1024, 4096):
+                    L.check_warp_plan(plan, n_t)
+    # The 12-line 7 T brain prior (F = 48, q_n = 1) at the bench length.
+    assert L.warp_smem_bytes(1024, 12, 1, 48, 48, True) <= L._SMEM_LIMIT
+    assert len(L.moment_passes(12, 1, L.K2_WIDE_PASS_BUDGET)) == 5
+
+
+@pytest.mark.parametrize("q_n", [0, 1, 2])
+@pytest.mark.parametrize("n_peaks", range(L.MAX_PEAKS + 1, L.WIDE_MAX_PEAKS + 1))
+def test_wide_items_owned_once(n_peaks, q_n):
+    """Past 8 peaks every (item, power) is owned by one pass of the wide
+    budget, greedily, as at the narrow widths."""
+    items = L.moment_items(n_peaks, q_n)
+    passes = L.moment_passes(n_peaks, q_n, L.K2_WIDE_PASS_BUDGET)
+    assert passes[0][0] == 0 and passes[-1][1] == len(items)
+    for (_, a1), (b0, _) in zip(passes, passes[1:]):
+        assert a1 == b0
+    for i0, i1 in passes:
+        width = sum(2 * items[i][2] for i in range(i0, i1))
+        assert width <= L.K2_WIDE_PASS_BUDGET
+        if i1 < len(items):
+            assert width + 2 * items[i1][2] > L.K2_WIDE_PASS_BUDGET

@@ -23,7 +23,12 @@ rounded on its own, runs the same sequence of operations:
 
 and must equal the plain versions bit for bit, NaN rows exactly at the
 non-SPD voxels, for F = 1..32, K3/K4 at a batch that is not a multiple of
-a block's voxels.  Poisoned padding rows leave every real output as it
+a block's voxels.  Past 32 rows the model of the wide factor (two rows a
+lane: row l in ``lo``, row l + 32 in ``hi``, padded to 48, the inverse
+diagonal's columns l and l + 32 one after the other, the tile at
+``kWideSlabVoxels``) is a transcription of the CUDA loops, each
+register and shuffle by name, and must equal the plain versions the same
+way.  Poisoned padding rows leave every real output as it
 is: the padding adds nothing to a real row or column.  Source checks pin
 what the model assumes of the kernels' source: the shared warp factor for
 all four, the tile's stride and size, shared memory in the slab layout
@@ -73,12 +78,13 @@ def _stage_walk(n, kf):
     return out
 
 
-def _tile_loads(slab, n, kv):
+def _tile_loads(slab, n, kv, kf=None):
     """K3/K4's loads: each block of kv voxels stages its packed upper rows
     into a tile poisoned with NaN (zeros for voxels past B), then voxel
-    v0 + u's lane i reads row j at tile[(packed(j) + i) * (kv + 1) + u]."""
+    v0 + u's lane i reads row j at tile[(packed(j) + i) * (kv + 1) + u].
+    ``kf``: the tile's rows, n padded (``_rows(n)`` by default)."""
     b = slab.shape[1]
-    kf = _rows(n)
+    kf = _rows(n) if kf is None else kf
     rows, stride = kf * (kf + 1) // 2, kv + 1
     n_blocks = -(-b // kv)
     padded = np.zeros((n * n, n_blocks * kv), F32)
@@ -178,14 +184,14 @@ def _warp_inverse_diag(a, n):
     return s
 
 
-def _loads(h, layout, kv):
+def _loads(h, layout, kv, kf=None):
     """The kernel's loads of dense (B, n, n) ``h`` in ``layout``: "dense"
     (K6a/K6b) or "slab" (K3/K4: the slab form through the tile)."""
     n = h.shape[1]
     if layout == "dense":
         return _dense_loads(h)
     slab = np.ascontiguousarray(h.transpose(1, 2, 0).reshape(n * n, -1))
-    return _tile_loads(slab, n, kv)
+    return _tile_loads(slab, n, kv, kf)
 
 
 def model_solve_damped(h, g, lam, pad=None, layout="dense", kv=None):
@@ -405,6 +411,259 @@ def test_padding_switch_covers_every_row_count():
         (int(q), int(kf)) for q, kf in re.findall(
             r"case (\d+): \{ constexpr int kF = (\d+);", macro))
     assert cases == {q: 4 * q for q in range(1, 9)}
-    assert {(n + 3) // 4 for n in range(1, spd.MAX_F + 1)} == set(cases)
-    for n in range(1, spd.MAX_F + 1):
+    assert {(n + 3) // 4 for n in range(1, 33)} == set(cases)
+    for n in range(1, 33):
         assert cases[(n + 3) // 4] == _rows(n) >= n
+    # Past 32 rows: the wide switch, n rounded up to a multiple of 16.
+    wide = text.split("#define XMT_WARP_ROWS_WIDE", 1)[1].split("\n\n", 1)[0]
+    assert "((n) + 15) / 16" in wide
+    cases = dict(
+        (int(q), int(kf)) for q, kf in re.findall(
+            r"case (\d+): \{ constexpr int kF = (\d+);", wide))
+    assert cases == {3: 48} and spd.MAX_F == 48
+    assert {(n + 15) // 16 for n in range(33, spd.MAX_F + 1)} == set(cases)
+    for n in range(33, spd.MAX_F + 1):
+        assert cases[(n + 15) // 16] == _wide_rows(n) >= n
+
+
+
+# ---------------------------------------------------------------------------
+# The wide factor: two rows a lane, 32 < F <= 48
+# ---------------------------------------------------------------------------
+
+
+def _wide_rows(n):
+    """XMT_WARP_ROWS_WIDE: n rounded up to a multiple of 16."""
+    return 16 * ((n + 15) // 16)
+
+
+def _wide_factor(load, b, n, diag, pad=None):
+    """Registers after ``warp_factor_wide``: lo[v, lane, j] = L(lane, j) and
+    hi[v, lane, j] = L(lane + 32, j); each step as the CUDA loop writes it,
+    a shuffle from lane s as ``[:, s]``.  ``pad`` overwrites the padding
+    rows (lane + 32 >= n) after the load."""
+    kf = _wide_rows(n)
+    lane = np.arange(LANES)
+    r1 = lane + 32
+    real0, real1 = lane < n, r1 < n
+    full = np.zeros((b, kf, kf), F32)  # full[v, j, r] = A[j][r], j <= r < n
+    for j in range(n):
+        full[:, j, j:n] = load(j)
+    lo = np.zeros((b, LANES, LANES), F32)
+    hi = np.zeros((b, LANES, kf), F32)
+    for j in range(LANES):
+        x = np.where((j <= lane) & real0, full[:, j, lane], F32(0))
+        lo[:, :, j] = np.where(lane == j, np.where(real0, diag(x), F32(1)), x)
+    for j in range(kf):
+        x = np.where((j <= r1) & real1, full[:, j, np.minimum(r1, kf - 1)],
+                     F32(0))
+        hi[:, :, j] = np.where(r1 == j, np.where(real1, diag(x), F32(1)), x)
+    if pad is not None:
+        hi[:, ~real1, :] = pad
+    for k in range(kf):
+        piv = lo[:, k, k] if k < 32 else hi[:, k - 32, k]
+        dk = np.where(piv > 0, piv, F32(np.nan))
+        inv = F32(1) / np.sqrt(dk)
+        if k < 32:
+            m = lane >= k
+            lo[:, m, k] = lo[:, m, k] * inv[:, None]
+        m = r1 >= k
+        hi[:, m, k] = hi[:, m, k] * inv[:, None]
+        for j in range(k + 1, kf):
+            ljk = (lo[:, j, k] if j < 32 else hi[:, j - 32, k])[:, None]
+            if j < 32:
+                m = lane >= j
+                lo[:, m, j] = lo[:, m, j] - lo[:, m, k] * ljk
+            m = r1 >= j
+            hi[:, m, j] = hi[:, m, j] - hi[:, m, k] * ljk
+    return lo, hi
+
+
+def _wide_forward(lo, hi, b0, b1):
+    """``warp_forward_wide``: rows lane and lane + 32 of y."""
+    kf = hi.shape[2]
+    lane = np.arange(LANES)
+    acc0, acc1 = b0.copy(), b1.copy()
+    y0, y1 = np.zeros_like(b0), np.zeros_like(b1)
+    for j in range(kf):
+        if j < 32:
+            y0[:, j] = acc0[:, j] / lo[:, j, j]
+            yj = y0[:, j, None]
+            m = lane > j
+            acc0[:, m] = acc0[:, m] - lo[:, m, j] * yj
+            acc1 = acc1 - hi[:, :, j] * yj
+        else:
+            y1[:, j - 32] = acc1[:, j - 32] / hi[:, j - 32, j]
+            yj = y1[:, j - 32, None]
+            m = lane + 32 > j
+            acc1[:, m] = acc1[:, m] - hi[:, m, j] * yj
+    return y0, y1
+
+
+def _wide_back(lo, hi, y0, y1, n):
+    """``warp_back_wide``: rows lane and lane + 32 of x."""
+    kf = hi.shape[2]
+    lane = np.arange(LANES)
+    real0, real1 = lane < n, lane + 32 < n
+    x0, x1 = np.zeros_like(y0), np.zeros_like(y1)
+    for i in reversed(range(kf)):
+        p1 = np.where(real1, hi[:, :, i] * x1, F32(0))
+        p0 = (np.where(real0, lo[:, :, i] * x0, F32(0)) if i < 32
+              else np.zeros_like(x0))
+        acc = (y0[:, i] if i < 32 else y1[:, i - 32]).copy()
+        for j in range(i + 1, kf):
+            acc = acc - (p0[:, j] if j < 32 else p1[:, j - 32])
+        if i < 32:
+            x0[:, i] = acc / lo[:, i, i]
+        else:
+            x1[:, i - 32] = acc / hi[:, i - 32, i]
+    return x0, x1
+
+
+def _wide_inverse_diag(lo, hi, n):
+    """``warp_inverse_diag_wide``: lane c's sums of columns c and c + 32 of
+    X = L^-1, each L(i, j) broadcast from row i's lane and register."""
+    b, _, kf = hi.shape
+    lane = np.arange(LANES)
+
+    def row(i, j):
+        return lo[:, i, j] if i < 32 else hi[:, i - 32, j]
+
+    out = []
+    for c, first in ((lane, 0), (lane + 32, 32)):
+        x = np.zeros((b, LANES, kf), F32)
+        s = np.zeros((b, LANES), F32)
+        for i in range(first, kf):
+            acc = np.broadcast_to((c == i).astype(F32), (b, LANES)).copy()
+            for j in range(first, i):
+                acc = np.where(j >= c, acc - row(i, j)[:, None] * x[:, :, j],
+                               acc)
+            x[:, :, i] = acc / row(i, i)[:, None]
+            if i < n:
+                s = np.where(i >= c, s + x[:, :, i] * x[:, :, i], s)
+        out.append(s)
+    return np.concatenate(out, axis=1)
+
+
+def _wide_voxels(kf):
+    """``kWideSlabVoxels`` of the source (the wide tile's voxels at kF)."""
+    text = (CSRC / "spd.cu").read_text()
+    return int(re.search(r"constexpr int kWideSlabVoxels = (\d+);",
+                         text).group(1))
+
+
+def model_wide_solve_damped(h, g, lam, pad=None, layout="dense"):
+    """K3's/K6a's wide schedule: out[v, r] = row r's x."""
+    b, n, _ = h.shape
+    kf = _wide_rows(n)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        def damp(x):
+            return (x + lam[:, None] * np.maximum(x, TINY)) + TINY
+        lo, hi = _wide_factor(_loads(h, layout, _wide_voxels(kf), kf), b, n,
+                              damp, pad)
+        rhs = np.zeros((b, 2 * LANES), F32)
+        rhs[:, :n] = g
+        y0, y1 = _wide_forward(lo, hi, rhs[:, :LANES], rhs[:, LANES:])
+        x0, x1 = _wide_back(lo, hi, y0, y1, n)
+        return np.concatenate([x0, x1], axis=1)[:, :n]
+
+
+def model_wide_inverse_diag(h, tikhonov=0.0, pad=None, layout="dense"):
+    """K4's/K6b's wide schedule: out[v, c] = column c's sum."""
+    b, n, _ = h.shape
+    kf = _wide_rows(n)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        lo, hi = _wide_factor(_loads(h, layout, _wide_voxels(kf), kf), b, n,
+                              lambda x: x + F32(tikhonov), pad)
+        return _wide_inverse_diag(lo, hi, n)[:, :n]
+
+
+@pytest.mark.parametrize("kernel", ["K6a", "K6b", "K3", "K4", "K4 ridge"])
+@pytest.mark.parametrize("f", [33, 40, 48])
+def test_wide_model_equals_plain_bit_for_bit(f, kernel):
+    """Past 32 rows (F = 48: the 12-line 7 T brain prior): the wide
+    schedule equals the plain versions bit for bit, NaN rows exactly at the
+    planted non-SPD voxels; K3/K4 through the wide tile at B = 37."""
+    if kernel.startswith("K6"):
+        h, g, lam, bad = _case(f, seed=3000 + f)
+    else:
+        h, g, lam, bad = _case(f, seed=4000 + f, b=SLAB_B)
+    th = torch.from_numpy(h)
+    tg, tlam = torch.from_numpy(g), torch.from_numpy(lam)
+    if kernel == "K6a":
+        got = model_wide_solve_damped(h, g, lam)
+        ref = spd.spd_solve_damped_dense_plain(th, tg, tlam).numpy()
+    elif kernel == "K6b":
+        got = model_wide_inverse_diag(h)
+        ref = spd.spd_inverse_diag_dense_plain(th).numpy()
+    elif kernel == "K3":
+        got = model_wide_solve_damped(h, g, lam, layout="slab")
+        ref = spd.spd_solve_damped_plain(_slab(h), tg, tlam).numpy()
+    else:
+        tik = 1e-12 if kernel == "K4 ridge" else 0.0
+        got = model_wide_inverse_diag(h, tik, layout="slab")
+        ref = spd.spd_inverse_diag_plain(_slab(h), tik).numpy()
+    _assert_bits(got, ref)
+    assert np.array_equal(np.isnan(got).all(1), bad)
+    assert not np.isnan(got[~bad]).any()
+
+
+@pytest.mark.parametrize("f", [35, 47])
+def test_wide_padding_adds_nothing_to_a_real_row(f):
+    """The wide factor's padding rows poisoned with NaN and inf after the
+    load: every real output is still the identity padding's."""
+    h, g, lam, _ = _case(f, seed=5000 + f)
+    ref_a = model_wide_solve_damped(h, g, lam)
+    ref_b = model_wide_inverse_diag(h)
+    for pad in (np.nan, np.inf, -np.inf):
+        _assert_bits(model_wide_solve_damped(h, g, lam, pad=F32(pad)), ref_a)
+        _assert_bits(model_wide_inverse_diag(h, pad=F32(pad)), ref_b)
+
+
+def test_wide_model_solves_and_inverts():
+    """At F = 48 the wide model is a solver: x solves the damped system and
+    the diagonal is diag(A^-1), both against float64."""
+    h, g, lam, bad = _case(48, seed=8)
+    x = model_wide_solve_damped(h, g, lam)
+    d = model_wide_inverse_diag(h)
+    for v in np.nonzero(~bad)[0]:
+        a = h[v].astype(np.float64)
+        damped = a.copy()
+        dg = np.diagonal(a)
+        np.fill_diagonal(damped, dg + lam[v] * np.maximum(dg, 1e-12) + 1e-12)
+        exact = np.linalg.solve(damped, g[v])
+        np.testing.assert_allclose(
+            x[v], exact, rtol=0, atol=1e-4 * np.abs(exact).max())
+        np.testing.assert_allclose(
+            d[v], np.diagonal(np.linalg.inv(a)), rtol=2e-3)
+
+
+def test_wide_source_keeps_the_narrow_build_and_a_small_tile():
+    """What the wide model assumes of the source: both kernel templates
+    keep the narrow factor for kF <= 32 (``if constexpr``) and take the
+    wide one past it; every entry sends F <= 32 to XMT_WARP_ROWS as before
+    and the rest to XMT_WARP_ROWS_WIDE, the slab at ``kWideSlabVoxels``;
+    the wide tile stays a static array under 48 KB; K8 keeps the narrow
+    factor."""
+    text = (CSRC / "spd.cu").read_text()
+    assert "constexpr int kMaxF = 48;" in text
+    assert "constexpr int kWarpRows = 32;" in text
+    for name in ("spd_solve_damped_kernel", "spd_inverse_diag_kernel"):
+        body = text.split(f"    {name}(", 1)[1].split("\n}\n", 1)[0]
+        narrow, wide = body.split("if constexpr (kF <= kWarpRows) {", 1)[1].split(
+            "} else {", 1)
+        assert "warp_factor<kF>(f, layout.at(v)," in narrow
+        assert "warp_factor_wide<kF>(" in wide
+    for entry in ("xmt_spd_solve_damped", "xmt_spd_inverse_diag",
+                  "xmt_spd_solve_damped_dense", "xmt_spd_inverse_diag_dense"):
+        body = text.split(f'extern "C" int {entry}(', 1)[1].split("\n}\n", 1)[0]
+        narrow, wide = body.split("if (f <= kWarpRows) {", 1)[1].split(
+            "} else {", 1)
+        assert "XMT_WARP_ROWS(f, " in narrow and "XMT_WARP_ROWS_WIDE(" in wide
+        if "dense" not in entry:
+            assert "SlabTile<kF, kSlabVoxels>" in narrow
+            assert "SlabTile<kF, kWideSlabVoxels>" in wide
+    kv = _wide_voxels(48)
+    assert 48 * 49 // 2 * (kv + 1) * 4 <= 48 * 1024 and (kv + 1) % 2 == 1
+    k8 = (CSRC / "lm_v10.cu").read_text()
+    assert "_wide" not in k8

@@ -166,7 +166,8 @@ def test_grid_fit_is_bit_identical_and_counts_its_trips():
     snap = rec.snapshot()
     assert 0 < trips == snap["counters"]["lm.iterations"]
     assert snap["counters"]["host.syncs"] >= trips
-    assert set(_spans(snap, "fit")) == {"fit", "fit.seed", "fit.lm"}
+    assert set(_spans(snap, "fit")) == {"fit", "fit.seed", "fit.lm", "fit.crlb"}
+    assert snap["spans"]["fit.crlb"]["calls"] == snap["spans"]["fit"]["calls"] == 1
     assert snap["spans"]["fit"]["host_ms"] >= snap["spans"]["fit.lm"]["host_ms"]
 
 
@@ -237,11 +238,33 @@ print(json.dumps({{"correct": res["correct"], "attempted": res["attempted"],
 """
 
 
-@pytest.mark.parametrize("cell", ["p31_grid.maps", "p31_kspace.maps"])
+def _manifest_cells():
+    return [w["name"] for w in json.loads(
+        (ROOT / "BENCHMARK.json").read_text())["workloads"]]
+
+
+def _program_metrics(cell):
+    """How many of the cell's per-layer metrics in ``BENCHMARK.json`` read
+    the program's own spans and counters: a ``program_span`` or
+    ``program_counter`` source, read from the recorder (``KIND``
+    ``profile``; the ``span`` ones wrap program functions from outside)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmark import harness
+    finally:
+        sys.path.remove(str(ROOT))
+    return sum(
+        1 for m in harness.load_cell(cell).per_layer
+        if m["source"] in ("program_span", "program_counter")
+        and harness.metric_module(m["name"]).KIND == "profile")
+
+
+@pytest.mark.parametrize("cell", _manifest_cells())
 def test_each_cell_opens_what_its_new_metrics_read(cell):
     """The cell's tiny CPU rehearsal under ``recording()``, in a fresh
     interpreter (a run refuses a process that loaded the JAX package, as
-    this one has), opens every span and counter its metric files read."""
+    this one has), opens every span and counter its metric files read;
+    the cells and their counts of such metrics are ``BENCHMARK.json``'s."""
     code = REHEARSE.format(root=str(ROOT), cell=cell)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300,
@@ -249,7 +272,7 @@ def test_each_cell_opens_what_its_new_metrics_read(cell):
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["correct"] and got["attempted"] >= 1
-    assert len(got["reads"]) == {"p31_grid.maps": 8, "p31_kspace.maps": 9}[cell]
+    assert len(got["reads"]) == _program_metrics(cell) > 0
     for metric, names in got["reads"].items():
         for name in names:
             assert name in got["spans"] or got["counters"].get(name, 0) > 0, (

@@ -394,7 +394,9 @@ def seeded_fit_grid_raw(
         with span("fit.lm"):
             res = lm_fit_batched_planar(re, im, t, u0, lower, upper, kind,
                                         pmap_static, mhz, max_iter=max_iter)
-        sds, _ = crlb_batched_planar(re, im, t, res.x_free, pmap_static, mhz)
+        with span("fit.crlb"):
+            sds, _ = crlb_batched_planar(re, im, t, res.x_free, pmap_static,
+                                         mhz)
         return res.x_free, res.cost, res.converged, sds
     slab = uses_slab_hessian(spd_pallas, kernel_version)
     with span("fit.lm"):
@@ -406,14 +408,15 @@ def seeded_fit_grid_raw(
             uniform_t_ok=uniform_t_ok, plateau_streak=plateau_streak,
             varpro=auto_varpro(pmap_static), spd_pallas=spd_pallas,
         )
-    if slab:
-        sds, _ = crlb_from_hessian_slab(
-            h, res.cost, re.shape[-1], f=x_template.shape[-1],
-            kernels=kernels,
-        )
-    else:
-        sds, _ = crlb_from_hessian(h, res.cost, re.shape[-1],
-                                   use_pallas=spd_pallas, kernels=kernels)
+    with span("fit.crlb"):
+        if slab:
+            sds, _ = crlb_from_hessian_slab(
+                h, res.cost, re.shape[-1], f=x_template.shape[-1],
+                kernels=kernels,
+            )
+        else:
+            sds, _ = crlb_from_hessian(h, res.cost, re.shape[-1],
+                                       use_pallas=spd_pallas, kernels=kernels)
     return res.x_free, res.cost, res.converged, sds
 
 

@@ -579,9 +579,11 @@ def lm_fit_batched_slab(
     the slab.
 
     The reference loop runs while ``(i < max_iter) & ~all(done)``; this
-    one reads ``done.all()`` on the host once per iteration, which gives
-    the same trip count (at most ``max_iter`` syncs per grid).  Done
-    voxels are frozen, and K2 skips them.
+    one reads the count of voxels not done on the host once per iteration,
+    which gives the same trip count (at most ``max_iter`` syncs per grid).
+    Done voxels are frozen, and K2 skips them; once a grid-sized batch is
+    down to its last few voxels the loop runs on those alone
+    (:func:`_lm_loop`'s ``subset``).
 
     ``kernels`` is a :class:`~xmris_tpu_torch.ops.kernels.KernelSet`.
     Returns ``(LMResult, h_slab)`` with ``h_slab`` the (F*F, B) external-
@@ -595,20 +597,25 @@ def lm_fit_batched_slab(
         pmap_static, n_free, mhz, uniform_t_ok and fids_re.shape[-1] % 128 == 0
     )
 
-    def full_eval(u, voxel_mask=None, cost_prev=None):
-        x, dxdu = internal_to_external_torch(u, lower, upper, kind)
-        grids = expand_params_batched(x, pmap_static)
-        return kernels.normal_equations(
-            grids.contiguous(), fids_re, fids_im, t, dxdu.contiguous(), plan,
-            voxel_mask=voxel_mask,
-            cost_prev=cost_prev if gate_rejects else None,
-        )
+    def evaluator(re, im):
+        def full_eval(u, voxel_mask=None, cost_prev=None):
+            x, dxdu = internal_to_external_torch(u, lower, upper, kind)
+            grids = expand_params_batched(x, pmap_static)
+            return kernels.normal_equations(
+                grids.contiguous(), re, im, t, dxdu.contiguous(), plan,
+                voxel_mask=voxel_mask,
+                cost_prev=cost_prev if gate_rejects else None,
+            )
+        return full_eval
 
     u, cost, n_acc, done, h = _lm_loop(
-        full_eval, kernels.spd_solve_damped, u, voxel_axis=1,
-        max_iter=max_iter, lam0=lam0, ftol=ftol, plateau_streak=plateau_streak,
+        evaluator(fids_re, fids_im), kernels.spd_solve_damped, u,
+        voxel_axis=1, max_iter=max_iter, lam0=lam0, ftol=ftol,
+        plateau_streak=plateau_streak,
         override=_varpro_hook(varpro, pmap_static, lower, upper, kind, lam0,
                               slab_f=n_free),
+        subset=lambda rows: evaluator(fids_re.index_select(0, rows),
+                                      fids_im.index_select(0, rows)),
     )
     return _slab_result_tail(u, cost, n_acc, done, h, lower, upper, kind)
 
@@ -626,8 +633,18 @@ def _as_kernel_inputs(fids_re, fids_im, t, u0, lower, upper):
             lower.to(dtype), upper.to(dtype))
 
 
+# The LM loop goes on with its last voxels alone once a batch of at least
+# COMPACT_MIN_BATCH voxels is down to 1 / COMPACT_SHARE of them.  On the
+# 12-line prior a grid's last voxel may take 11 more trips than the rest
+# (an accept-reject walk at the cost's float32 resolution that only the
+# plateau streak ends), each of which ran K3 and the H select over the
+# whole grid.
+COMPACT_SHARE = 16
+COMPACT_MIN_BATCH = 1024
+
+
 def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
-             plateau_streak, override=None):
+             plateau_streak, override=None, subset=None):
     """The per-iteration LM loop of the reference driver.
 
     ``full_eval(u, voxel_mask, cost_prev)`` returns ``(cost, g, h)`` at
@@ -639,8 +656,15 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
     lam)`` is the damped step; ``h`` has its voxels on axis ``voxel_axis``
     (1 for the slab, 0 for dense matrices).  ``override(u_t, u, g, h,
     lam)``, when given, rewrites the trial point after the damped step and
-    before its evaluation (the VARPRO override).  Returns ``(u, cost,
-    n_acc, done, h)`` at the last accepted state.
+    before its evaluation (the VARPRO override).  ``subset(rows)``, when
+    given (and no override), returns ``full_eval`` for the voxels ``rows``
+    alone: once a batch of at least ``COMPACT_MIN_BATCH`` voxels has at most
+    1 / ``COMPACT_SHARE`` of them left, the loop gathers their state, goes
+    on with them alone, and scatters it back at the end.  Each voxel's
+    arithmetic is its own, so the outputs are the whole batch's loop's, up
+    to the rounding of the predicted decrease's sum over F, whose order may
+    follow the batch's size.  Returns ``(u, cost, n_acc, done, h)`` at the
+    last accepted state.
     """
     eps = torch.finfo(torch.float32).eps
     b = u.shape[0]
@@ -649,15 +673,29 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
     n_acc = torch.zeros((b,), dtype=torch.int32, device=u.device)
     streak = torch.zeros_like(n_acc)
     done = torch.zeros((b,), dtype=torch.bool, device=u.device)
+    whole = None  # the whole batch's outputs and the rows gathered from it
+    if override is not None or b < COMPACT_MIN_BATCH:
+        subset = None
 
     def sel_h(ok, new, old):
         shape = [1] * new.ndim
-        shape[voxel_axis] = b
+        shape[voxel_axis] = ok.shape[0]
         return torch.where(ok.reshape(shape), new, old)
 
     for _ in range(max_iter):
-        if to_host(done.all()):
+        left = to_host((~done).sum())
+        if left == 0:
             break
+        if subset is not None and whole is None and left * COMPACT_SHARE <= b:
+            # The rows not done, ascending (a stable sort of the flags, so
+            # no second host read).
+            rows = torch.sort(done.to(torch.uint8), stable=True).indices[:left]
+            whole = (rows, u, cost, h, n_acc, done)
+            u, cost, g, lam, n_acc, streak, done = (
+                x.index_select(0, rows)
+                for x in (u, cost, g, lam, n_acc, streak, done))
+            h = h.index_select(voxel_axis, rows)
+            full_eval = subset(rows)
         count("lm.iterations")
         delta_raw = solve(h, g, lam)
         solve_ok = torch.isfinite(delta_raw).all(-1)
@@ -691,6 +729,13 @@ def _lm_loop(full_eval, solve, u, *, voxel_axis, max_iter, lam0, ftol,
             | (ok & (rel_drop < ftol) & (lam < lam0))
             | (streak >= plateau_streak)
         )
+    if whole is not None:
+        rows, u_all, cost_all, h_all, n_acc_all, done_all = whole
+        u = u_all.index_copy(0, rows, u)
+        cost = cost_all.index_copy(0, rows, cost)
+        h = h_all.index_copy(voxel_axis, rows, h)
+        n_acc = n_acc_all.index_copy(0, rows, n_acc)
+        done = done_all.index_copy(0, rows, done)
     return u, cost, n_acc, done, h
 
 

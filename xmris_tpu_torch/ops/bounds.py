@@ -12,6 +12,8 @@ free parameters.  ``kind`` holds one of :data:`BOTH`, :data:`LOWER`,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 BOTH, LOWER, UPPER, FREE = 0, 1, 2, 3
@@ -68,13 +70,21 @@ def internal_to_external_torch(u, lower, upper, kind):
     return x, dxdu
 
 
+@functools.lru_cache(maxsize=64)
+def _pmap_tensors(pmap_static, device, dtype):
+    """The parameter map's ``idx``, ``scale`` and ``offset`` on ``device``,
+    made once: the LM expands every trip, and each copy from the host was
+    three of its launches."""
+    return (torch.as_tensor(pmap_static[0], device=device),
+            torch.as_tensor(pmap_static[1], dtype=dtype, device=device),
+            torch.as_tensor(pmap_static[2], dtype=dtype, device=device))
+
+
 def expand_params_batched(x, pmap_static):
     """(..., F) free vectors -> (..., K*5) physical grids, by the hashable
     parameter map ``(idx, scale, offset, n_peaks)``: ``full[j] = offset[j]
     + scale[j] * x[idx[j]]``, ``idx[j] = -1`` for a fixed parameter."""
-    idx = torch.as_tensor(pmap_static[0], device=x.device)
-    scale = torch.as_tensor(pmap_static[1], dtype=x.dtype, device=x.device)
-    offset = torch.as_tensor(pmap_static[2], dtype=x.dtype, device=x.device)
+    idx, scale, offset = _pmap_tensors(pmap_static, x.device, x.dtype)
     gathered = x[..., torch.clamp(idx, min=0)]
     return offset + torch.where(
         idx >= 0, scale * gathered, torch.zeros_like(gathered)

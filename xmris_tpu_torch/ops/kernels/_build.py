@@ -47,6 +47,8 @@ _SIGNATURES = {
     # params, y_re, y_im, t, dxdu, mask, cost_prev, ints, scales, cost, g, h,
     # b, n_t, n_peaks, n_free, n_rows, q_n, factored, w_cs_unit, stream
     "xmt_eq6_normal_eq_v9": [_P] * 12 + [_I] * 7 + [_F, _P],
+    # the same, K2's wide build (csrc/lm_v9_wide.cu)
+    "xmt_eq6_normal_eq_v9_wide": [_P] * 12 + [_I] * 7 + [_F, _P],
     # params, y_re, y_im, t, mask, ints, scales, cost, g, h, b, n_t, n_peaks,
     # n_rows, w_cs_unit, stream
     "xmt_eq6_normal_eq_v8": [_P] * 10 + [_I] * 4 + [_F, _P],

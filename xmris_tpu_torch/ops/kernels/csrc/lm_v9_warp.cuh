@@ -1,4 +1,6 @@
-// The v9 evaluation by one warp per voxel: K2 (lm_v9.cu) and K9 (lm_v8.cu).
+// The v9 evaluation by one warp per voxel: K2 (lm_v9.cu for priors within
+// lm_v9_eval.cuh's kMaxPeaks/kMaxFree/kMaxRows, lm_v9_wide.cu past them)
+// and K9 (lm_v8.cu).
 // The whole-loop K8 (lm_v10.cu) keeps the block evaluation `v9_eval` of
 // lm_v9_eval.cuh; this header takes its constants, `Structure`,
 // `factored_tables`, `warp_sum` and `pair_index` and changes none of them.
@@ -599,17 +601,18 @@ int launch_warp_qn(const WarpArgs& a, int q_n, cudaStream_t stream) {
     }
 }
 
-// The instantiation for (n_peaks, q_n), q_n in [QN_MIN, QN_MAX].
-template <class C, int QN_MIN, int QN_MAX, int K = 1>
+// The instantiation for (n_peaks, q_n), n_peaks in [K, K_MAX] and q_n in
+// [QN_MIN, QN_MAX]; anything else is refused.
+template <class C, int QN_MIN, int QN_MAX, int K = 1, int K_MAX = kMaxPeaks>
 int launch_warp_any(const WarpArgs& a, int n_peaks, int q_n,
                     cudaStream_t stream) {
-    if constexpr (K > kMaxPeaks) {
+    if constexpr (K > K_MAX) {
         return (int)cudaErrorInvalidValue;
     } else {
         if (n_peaks == K)
             return launch_warp_qn<C, K, QN_MIN, QN_MAX>(a, q_n, stream);
-        return launch_warp_any<C, QN_MIN, QN_MAX, K + 1>(a, n_peaks, q_n,
-                                                             stream);
+        return launch_warp_any<C, QN_MIN, QN_MAX, K + 1, K_MAX>(
+            a, n_peaks, q_n, stream);
     }
 }
 

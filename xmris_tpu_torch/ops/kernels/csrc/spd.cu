@@ -27,7 +27,15 @@
 // few shuffles, and 16 384 warps fill the card.  The inverse diagonal
 // then forms column c of L^-1 in lane c (warp_inverse_diag): every lane
 // divides at once, where a lane per row of L^-1 left each row's divisions
-// to one lane (2.2x slower, and 72 registers with spills).  The design
+// to one lane (2.2x slower, and 72 registers with spills).
+// Past 32 rows (the 12-line 7 T brain prior's F = 48) the same templates
+// take the wide factor of spd_factor.cuh, two rows a lane (rows l and
+// l + 32 in lane l), unrolled over kF = 48 (33 <= F <= 48), and the
+// inverse diagonal forms columns l and l + 32 in lane l, one after the
+// other (warp_inverse_diag_wide).  The slab tile then holds 8 voxels a
+// block (kWideSlabVoxels), so that it stays a static array under 48 KB;
+// the factor's ~F^3/3 dependent steps per warp now bound them.  The
+// instantiations at F <= 32 are as before (if constexpr on kF).  The design
 // this replaced ran a thread per voxel with its packed factor in local
 // memory: K6a/K6b 0.45 / 0.53 ms against 0.059 / 0.074, K3/K4 0.092 /
 // 0.125 against 0.063 / 0.074 (H100 80GB HBM3, 700 W;
@@ -55,7 +63,8 @@
 
 namespace {
 
-constexpr int kMaxF = 32;
+constexpr int kMaxF = 48;   // two rows a lane past 32
+constexpr int kWarpRows = 32;  // the narrow factor's rows, one a lane
 constexpr int kWarpVoxels = 8;  // voxels (warps) per block, dense layout
 // Voxels per block of the slab layout, chosen by scripts/ablate_spd.py
 // (H100 80GB HBM3, 700 W): K4 0.0735 ms at 16 (8 voxels 0.0774 at 73
@@ -64,6 +73,11 @@ constexpr int kWarpVoxels = 8;  // voxels (warps) per block, dense layout
 // K3 0.0629 at 16, within 1 % of its best (0.0622 at 8; 32 voxels 0.0672,
 // direct 0.0675).
 constexpr int kSlabVoxels = 16;
+
+// Voxels per block of the slab layout past 32 rows: the most that keeps the
+// static tile (kF (kF + 1) / 2 rows at stride kV + 1) under 48 KB at
+// kF = 48.
+constexpr int kWideSlabVoxels = 8;
 
 // A layout is built by every thread of the block before any warp returns;
 // at(v) then gives voxel v's load(j, i) = A[j][i], j <= i < f.
@@ -162,6 +176,46 @@ __device__ __forceinline__ float warp_inverse_diag(const float (&a)[kF],
     return sum;
 }
 
+// warp_inverse_diag for two rows a lane (spd_factor.cuh's wide factor):
+// lane c forms column c of X = L^-1 as warp_inverse_diag does, each L(i, j)
+// broadcast from the lane that holds row i, then column c + 32, whose
+// rows i < 32 are zero and are skipped.  Returns out_c and out_{c+32}.
+template <int kF>
+__device__ __forceinline__ void warp_inverse_diag_wide(
+    const WideRows<kF>& a, int n, float& out0, float& out1) {
+    const int lane = threadIdx.x & 31;
+    const int c1 = lane + 32;
+    float x[kF];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kF; ++i) {
+        float acc = (i == lane) ? 1.f : 0.f;
+#pragma unroll
+        for (int j = 0; j < i; ++j) {
+            const float lij =
+                __shfl_sync(kFull, i < 32 ? a.lo[j & 31] : a.hi[j], i & 31);
+            if (j >= lane) acc = __fsub_rn(acc, __fmul_rn(lij, x[j]));
+        }
+        x[i] = __fdiv_rn(acc, __shfl_sync(kFull, i < 32 ? a.lo[i & 31] : a.hi[i],
+                                          i & 31));
+        if (i >= lane && i < n) sum = __fadd_rn(sum, __fmul_rn(x[i], x[i]));
+    }
+    out0 = sum;
+    sum = 0.f;
+#pragma unroll
+    for (int i = 32; i < kF; ++i) {
+        float acc = (i == c1) ? 1.f : 0.f;
+#pragma unroll
+        for (int j = 32; j < i; ++j) {
+            const float lij = __shfl_sync(kFull, a.hi[j], i & 31);
+            if (j >= c1) acc = __fsub_rn(acc, __fmul_rn(lij, x[j]));
+        }
+        x[i] = __fdiv_rn(acc, __shfl_sync(kFull, a.hi[i], i & 31));
+        if (i >= c1 && i < n) sum = __fadd_rn(sum, __fmul_rn(x[i], x[i]));
+    }
+    out1 = sum;
+}
+
 // K3 (SlabTile) and K6a (Dense): the damped factor and both substitutions;
 // a warp past the last voxel returns.
 template <int kF, class Layout>
@@ -176,12 +230,25 @@ __global__ void __launch_bounds__(32 * Layout::kVoxels)
     if (v >= b) return;
     const int lane = threadIdx.x & 31;
     const float lv = lam[v];
-    float a[kF];
-    warp_factor<kF>(f, layout.at(v), [lv](float x) { return damp(x, lv); },
-                    a);
-    const float rhs = lane < f ? g[v * f + lane] : 0.f;
-    const float x = warp_back<kF>(a, warp_forward<kF>(a, rhs), f);
-    if (lane < f) out[v * f + lane] = x;
+    if constexpr (kF <= kWarpRows) {
+        float a[kF];
+        warp_factor<kF>(f, layout.at(v), [lv](float x) { return damp(x, lv); },
+                        a);
+        const float rhs = lane < f ? g[v * f + lane] : 0.f;
+        const float x = warp_back<kF>(a, warp_forward<kF>(a, rhs), f);
+        if (lane < f) out[v * f + lane] = x;
+    } else {
+        WideRows<kF> a;
+        warp_factor_wide<kF>(f, layout.at(v),
+                             [lv](float x) { return damp(x, lv); }, a);
+        const float rhs0 = lane < f ? g[v * f + lane] : 0.f;
+        const float rhs1 = lane + 32 < f ? g[v * f + lane + 32] : 0.f;
+        float y0, y1, x0, x1;
+        warp_forward_wide<kF>(a, rhs0, rhs1, y0, y1);
+        warp_back_wide<kF>(a, y0, y1, f, x0, x1);
+        if (lane < f) out[v * f + lane] = x0;
+        if (lane + 32 < f) out[v * f + lane + 32] = x1;
+    }
 }
 
 // K4 (SlabTile) and K6b (Dense, tikhonov 0): the factor with `tikhonov`
@@ -197,11 +264,23 @@ __global__ void __launch_bounds__(32 * Layout::kVoxels)
         (long long)blockIdx.x * Layout::kVoxels + threadIdx.x / 32;
     if (v >= b) return;
     const int lane = threadIdx.x & 31;
-    float a[kF];
-    warp_factor<kF>(f, layout.at(v),
-                    [tikhonov](float x) { return __fadd_rn(x, tikhonov); }, a);
-    const float d = warp_inverse_diag<kF>(a, f);
-    if (lane < f) out[v * f + lane] = d;
+    if constexpr (kF <= kWarpRows) {
+        float a[kF];
+        warp_factor<kF>(f, layout.at(v),
+                        [tikhonov](float x) { return __fadd_rn(x, tikhonov); },
+                        a);
+        const float d = warp_inverse_diag<kF>(a, f);
+        if (lane < f) out[v * f + lane] = d;
+    } else {
+        WideRows<kF> a;
+        warp_factor_wide<kF>(
+            f, layout.at(v),
+            [tikhonov](float x) { return __fadd_rn(x, tikhonov); }, a);
+        float d0, d1;
+        warp_inverse_diag_wide<kF>(a, f, d0, d1);
+        if (lane < f) out[v * f + lane] = d0;
+        if (lane + 32 < f) out[v * f + lane + 32] = d1;
+    }
 }
 
 template <int kF, class Layout>
@@ -229,8 +308,14 @@ extern "C" int xmt_spd_solve_damped(const float* h, const float* g,
                                     void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_solve<kF, SlabTile<kF, kSlabVoxels>>(
-                             h, g, lam, out, b, f, stream))
+        if (f <= kWarpRows) {
+            XMT_WARP_ROWS(f, launch_solve<kF, SlabTile<kF, kSlabVoxels>>(
+                                 h, g, lam, out, b, f, stream))
+        } else {
+            XMT_WARP_ROWS_WIDE(
+                f, launch_solve<kF, SlabTile<kF, kWideSlabVoxels>>(
+                       h, g, lam, out, b, f, stream))
+        }
     }
     return (int)cudaGetLastError();
 }
@@ -239,8 +324,15 @@ extern "C" int xmt_spd_inverse_diag(const float* h, float* out, int b, int f,
                                     float tikhonov, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_inverse_diag<kF, SlabTile<kF, kSlabVoxels>>(
-                             h, out, b, f, tikhonov, stream))
+        if (f <= kWarpRows) {
+            XMT_WARP_ROWS(f, launch_inverse_diag<kF, SlabTile<kF, kSlabVoxels>>(
+                                 h, out, b, f, tikhonov, stream))
+        } else {
+            XMT_WARP_ROWS_WIDE(
+                f,
+                launch_inverse_diag<kF, SlabTile<kF, kWideSlabVoxels>>(
+                    h, out, b, f, tikhonov, stream))
+        }
     }
     return (int)cudaGetLastError();
 }
@@ -250,7 +342,12 @@ extern "C" int xmt_spd_solve_damped_dense(const float* h, const float* g,
                                           int f, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_solve<kF, Dense>(h, g, lam, out, b, f, stream))
+        if (f <= kWarpRows) {
+            XMT_WARP_ROWS(f, launch_solve<kF, Dense>(h, g, lam, out, b, f, stream))
+        } else {
+            XMT_WARP_ROWS_WIDE(
+                f, launch_solve<kF, Dense>(h, g, lam, out, b, f, stream))
+        }
     }
     return (int)cudaGetLastError();
 }
@@ -259,8 +356,13 @@ extern "C" int xmt_spd_inverse_diag_dense(const float* h, float* out, int b,
                                           int f, void* stream) {
     if (f < 1 || f > kMaxF) return (int)cudaErrorInvalidValue;
     if (b > 0) {
-        XMT_WARP_ROWS(f, launch_inverse_diag<kF, Dense>(h, out, b, f, 0.f,
-                                                        stream))
+        if (f <= kWarpRows) {
+            XMT_WARP_ROWS(f, launch_inverse_diag<kF, Dense>(h, out, b, f, 0.f,
+                                                            stream))
+        } else {
+            XMT_WARP_ROWS_WIDE(f, launch_inverse_diag<kF, Dense>(h, out, b, f,
+                                                                 0.f, stream))
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -6,14 +6,18 @@ K2 replaces ``xmris_tpu/ops/kernels/lm_pallas.py::eq6_normal_equations_pallas_v9
 optional ``cost_prev`` accept gate): the free-space system.  The CUDA
 source is ``csrc/lm_v9.cu`` on the warp evaluation of
 ``csrc/lm_v9_warp.cuh``, whose header comment gives the bound on the H100
-and the design (one warp per voxel, the moments in registers).
-:func:`eq6_normal_equations_plain` is the same function in plain PyTorch.
+and the design (one warp per voxel, the moments in registers); a prior
+past the narrow caps (``MAX_PEAKS``, ``MAX_FREE``, ``MAX_ROWS``) takes the
+same evaluation's wide build, ``csrc/lm_v9_wide.cu``, up to ``WIDE_MAX_*``
+(:func:`is_wide`).  :func:`eq6_normal_equations_plain` is the same
+function in plain PyTorch.
 
 K9 replaces ``eq6_normal_equations_pallas_v8``: the physical active rows of
 a purely Lorentzian prior (every g fixed at 0) from three moments, which is
 K2's evaluation with an identity fold and the direct basis
 (``csrc/lm_v8.cu``; :func:`eq6_normal_equations_v8_plain` the same in plain
-PyTorch, through K2's plain evaluation with that fold).
+PyTorch, through K2's plain evaluation with that fold).  K9 and the
+whole-loop K8 keep the narrow caps.
 
 Basis form: with ``plan.factored`` (uniform t, n_t % 128 == 0) both
 versions build the basis block-factored over 128-sample blocks, exactly as
@@ -41,9 +45,16 @@ import torch
 
 from xmris_tpu_torch.ops.kernels import _build, _counters
 
+# The narrow caps: csrc/lm_v9_eval.cuh's kMaxPeaks/kMaxFree/kMaxRows, which
+# bound K8, K9 and K2's narrow build (csrc/lm_v9.cu).
 MAX_PEAKS = 8
 MAX_FREE = 32
 MAX_ROWS = 5 * MAX_PEAKS
+# K2's wide build (csrc/lm_v9_wide.cu): kWidePeaks, kWideRows, kWideFree
+# (the SPD kernels' MAX_F, which the LM's step needs too).
+WIDE_MAX_PEAKS = 12
+WIDE_MAX_ROWS = 5 * WIDE_MAX_PEAKS
+WIDE_MAX_FREE = 48
 MAX_QN = 2
 _BLOCK_T = 128
 _SMEM_LIMIT = 232448  # bytes a block may use on sm_90
@@ -53,6 +64,7 @@ _DEG = math.pi / 180.0
 WARP_VOXELS = 8
 K2_PASS_BUDGET = 64
 K9_PASS_BUDGET = 112
+K2_WIDE_PASS_BUDGET = 112  # csrc/lm_v9_wide.cu
 
 
 def _row_degrees(ptype: int, g_zero: bool) -> tuple[int, ...]:
@@ -345,23 +357,39 @@ def warp_smem_bytes(n_t: int, n_peaks: int, q_n: int, n_free: int,
         n_t, n_peaks, q_n, n_free, n_rows, factored))
 
 
-def _check_bounds(plan: NormalEqPlan) -> None:
+NARROW_CAPS = (MAX_PEAKS, MAX_FREE, MAX_ROWS)
+WIDE_CAPS = (WIDE_MAX_PEAKS, WIDE_MAX_FREE, WIDE_MAX_ROWS)
+
+
+def is_wide(plan: NormalEqPlan) -> bool:
+    """Whether K2 takes the plan to its wide build (``csrc/lm_v9_wide.cu``):
+    past a narrow cap, which only a prior of more than 8 peaks, or of 7-8
+    with a g freed (q_n = 2), reaches."""
+    return (plan.n_peaks > MAX_PEAKS or plan.n_free > MAX_FREE
+            or len(plan.active) > MAX_ROWS)
+
+
+def _check_bounds(plan: NormalEqPlan, caps=WIDE_CAPS) -> None:
+    """Refuse a prior past ``caps`` (peaks, free, rows): K2's by default,
+    ``NARROW_CAPS`` for K8 and K9."""
+    max_peaks, max_free, max_rows = caps
     n_rows = len(plan.active)
-    if (plan.n_peaks > MAX_PEAKS or plan.n_free > MAX_FREE
-            or n_rows > MAX_ROWS or plan.q_n > MAX_QN):
+    if (plan.n_peaks > max_peaks or plan.n_free > max_free
+            or n_rows > max_rows or plan.q_n > MAX_QN):
         raise ValueError(
             f"prior too large for the kernel: peaks {plan.n_peaks} (max "
-            f"{MAX_PEAKS}), free {plan.n_free} (max {MAX_FREE}), rows "
-            f"{n_rows} (max {MAX_ROWS})"
+            f"{max_peaks}), free {plan.n_free} (max {max_free}), rows "
+            f"{n_rows} (max {max_rows})"
         )
 
 
-def check_warp_plan(plan: NormalEqPlan, n_t: int, q_n: int | None = None
-                    ) -> None:
+def check_warp_plan(plan: NormalEqPlan, n_t: int, q_n: int | None = None,
+                    caps=WIDE_CAPS) -> None:
     """Refuse a prior or a time axis that the warp evaluation (K2, K9)
-    cannot take: its static bounds and its shared memory (K9 passes its
-    fixed ``q_n`` of 1)."""
-    _check_bounds(plan)
+    cannot take: its static bounds (K2's ``WIDE_CAPS``; K9 passes
+    ``NARROW_CAPS``) and its shared memory (K9 passes its fixed ``q_n`` of
+    1)."""
+    _check_bounds(plan, caps)
     smem = warp_smem_bytes(n_t, plan.n_peaks,
                            plan.q_n if q_n is None else q_n, plan.n_free,
                            len(plan.active), plan.factored)
@@ -372,9 +400,9 @@ def check_warp_plan(plan: NormalEqPlan, n_t: int, q_n: int | None = None
 
 def check_plan(plan: NormalEqPlan, n_t: int) -> None:
     """Refuse a prior or a time axis that the block evaluation of the
-    whole-loop kernel (K8, ``v9_eval``) cannot take: its static bounds and
-    its shared memory."""
-    _check_bounds(plan)
+    whole-loop kernel (K8, ``v9_eval``) cannot take: its static bounds (the
+    narrow caps, which size its shared arrays) and its shared memory."""
+    _check_bounds(plan, NARROW_CAPS)
     n_pairs = plan.n_peaks * (plan.n_peaks + 1) // 2
     smem = 4 * (n_t * (3 + 2 * plan.n_peaks)
                 + plan.n_peaks * (2 * _BLOCK_T + 2 * (n_t // _BLOCK_T))
@@ -418,7 +446,9 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None,
     g = torch.empty((b, plan.n_free), dtype=torch.float32, device=y_re.device)
     h = torch.empty((plan.n_free * plan.n_free, b), dtype=torch.float32,
                     device=y_re.device)
-    err = _build.library().xmt_eq6_normal_eq_v9(
+    name = ("xmt_eq6_normal_eq_v9_wide" if is_wide(plan)
+            else "xmt_eq6_normal_eq_v9")
+    err = getattr(_build.library(), name)(
         params.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), t.data_ptr(),
         dxdu.data_ptr(), mask.data_ptr() if mask is not None else None,
         cost_prev.data_ptr() if cost_prev is not None else None,
@@ -427,7 +457,7 @@ def eq6_normal_equations(params, y_re, y_im, t, dxdu, plan, voxel_mask=None,
         b, n_t, plan.n_peaks, plan.n_free, n_rows, plan.q_n,
         int(plan.factored), plan.w_cs_unit, _build.stream_ptr(y_re.device),
     )
-    _build.check("xmt_eq6_normal_eq_v9", err)
+    _build.check(name, err)
     _counters.launched("eq6_normal_eq_v9")
     return cost, g, h
 
@@ -506,7 +536,7 @@ def eq6_normal_equations_v8(params, y_re, y_im, t, n_peaks, mhz, active,
     b, n_t = _check_inputs(params, y_re, y_im, t, None, plan, voxel_mask)
     if not all(x.is_contiguous() for x in (params, y_re, y_im, t)):
         raise ValueError("normal equations: inputs must be contiguous")
-    check_warp_plan(plan, n_t, q_n=1)
+    check_warp_plan(plan, n_t, q_n=1, caps=NARROW_CAPS)
     ints, scales = _plan_tensors(plan, str(y_re.device))
     mask = voxel_mask.contiguous() if voxel_mask is not None else None
     cost = torch.empty((b,), dtype=torch.float32, device=y_re.device)

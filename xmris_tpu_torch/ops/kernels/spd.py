@@ -12,8 +12,9 @@ the two agree to the last bits on the card.
 Layouts: K3/K4 take H as the voxel-minor slab (F*F, B) of
 :func:`xmris_tpu_torch.ops.kernels.lm_cuda.eq6_normal_equations`, with ``g``
 (B, F), ``lam`` (B,) and outputs (B, F); K6a/K6b take dense row-major
-(B, F, F) matrices.  All four run one warp a voxel and launch nothing for
-an empty output.  A non-positive pivot gives a NaN row.
+(B, F, F) matrices.  All four run one warp a voxel (a row of the factor
+a lane up to F = 32, two rows a lane up to ``MAX_F``) and launch nothing
+for an empty output.  A non-positive pivot gives a NaN row.
 
 :func:`spd_solve_small` and :func:`spd_inverse_diag_small` are the
 reference's XLA forms (``spd_solve_small``, ``spd_inverse_diag``: no Pallas
@@ -28,7 +29,7 @@ import torch
 
 from xmris_tpu_torch.ops.kernels import _build, _counters
 
-MAX_F = 32
+MAX_F = 48  # csrc/spd.cu's kMaxF: two rows a lane past 32
 
 
 def _check_slab(h, b_expected=None):
