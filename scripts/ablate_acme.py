@@ -5,7 +5,8 @@ Usage, on a machine with a CUDA card and nvcc, from the root of a checkout:
 
     python3 scripts/ablate_acme.py
 
-Each variant is ``xmris_tpu_torch/ops/kernels/csrc/acme.cu`` with one text
+Each variant is ``xmris_tpu_torch/ops/kernels/csrc/acme.cu``, with its
+header ``acme_eval.cuh`` written in at its ``#include``, and one text
 substitution (the register cap lifted, float32 sums, IEEE divisions, the
 fast-math log or sincos), built by nvcc into ``build/ablate/``.  On the
 bench grid's unphased flat spectra (16 384 voxels x 2048 points, each
@@ -29,6 +30,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "xmris_tpu_torch" / "ops" / "kernels" / "csrc" / "acme.cu"
+HEADER = SRC.with_name("acme_eval.cuh")
 
 # name -> (old, new) substitutions on the source
 VARIANTS = {
@@ -73,7 +75,8 @@ def main() -> int:
     print(smi, flush=True)
     out = ROOT / "build" / "ablate"
     out.mkdir(parents=True, exist_ok=True)
-    base = SRC.read_text()
+    base = SRC.read_text().replace('#include "acme_eval.cuh"',
+                                   HEADER.read_text())
     builds = {}
     for name, subs in VARIANTS.items():
         text = base

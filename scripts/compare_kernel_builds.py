@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the port's LM kernels bit for bit against another checkout's build.
+"""Hold the port's LM and ACME polish kernels bit for bit against another
+checkout's build.
 
 Usage, on a machine with a CUDA card and nvcc, from the root of a checkout:
 
@@ -24,12 +25,17 @@ prior, parameters within 20 % of its initial values):
 * K3, K4 (with the 1e-12 ridge and without), K6a and K6b (``spd``) on K2's
   H of the bench prior (F = 20) and of the free-g prior (F = 25), in slab
   and in dense form, with three planted non-SPD voxels (H[0, 0] = -1) and
-  ``lam = logspace(-5, -1)``.
+  ``lam = logspace(-5, -1)``;
+* K5 (``acme_cuda.acme_polish``) on the voxels' spectra (NumPy's FFT of the
+  windowed FIDs, zero-filled to 2048), each voxel's own peak as its pivot
+  and random seed phases: one evaluation (score and gradient) and the
+  40-step polish, p0 + p1 and p0 only.
 
 Which pins cover which shared header: ``spd_factor.cuh`` (the warp factor
 and substitutions) K3, K4, K6a, K6b (``spd.cu``) and K8 (``lm_v10.cu``);
 ``lm_v9_warp.cuh`` K2 (``lm_v9.cu``) and K9 (``lm_v8.cu``);
-``lm_v9_eval.cuh`` K2, K9, K7 and K12 (``lm_jac.cu``) and K8.
+``lm_v9_eval.cuh`` K2, K9, K7 and K12 (``lm_jac.cu``) and K8;
+``acme_eval.cuh`` K5 (``acme.cu``).
 
 Only entry points both checkouts have are called.  Every output must be
 equal bit for bit (NaN at the same places, the float32 bits of every other
@@ -63,6 +69,7 @@ def _dump(repo: str, out: str) -> None:
     from xmris_tpu_torch.fitting.prior import prior_from_csv_text
     from xmris_tpu_torch.ops.bounds import expand_params_batched
     from xmris_tpu_torch.ops.kernels import (
+        acme_cuda,
         lm_cuda,
         lm_jac_cuda,
         lm_loop_cuda,
@@ -73,7 +80,7 @@ def _dump(repo: str, out: str) -> None:
     dev = torch.device("cuda", 0)
     pk = prior_from_csv_text(bi.PK_CSV)
     ps = hashable_pmap(pk.pmap)
-    fids, _, _ = bi.make_inputs((16, 16, 16))
+    fids, weight, freqs = bi.make_inputs((16, 16, 16))
     b, nf = fids.shape[0], pk.n_free
     rng = np.random.default_rng(0)
     x = np.clip(pk.init_free[None] * rng.uniform(0.8, 1.2, (b, nf)),
@@ -166,6 +173,25 @@ def _dump(repo: str, out: str) -> None:
                                    max_iter=24)
     for name, val in zip(("u", "cost", "n_acc", "done", "H"), res):
         outs[f"K8 {name}"] = val
+    spec = np.fft.fftshift(np.fft.fft(fids * weight[: bi.N_TIME], bi.ZERO_FILL,
+                                      axis=1), axes=1)
+    sr, si = f32(spec.real), f32(spec.imag)
+    coords = f32(freqs)
+    piv = coords[torch.as_tensor(np.argmax(np.abs(spec), axis=1), device=dev)]
+    x_range = float(freqs[-1] - freqs[0])
+    p_init = f32(np.stack([rng.uniform(-150, 150, b),
+                           rng.uniform(-3000, 3000, b)], 1))
+    for p0_only in (False, True):
+        tag = "p0" if p0_only else "p0+p1"
+        _, f, g = acme_cuda.acme_polish(sr, si, coords, piv, p_init, x_range,
+                                        n_iter=0, p0_only=p0_only,
+                                        with_grad=True)
+        outs[f"K5 one evaluation {tag} score"] = f
+        outs[f"K5 one evaluation {tag} gradient"] = g
+        p, f = acme_cuda.acme_polish(sr, si, coords, piv, p_init, x_range,
+                                     p0_only=p0_only)
+        outs[f"K5 polish {tag} phases"] = p
+        outs[f"K5 polish {tag} score"] = f
     torch.cuda.synchronize()
     torch.save({n: v.cpu() for n, v in outs.items()}, out)
 

@@ -288,6 +288,150 @@ def test_graphed_phase_search_equals_eager(dev, p0_only):
         assert torch.equal(got, want)
 
 
+def _search_rows(dev, b=128, seed=0):
+    """Unphased flat K1 spectra of ``b`` bench voxels, every row turned by
+    its own random receiver phase (p0 in +-180, p1 in +-2000 deg, so the
+    scan works away from 0), the freqs, and each row's peak bin."""
+    fids, w, freqs = bi.make_inputs((b, 1, 1))
+    rng = np.random.default_rng(seed)
+    f64 = freqs.astype(np.float64)
+    re, im = (torch.as_tensor(np.ascontiguousarray(x), device=dev)
+              for x in (fids.real, fids.imag))
+    sr, si, _, mi = dft_cuda.spectrum(
+        re, im, bi.ZERO_FILL, window=torch.as_tensor(w[: bi.N_TIME], device=dev),
+        with_maxmag=True)
+    z = sr.double().cpu().numpy() + 1j * si.double().cpu().numpy()
+    k = mi.long().cpu().numpy()
+    p0, p1 = rng.uniform(-180, 180, b), rng.uniform(-2000, 2000, b)
+    phi = np.deg2rad(p0[:, None] + p1[:, None] * (f64[None] - f64[k][:, None])
+                     / (f64[-1] - f64[0]))
+    z = z * np.exp(-1j * phi)
+    return (torch.as_tensor(z.real.astype(np.float32), device=dev),
+            torch.as_tensor(z.imag.astype(np.float32), device=dev),
+            torch.as_tensor(freqs, device=dev), mi.long())
+
+
+@pytest.mark.parametrize("p0_only", [False, True])
+def test_acme_search_kernel_matches_plain(dev, p0_only):
+    """K5s against its twin on 128 rows: the same scan winner on every row
+    (``n_iter=0``), and after the polish K5's rule: scores within x1.02 of
+    each other both ways, phases within 0.01 deg on at least 99 % of the
+    rows."""
+    sr, si, f, mi = _search_rows(dev)
+    seeds, polished, scores = [], [], []
+    for v in range(sr.shape[0]):
+        idx = (torch.tensor(v, device=dev), mi[v])
+        seeds.append([acme_cuda.acme_search(sr, si, f, *idx, p0_only=p0_only,
+                                            n_iter=0),
+                      acme_cuda.acme_search_plain(sr, si, f, *idx,
+                                                  p0_only=p0_only, n_iter=0)])
+        pair = [fn(sr, si, f, *idx, p0_only=p0_only) for fn in
+                (acme_cuda.acme_search, acme_cuda.acme_search_plain)]
+        polished.append(pair)
+        piv = f[mi[v]][None]
+        scores.append([acme_cuda.acme_polish_plain(
+            sr[v][None], si[v][None], f, piv, p, f[-1] - f[0], n_iter=0,
+            p0_only=p0_only)[1] for p in pair])
+    for k_seed, p_seed in seeds:
+        assert torch.equal(k_seed, p_seed)
+    pk = torch.cat([p[0] for p in polished])
+    pp = torch.cat([p[1] for p in polished])
+    fk = torch.cat([s[0] for s in scores])
+    fp = torch.cat([s[1] for s in scores])
+    assert torch.isfinite(fk).all() and torch.isfinite(fp).all()
+    assert (fk <= fp * 1.02).all() and (fp <= fk * 1.02).all()
+    dp0 = torch.remainder(pk[:, 0] - pp[:, 0] + 180.0, 360.0) - 180.0
+    ok = (dp0.abs() <= 0.01) & ((pk[:, 1] - pp[:, 1]).abs() <= 0.01)
+    assert float(ok.float().mean()) >= 0.99
+    if p0_only:
+        assert torch.equal(pk[:, 1], torch.zeros_like(pk[:, 1]))
+
+
+def test_acme_search_reads_any_layout_and_refuses_what_it_cannot_take(dev):
+    """Stacked, flat and voxel-strided spectra give the same phases; the
+    wrapper refuses float64, rows past 4096 points and points that are not
+    contiguous."""
+    sr, si, f, mi = _search_rows(dev, b=8)
+    idx = (torch.tensor(5, device=dev), mi[5])
+    want = acme_cuda.acme_search(sr, si, f, *idx)
+    n2, n1 = dft_cuda.stacked_spec_shape(bi.N_TIME, bi.ZERO_FILL)
+    wide = torch.cat([sr, si], dim=1)
+    for re_l, im_l in ((sr.reshape(-1, n2, n1), si.reshape(-1, n2, n1)),
+                       (wide[:, : bi.ZERO_FILL], wide[:, bi.ZERO_FILL:])):
+        assert torch.equal(acme_cuda.acme_search(re_l, im_l, f, *idx), want)
+    with pytest.raises(TypeError, match="float32"):
+        acme_cuda.acme_search(sr.double(), si.double(), f.double(), *idx)
+    with pytest.raises(ValueError, match="outside"):
+        acme_cuda.acme_search(sr.repeat(1, 4), si.repeat(1, 4),
+                              torch.linspace(-1.0, 1.0, 8192, device=dev),
+                              *idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        acme_cuda.acme_search(sr.t().contiguous().t(), si, f, *idx)
+
+
+def test_single_pivot_search_is_one_kernel_launch(dev):
+    """One K5s launch and one ``spectral.phase_search.kernel`` count per
+    process_grid_planar_raw and per mrsi_pipeline call at the grid search;
+    none at the DE pivot."""
+    from xmris_tpu_torch.parallel import mrsi_pipeline
+    from xmris_tpu_torch.runtime import profiling
+
+    pk = prior_from_csv_text(bi.PK_CSV)
+    fids, weight, freqs = bi.make_inputs(GRID)
+    amp_slots, ls_plan = seed_plan(pk)
+    t = np.arange(bi.N_TIME) / bi.SW
+    args = grid_inputs_from_numpy(fids, weight, freqs, t, pk.init_free, pk,
+                                  dev)
+    kw = dict(pmap_static=hashable_pmap(pk.pmap), mhz=bi.MHZ,
+              amp_slots=amp_slots, ls_plan=ls_plan, uniform_t_ok=True)
+    grid = PipelineConfig(zero_fill_to=bi.ZERO_FILL, ap_optimizer="grid")
+    _, da = _labeled_bench()
+    runs = {
+        "grid": lambda c: process_grid_planar_raw(*args, cfg=c, **kw),
+        "mrsi": lambda c: mrsi_pipeline(da, cfg=c),
+    }
+    for name, run in runs.items():
+        for cfg, n in ((grid, 1), (dataclasses.replace(grid, p0_only=True), 1),
+                       (dataclasses.replace(grid, ap_optimizer="de"), 0)):
+            K.reset_counters()
+            with profiling.recording() as rec:
+                run(cfg)
+                torch.cuda.synchronize()
+            counts = K.counters()
+            got = rec.snapshot()["counters"].get("spectral.phase_search.kernel", 0)
+            assert counts["launches"]["acme_search"] == n, (name, cfg)
+            assert got == n, (name, cfg)
+            assert counts["plain_calls"]["acme_search"] == 0
+
+
+@pytest.mark.parametrize("case", ["float64", "n_f 8192"])
+def test_rows_k5s_cannot_take_keep_the_graph(dev, case):
+    """A float64 row and an 8192-point row keep the CUDA graph of the
+    torch search: no K5s launch, a graph captured for their key, and the
+    eager search's result."""
+    from xmris_tpu_torch.parallel.planar_pipeline import _solve_phase_on_row
+
+    sr, si, f, mi = _search_rows(dev, b=4)
+    if case == "float64":
+        sr, si, f = sr.double(), si.double(), f.double()
+    else:  # each row's spectrum on an axis of twice the points
+        sr, si = (torch.nn.functional.interpolate(x[:, None], scale_factor=2,
+                                                  mode="linear")[:, 0]
+                  for x in (sr.repeat(1, 2), si.repeat(1, 2)))
+        f = torch.linspace(float(f[0]), float(f[-1]), sr.shape[1], device=dev)
+    cfg = PipelineConfig(zero_fill_to=sr.shape[1], ap_optimizer="grid")
+    peak = (torch.tensor(1, device=dev), mi[1])
+    K.reset_counters()
+    p0, p1 = _solve_phase_on_row(sr, si, f, peak, cfg)
+    torch.cuda.synchronize()
+    assert K.counters()["launches"]["acme_search"] == 0
+    key = (sr.device, (1, sr.shape[1]), tuple(f.shape), sr.dtype, False)
+    assert key in tph._GRAPHS
+    want = _grid_phase_search(sr[1][None], si[1][None], f, f[-1] - f[0],
+                              f[mi[1]][None], False, cand_chunk=16)
+    assert torch.equal(torch.stack([p0, p1]), want[0])
+
+
 def test_wrappers_refuse_noncontiguous(dev):
     re, im, _, _ = _planes(dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1780,8 +1924,9 @@ def test_grid_at_a_matmul_variant_launches_no_spectrum_kernel(dev, variant):
         *args, cfg=PipelineConfig(**base, dft_variant=variant), **kw)
     torch.cuda.synchronize()
     counts = K.counters()
-    path = K.PATHS["grid_single_pivot_dft"]
-    assert {n for n, c in counts["launches"].items() if c} == set(path)
+    # autophase="none": the path's kernels but the pivot search's (K5s)
+    path = set(K.PATHS["grid_single_pivot_dft"]) - {"acme_search"}
+    assert {n for n, c in counts["launches"].items() if c} == path
     assert not any(counts["plain_calls"].values())
     scale = float(torch.maximum(ref[0].abs().max(), ref[1].abs().max()))
     for a, b in zip(got[:2], ref[:2]):

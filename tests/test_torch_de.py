@@ -377,7 +377,7 @@ def test_process_grid_defaults_match_reference(de_program):
     ``tests/test_process.py:78-84``."""
     ref, got, _, (u_re, u_im, _), calls = de_program
     assert PipelineConfig().ap_optimizer == "de"
-    assert all(calls[n] > 0 for n in PATHS["grid_single_pivot"])
+    assert all(calls[n] > 0 for n in PATHS["grid_single_pivot_de"])
     assert calls["acme_polish"] == 0
     _, _, (p0_r, p1_r, piv_r), x_r, cost_r, _, sds_r = ref
     _, _, (p0, p1, piv), x, cost, conv, sds = got

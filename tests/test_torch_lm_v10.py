@@ -243,7 +243,8 @@ def test_process_grid_matches_reference(grid_case, version, ref_version):
     K.reset_counters()
     got = process_grid_planar_raw(*args, cfg=cfg, kernel_version=version, **kw)
     plain = K.counters()["plain_calls"]
-    path = K.PATHS[f"grid_single_pivot_v{version}"]
+    # On the CPU the pivot search is the torch search, not K5s's twin.
+    path = set(K.PATHS[f"grid_single_pivot_v{version}"]) - {"acme_search"}
     assert all(plain[name] > 0 for name in path)
     assert all(plain[name] == 0 for name in plain if name not in path)
     *_, x_r, cost_r, conv_r, sds_r = ref

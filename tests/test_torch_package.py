@@ -174,7 +174,8 @@ def test_packaging_names_the_port():
     assert "xmris_tpu_torch*" in tool["packages"]["find"]["include"]
     globs = tool["package-data"]["xmris_tpu_torch"]
     csrc = sorted(p.name for p in (PKG / "ops/kernels/csrc").iterdir())
-    assert csrc == ["acme.cu", "lm_jac.cu", "lm_v10.cu", "lm_v8.cu",
+    assert csrc == ["acme.cu", "acme_eval.cuh", "lm_jac.cu", "lm_v10.cu",
+                    "lm_v8.cu",
                     "lm_v9.cu", "lm_v9_eval.cuh", "lm_v9_warp.cuh",
                     "lm_v9_wide.cu", "spd.cu", "spd_factor.cuh", "spectrum.cu"]
     assert "ops/kernels/csrc/*.cu" in globs

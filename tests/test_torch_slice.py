@@ -134,7 +134,8 @@ def test_single_pivot_phase_solve(ref_unphased, p0_only):
         jnp.asarray(pivot), ref_cfg,
     )
     p0, p1 = _solve_phase_on_row(
-        _t(row_re), _t(row_im), _t(FREQS), torch.tensor(pivot),
+        _t(row_re)[None], _t(row_im)[None], _t(FREQS),
+        (torch.tensor(0), torch.tensor(k)),
         PipelineConfig(zero_fill_to=ZF, autophase="single",
                        ap_optimizer="grid", p0_only=p0_only),
     )

@@ -16,6 +16,7 @@ K11    ``lm_jac_cuda.eq6_normal_equations_v6``  ``lm_pallas.eq6_normal_equations
 K12    ``lm_jac_cuda.eq6_normal_equations_v5``  ``lm_pallas.eq6_normal_equations_pallas_v5``
 K13    ``lm_jac_cuda.eq6_normal_equations_v2``  ``lm_pallas.eq6_normal_equations_pallas_v2``
 K14    ``lm_jac_cuda.eq6_normal_equations_v1``  ``lm_pallas.eq6_normal_equations_pallas``
+K5s    ``acme_cuda.acme_search``                none: ``phasing._grid_phase_search`` on one row
 =====  =======================================  ===============================================
 
 ``dft.py`` (the matmul DFT, ``dft_planar`` and its variants) is no kernel:
@@ -24,7 +25,9 @@ port computes it with ``torch.matmul``.
 
 K13 and K14 launch K7's kernel (the same function), K11 and K10 K12's
 with a voxel mask (K10 on the block-factored basis), K9 K2's evaluation
-with an identity fold; each under its own counter.
+with an identity fold; each under its own counter.  K5s ports no TPU
+kernel: it runs the single-pivot grid search, scan and polish, that the
+reference leaves to XLA, in one launch (K5's evaluation and step).
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors.  Code on the main paths takes its kernels from a
@@ -81,6 +84,7 @@ class KernelSet:
     normal_equations_v6: Callable
     normal_equations_v2: Callable
     normal_equations_v1: Callable
+    acme_search: Callable
 
 
 DISPATCH = KernelSet(
@@ -99,6 +103,7 @@ DISPATCH = KernelSet(
     normal_equations_v6=lm_jac_cuda.eq6_normal_equations_v6,
     normal_equations_v2=lm_jac_cuda.eq6_normal_equations_v2,
     normal_equations_v1=lm_jac_cuda.eq6_normal_equations_v1,
+    acme_search=acme_cuda.acme_search,
 )
 
 PLAIN = KernelSet(
@@ -117,6 +122,7 @@ PLAIN = KernelSet(
     normal_equations_v6=lm_jac_cuda.eq6_normal_equations_v6_plain,
     normal_equations_v2=lm_jac_cuda.eq6_normal_equations_v2_plain,
     normal_equations_v1=lm_jac_cuda.eq6_normal_equations_v1_plain,
+    acme_search=acme_cuda.acme_search_plain,
 )
 
 _FIT = ("eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag")
@@ -125,8 +131,12 @@ _DENSE = ("spd_solve_damped_dense", "spd_inverse_diag_dense")
 
 # Entry point on the card -> the kernels it launches (counter names).
 PATHS = {
-    # process_grid_planar_raw, autophase="single" (the gd polish on one row)
-    "grid_single_pivot": ("spectrum",) + _FIT,
+    # process_grid_planar_raw, autophase="single" with the grid search (the
+    # gd polish on one row: K5s)
+    "grid_single_pivot": ("spectrum", "acme_search") + _FIT,
+    # process_grid_planar_raw, autophase="single" with DE on the pivot row
+    # (the PipelineConfig default)
+    "grid_single_pivot_de": ("spectrum",) + _FIT,
     # process_grid_planar_raw, autophase="all" with the grid search
     "grid_per_voxel": ("spectrum", "acme_polish") + _FIT,
     # process_grid_planar_raw, autophase="all" with one DE per voxel (its
@@ -137,23 +147,27 @@ PATHS = {
     # fitting.amares.fit_amares, engine="pallas"
     "fit_amares": ("eq6_normal_eq_v9", "spd_solve_damped",
                    "spd_inverse_diag_dense"),
-    # process_grid_planar_raw, autophase="single", with a matmul dft_variant
-    # ("fused", "einsum", "flat", "block", "full"): no K1
-    "grid_single_pivot_dft": _FIT,
-    # process_grid_planar_raw, autophase="single", kernel_version=10, 3, 5
-    # and (the bench's Lorentzian prior, n_t % 128 == 0) 8, 6, 7, 2, 1
-    "grid_single_pivot_v10": ("spectrum", "lm_loop_v10",
+    # process_grid_planar_raw, autophase="single" with the grid search, with
+    # a matmul dft_variant ("fused", "einsum", "flat", "block", "full"): no K1
+    "grid_single_pivot_dft": ("acme_search",) + _FIT,
+    # process_grid_planar_raw, autophase="single" with the grid search,
+    # kernel_version=10, 3, 5 and (the bench's Lorentzian prior, n_t % 128
+    # == 0) 8, 6, 7, 2, 1
+    "grid_single_pivot_v10": ("spectrum", "acme_search", "lm_loop_v10",
                               "spd_inverse_diag_dense"),
-    **{f"grid_single_pivot_v{v}": ("spectrum", f"eq6_normal_eq_v{v}") + _DENSE
+    **{f"grid_single_pivot_v{v}": ("spectrum", "acme_search",
+                                   f"eq6_normal_eq_v{v}") + _DENSE
        for v in (3, 5, 8, 6, 7, 2, 1)},
     # fit_amares(kernel_version=10), fit_amares(kernel_version=8)
     "fit_amares_v10": ("lm_loop_v10", "spd_inverse_diag_dense"),
     "fit_amares_v8": ("eq6_normal_eq_v8",) + _DENSE,
-    # parallel.pipeline.mrsi_pipeline, the single pivot (either search) or
-    # autophase="none"
-    "mrsi_pipeline": ("spectrum",),
-    # mrsi_pipeline with a matmul dft_variant and the single pivot
-    "mrsi_pipeline_dft": (),
+    # parallel.pipeline.mrsi_pipeline, the single pivot with the grid search
+    "mrsi_pipeline": ("spectrum", "acme_search"),
+    # mrsi_pipeline, the single pivot with DE, or autophase="none"
+    "mrsi_pipeline_de": ("spectrum",),
+    # mrsi_pipeline with a matmul dft_variant and the single-pivot grid
+    # search
+    "mrsi_pipeline_dft": ("acme_search",),
     # mrsi_pipeline, autophase="all" with the grid search and the "auto" or
     # "fused" polish
     "mrsi_pipeline_per_voxel": ("spectrum", "acme_polish"),

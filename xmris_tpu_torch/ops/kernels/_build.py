@@ -71,6 +71,10 @@ _SIGNATURES = {
     # re, im, coords, pivots, p_init, p_out, f_out, g_out, b, n, x_range,
     # n_iter, p0_only, half_cell, span0, span1, stream
     "xmt_acme_polish": [_P] * 8 + [_I] * 2 + [_F] + [_I] * 2 + [_F] * 3 + [_P],
+    # re, im, stride_re, stride_im, freqs, voxel_idx, freq_idx, p_out, n,
+    # dec, p0_only, n_coarse, n_fine, half_cell, span0, span1, stream
+    "xmt_acme_search": [_P] * 2 + [_I] * 2 + [_P] * 4 + [_I] * 5 + [_F] * 3
+    + [_P],
 }
 
 _lib = None

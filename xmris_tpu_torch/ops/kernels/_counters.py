@@ -15,7 +15,7 @@ NAMES = ("spectrum", "eq6_normal_eq_v9", "spd_solve_damped", "spd_inverse_diag",
          "acme_polish", "spd_inverse_diag_dense", "spd_solve_damped_dense",
          "eq6_normal_eq_v3", "eq6_normal_eq_v5", "lm_loop_v10",
          "eq6_normal_eq_v8", "eq6_normal_eq_v7", "eq6_normal_eq_v6",
-         "eq6_normal_eq_v2", "eq6_normal_eq_v1",
+         "eq6_normal_eq_v2", "eq6_normal_eq_v1", "acme_search",
          # K1's dense route: plain PyTorch (a matmul), not a kernel
          "spectrum_dense")
 

@@ -51,231 +51,43 @@
 //   trajectory along the ACME valley's flat floor: with float32 sums and
 //   reciprocals for the per-voxel divisors, only 58 % of the bench voxels'
 //   polished phases stayed within 0.01 deg of the twin's (PERF.md).
+// * The evaluation and the step are acme_eval.cuh's, which K5s shares.
+//
+// K5s: the whole single-pivot grid search of one row, one launch.
+//
+// Replaces ops/phasing.py::grid_phase_search_graphed (a CUDA graph of the
+// eager torch search, ~5 700 kernels) on the single-pivot path; it ports no
+// TPU kernel (the reference runs this search as XLA ops).  One block of 512
+// threads reads the pivot row straight from the spectra at the device-side
+// (voxel_idx, freq_idx) of K1's peak search (no gather, no host read; the
+// row is 8-16 KiB), then:
+// * the scan of ops/phasing.py::_grid_phase_search on the row decimated by
+//   dec = n_f // 512: 36 p0 candidates, then for p0 + p1 41 p1 candidates
+//   given p0 and 7 p0 refinements, each scored by value_grad's score
+//   arithmetic, one warp a candidate (16 warps: a chunk of the graph's
+//   cand_chunk 16 at a time, the scores in shared memory), the winner by
+//   scan_axis's rule: a chunk's first minimum (its first NaN, if any)
+//   replaces the running best only if strictly lower, so an all-inf stage
+//   keeps 0;
+// * the polish: K5's evaluation and step (acme_eval.cuh), 40 steps at full
+//   resolution, or for p0 only the first n_coarse of them on the decimated
+//   row, as the "fused" branch of _grid_phase_search runs them;
+// and writes (p0, p1) degrees.  Plain twin: acme_cuda.acme_search_plain.
+//
+// What bounds it: 84 scores of ~512 points and 41 evaluations of 2048, each
+// ~40 operations a point with an accurate sincosf and logf: ~5 MFLOP, a few
+// microseconds of the card's fp32 rate, but one block on one SM, so its
+// pace is one SM's latency through 7 scan rounds and 41 evaluations of three
+// block reductions each (~0.2 ms); launching the same work as separate
+// kernels costs a launch each.
 
 #include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
+
+#include "acme_eval.cuh"
 
 namespace {
 
-constexpr int kPer = 8;
-constexpr int kMaxThreads = 512;  // n_f <= kPer * kMaxThreads = 4096
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr float kD2R = 0.017453292519943295f;
-// The sums' type: float64, as the twin's (see the design notes above).
-using acc_t = double;
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-    // jnp.max / torch.amax propagate NaN.
-    if (a != a) return a;
-    if (b != b) return b;
-    return a > b ? a : b;
-}
-
-__device__ __forceinline__ float finite_or_zero(float g) {
-    return isfinite(g) ? g : 0.f;
-}
-
-__device__ __forceinline__ float sign_of(float x) {
-    return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
-}
-
-struct Scratch {
-    acc_t part[2][3][kMaxWarps];   // warp partial sums, double buffered
-    float part_max[kMaxWarps];     // warp maxima of d
-    float first_d[kMaxWarps];      // d at each warp's first point
-    float last_d[kMaxWarps];       // d at each warp's last point
-    float last_a[kMaxWarps];       // -(logp + 1) (or 0) there
-    float last_sg[kMaxWarps];      // sign of its first difference
-};
-
-__device__ __forceinline__ acc_t warp_sum(acc_t x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    return x;  // lane 0 holds the sum
-}
-
-// Block sums of N values (and with kMax one NaN-propagating float max) in
-// a fixed order: a warp tree, then every warp runs the same tree over the
-// warp partials, so all threads end with the same values.  One barrier;
-// ``part`` alternates between the two scratch buffers.
-template <int N, bool kMax>
-__device__ __forceinline__ void block_reduce(acc_t (&v)[N], float& mx,
-                                             acc_t (*part)[kMaxWarps],
-                                             float* part_max) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int n_warps = blockDim.x >> 5;
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
-    if (kMax) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, o));
-    }
-    if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < N; ++k) part[k][warp] = v[k];
-        if (kMax) part_max[warp] = mx;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-        const acc_t x = warp_sum(lane < n_warps ? part[k][lane] : acc_t(0));
-        v[k] = __shfl_sync(0xffffffffu, x, 0);
-    }
-    if (kMax) {
-        float m = lane < n_warps ? part_max[lane] : -INFINITY;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-            m = nan_max(m, __shfl_down_sync(0xffffffffu, m, o));
-        mx = __shfl_sync(0xffffffffu, m, 0);
-    }
-}
-
-// x / y correctly rounded from r = 1/y correctly rounded: the quotient
-// x r and one Markstein correction (its residual is exact in an fma).
-__device__ __forceinline__ float div_rn(float x, float y, float r) {
-    const float q = __fmul_rn(x, r);
-    return __fmaf_rn(__fmaf_rn(-q, y, x), r, q);
-}
-
-// A thread's points: re, im and u at [k * nt + tid] of shared memory.
-struct Row {
-    const float *re, *im, *u;
-};
-
-// Score and gradient (degrees) at (p0, p1); every thread returns the same.
-// ``sq``/``slp`` hold this thread's q and log terms at [k * nt + tid];
-// ``red`` counts the reductions, so each takes the other scratch buffer
-// (the maximum's scratch is read before the next write to it, two
-// barriers later).
-__device__ void value_grad(Row r, int n, float p0, float p1,
-                           bool p0_only, float* sq, float* slp, Scratch& s,
-                           int& red, float& score, float& g0, float& g1) {
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int i0 = tid * kPer;  // this thread's first point
-    // The warp's last point: its first difference reaches into the next
-    // warp when it is not the row's last point.
-    const int warp_last = (warp + 1) * 32 * kPer - 1;
-    float d[kPer];
-
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        float sn, cs;
-        const int e = k * nt + tid;
-        const float re = r.re[e], im = r.im[e];
-        sincosf(__fmul_rn(kD2R, __fadd_rn(p0, __fmul_rn(p1, r.u[e]))), &sn, &cs);
-        d[k] = i0 + k < n ? __fsub_rn(__fmul_rn(re, cs), __fmul_rn(im, sn)) : 0.f;
-        sq[e] = -__fadd_rn(__fmul_rn(re, sn), __fmul_rn(im, cs));
-    }
-    if (lane == 0) s.first_d[warp] = d[0];
-    if (lane == 31) s.last_d[warp] = d[kPer - 1];
-
-    // Round 1: s1 = sum |delta|/2, sa = sum 2 min(d, 0), sum min^2, max d.
-    // The first difference of a lane's last point reads the next lane's
-    // first d; that of the warp's last point is added after the barrier,
-    // from the warp floats.  delta is recomputed where used (registers).
-    float d_nb = __shfl_down_sync(0xffffffffu, d[0], 1);
-    auto delta = [&](int k) {
-        const float nb = k + 1 < kPer ? d[k + 1] : d_nb;
-        return i0 + k < n - 1 ? __fsub_rn(nb, d[k]) : 0.f;
-    };
-    acc_t acc1[3] = {0, 0, 0};
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        if (i0 + k < n) {
-            const float mind = d[k] >= 0.f ? 0.f : d[k];  // NaN kept
-            if (lane != 31 || k + 1 < kPer)
-                acc1[0] += (acc_t)__fmul_rn(fabsf(delta(k)), 0.5f);
-            acc1[1] += (acc_t)__fmul_rn(2.f, mind);
-            acc1[2] += (acc_t)__fmul_rn(mind, mind);
-            m = nan_max(m, d[k]);
-        }
-    }
-    block_reduce<3, true>(acc1, m, s.part[red++ & 1], s.part_max);
-    for (int w = 0; (w + 1) * 32 * kPer - 1 < n - 1; ++w)
-        acc1[0] += (acc_t)__fmul_rn(
-            fabsf(__fsub_rn(s.first_d[w + 1], s.last_d[w])), 0.5f);
-    if (lane == 31 && warp_last < n - 1) d_nb = s.first_d[warp + 1];
-    const float s1 = (float)acc1[0];
-    const bool neg = (float)acc1[1] < 0.f;
-    const float pen = neg ? (float)acc1[2] : 0.f;
-    const float log_s1 = logf(s1);
-    const float rcp_s1 = __frcp_rn(s1);
-
-    // Round 2: the entropy sum and the number of points at the maximum.
-    acc_t acc2[2] = {0, 0};
-    float a_last = 0.f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        const float ds1 = __fmul_rn(fabsf(delta(k)), 0.5f);
-        float a = 0.f;
-        if (ds1 > 0.f) {
-            const float logp = __fsub_rn(logf(ds1), log_s1);
-            acc2[0] += (acc_t)__fmul_rn(div_rn(ds1, s1, rcp_s1), logp);
-            a = -__fadd_rn(logp, 1.f);
-        }
-        slp[k * nt + tid] = a;
-        a_last = a;
-        if (i0 + k < n && d[k] == m) acc2[1] += 1;
-    }
-    if (lane == 31) {
-        s.last_a[warp] = a_last;
-        s.last_sg[warp] = sign_of(delta(kPer - 1));
-    }
-    float unused = 0.f;
-    block_reduce<2, false>(acc2, unused, s.part[red++ & 1], nullptr);
-    const float h = -(float)acc2[0];
-    const float num = __fadd_rn(h, __fmul_rn(1000.f, pen));
-    const float denom = __fmul_rn((float)n, m);
-    score = m > 0.f ? __fdiv_rn(num, denom) : INFINITY;
-    // 1 / ties is the twin's is_max / ties where the point is at the max.
-    const float inv_ties = __fdiv_rn(1.f, (float)acc2[1]);
-    const float scale_m = __fdiv_rn(num, __fmul_rn(denom, m));
-    const float rcp_denom = __frcp_rn(denom);
-
-    // Round 3: d(score)/d(d_i), chained to the phases.  ck_i = dh_i
-    // sign(delta_i) / 2 (0 at the last point); gh_i = ck_(i-1) - ck_i.
-    const float omh = __fsub_rn(1.f, h);
-    auto ck = [&](int k, float a, float sg) {
-        return i0 + k < n - 1
-                   ? __fmul_rn(__fmul_rn(div_rn(__fadd_rn(a, omh), s1, rcp_s1), sg),
-                               0.5f)
-                   : 0.f;
-    };
-    float ck_prev = __shfl_up_sync(
-        0xffffffffu, ck(kPer - 1, slp[(kPer - 1) * nt + tid],
-                        sign_of(delta(kPer - 1))), 1);
-    if (lane == 0)
-        ck_prev = warp == 0 ? 0.f
-                            : ck(-1, s.last_a[warp - 1], s.last_sg[warp - 1]);
-    acc_t acc3[2] = {0, 0};
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        const float ck_k = ck(k, slp[k * nt + tid], sign_of(delta(k)));
-        if (i0 + k < n) {
-            const float gh = __fsub_rn(ck_prev, ck_k);
-            const float gp = neg ? __fmul_rn(2.f, d[k] >= 0.f ? 0.f : d[k]) : 0.f;
-            const float gm = d[k] == m ? inv_ties : 0.f;
-            const float gd = __fsub_rn(
-                div_rn(__fadd_rn(gh, __fmul_rn(1000.f, gp)), denom, rcp_denom),
-                __fmul_rn(scale_m, gm));
-            const float t0 = __fmul_rn(gd, sq[k * nt + tid]);
-            acc3[0] += (acc_t)t0;
-            acc3[1] += (acc_t)__fmul_rn(t0, r.u[k * nt + tid]);
-        }
-        ck_prev = ck_k;
-    }
-    block_reduce<2, false>(acc3, unused, s.part[red++ & 1], nullptr);
-    const bool live = m > 0.f;
-    g0 = live ? __fmul_rn((float)acc3[0], kD2R) : 0.f;
-    g1 = (live && !p0_only) ? __fmul_rn((float)acc3[1], kD2R) : 0.f;
-}
+constexpr int kPer = 8;  // K5: n_f <= kPer * kMaxThreads = 4096
 
 __global__ void __launch_bounds__(kMaxThreads, 2) acme_polish_kernel(
     const float* __restrict__ re, const float* __restrict__ im,
@@ -333,46 +145,223 @@ __global__ void __launch_bounds__(kMaxThreads, 2) acme_polish_kernel(
     const bool p0o = p0_only != 0;
     int red = 0;
     float p0 = p_init[2 * v], p1 = p_init[2 * v + 1];
-    float f, gc0, gc1;
-    value_grad(r, n, p0, p0o ? 0.f : p1, p0o, sq, slp, scr, red, f, gc0, gc1);
-
-    // Gradient-normalized initial rate: the first trial spans half a cell.
-    const float a0 = fabsf(__fmul_rn(finite_or_zero(gc0), span0));
-    const float a1 = fabsf(__fmul_rn(finite_or_zero(gc1), span1));
-    const float gmax = a0 > a1 ? a0 : a1;
-    float lr = gmax > 0.f ? __fdiv_rn(half_cell, fmaxf(gmax, FLT_MIN)) : 1e-2f;
-    if (g_out != nullptr && tid == 0) {
-        g_out[2 * v] = gc0;
-        g_out[2 * v + 1] = gc1;
-    }
-
-    for (int it = 0; it < n_iter; ++it) {
-        const float ga = __fmul_rn(finite_or_zero(gc0), span0);
-        const float gb = __fmul_rn(finite_or_zero(gc1), span1);
-        float q0 = __fsub_rn(p0, __fmul_rn(__fmul_rn(lr, ga), span0));
-        float q1 = __fsub_rn(p1, __fmul_rn(__fmul_rn(lr, gb), span1));
-        // p0 wrapped into [-180, 180); p1 clipped to the search box.
-        q0 = __fsub_rn(q0, __fmul_rn(360.f, floorf(__fdiv_rn(__fadd_rn(q0, 180.f), 360.f))));
-        if (!p0o) q1 = q1 < -4000.f ? -4000.f : (q1 > 4000.f ? 4000.f : q1);
-        float fn, gn0, gn1;
-        value_grad(r, n, q0, p0o ? 0.f : q1, p0o, sq, slp, scr, red, fn, gn0,
-                   gn1);
-        if (fn < f) {
-            p0 = q0;
-            p1 = q1;
-            f = fn;
-            gc0 = gn0;
-            gc1 = gn1;
-            lr = __fmul_rn(lr, 1.2f);
-        } else {
-            lr = __fmul_rn(lr, 0.5f);
-        }
-    }
+    float f, g0, g1;
+    polish<kPer>(r, n, p0, p1, p0o, n_iter, half_cell, span0, span1, sq, slp,
+                 scr, red, f, g0, g1);
     if (tid == 0) {
+        if (g_out != nullptr) {
+            g_out[2 * v] = g0;
+            g_out[2 * v + 1] = g1;
+        }
         p_out[2 * v] = p0;
         p_out[2 * v + 1] = p1;
         f_out[v] = f;
     }
+}
+
+// ---------------------------------------------------------------------------
+// K5s
+// ---------------------------------------------------------------------------
+
+constexpr int kScanMax = 1024;  // points of a decimated row: ceil(n / dec) < 1024
+constexpr int kScanIters = kScanMax / 32;
+constexpr int kChunk = kMaxWarps;  // candidates scored at once: cand_chunk 16
+
+__device__ __forceinline__ acc_t warp_all_sum(acc_t x) {
+    return __shfl_sync(0xffffffffu, warp_sum(x), 0);
+}
+
+// The score of (p0, p1) on the decimated row (n points in point order in
+// shared memory) by one warp, every lane returning it: value_grad's score,
+// operation for operation, lane l taking the points l, l + 32, ...
+__device__ float warp_score(const float* re, const float* im, const float* u,
+                            int n, float p0, float p1) {
+    const int lane = threadIdx.x & 31;
+    auto d_at = [&](int j) {
+        if (j >= n) return 0.f;
+        float sn, cs;
+        sincosf(__fmul_rn(kD2R, __fadd_rn(p0, __fmul_rn(p1, u[j]))), &sn, &cs);
+        return __fsub_rn(__fmul_rn(re[j], cs), __fmul_rn(im[j], sn));
+    };
+    float ds[kScanIters];
+    acc_t acc[3] = {0, 0, 0};
+    float m = -INFINITY;
+    float d = d_at(lane);
+#pragma unroll
+    for (int it = 0; it < kScanIters; ++it) {
+        ds[it] = 0.f;
+        if (it * 32 < n) {
+            const int j = it * 32 + lane;
+            const float d_next = d_at(j + 32);
+            float nb = __shfl_down_sync(0xffffffffu, d, 1);
+            const float wrap = __shfl_sync(0xffffffffu, d_next, 0);
+            if (lane == 31) nb = wrap;
+            ds[it] = __fmul_rn(fabsf(j < n - 1 ? __fsub_rn(nb, d) : 0.f), 0.5f);
+            if (j < n) {
+                const float mind = d >= 0.f ? 0.f : d;  // NaN kept
+                acc[0] += (acc_t)ds[it];
+                acc[1] += (acc_t)__fmul_rn(2.f, mind);
+                acc[2] += (acc_t)__fmul_rn(mind, mind);
+                m = nan_max(m, d);
+            }
+            d = d_next;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[k] = warp_all_sum(acc[k]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        m = nan_max(m, __shfl_down_sync(0xffffffffu, m, o));
+    m = __shfl_sync(0xffffffffu, m, 0);
+    const float s1 = (float)acc[0];
+    const bool neg = (float)acc[1] < 0.f;
+    const float pen = neg ? (float)acc[2] : 0.f;
+    const float log_s1 = logf(s1);
+    const float rcp_s1 = __frcp_rn(s1);
+    acc_t hs = 0;
+#pragma unroll
+    for (int it = 0; it < kScanIters; ++it) {
+        if (it * 32 < n && ds[it] > 0.f) {
+            const float logp = __fsub_rn(logf(ds[it]), log_s1);
+            hs += (acc_t)__fmul_rn(div_rn(ds[it], s1, rcp_s1), logp);
+        }
+    }
+    const float h = -(float)warp_all_sum(hs);
+    const float num = __fadd_rn(h, __fmul_rn(1000.f, pen));
+    const float denom = __fmul_rn((float)n, m);
+    return m > 0.f ? __fdiv_rn(num, denom) : INFINITY;
+}
+
+// One stage of the scan: the candidates c_i = first + step i (i < count)
+// added along ``axis`` to the base (b0, b1), a chunk of kChunk at a time,
+// one warp a candidate; every thread returns the stage's winner, base +
+// c_i, or 0 if no chunk's winner was finite.
+__device__ float scan_axis(const float* re, const float* im, const float* u,
+                           int n, float b0, float b1, int axis, float first,
+                           float step, int count, float* s_score) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float base = axis == 0 ? b0 : b1;
+    float best_e = INFINITY, best_v = 0.f;
+    for (int c0 = 0; c0 < count; c0 += kChunk) {
+        const int m = count - c0 < kChunk ? count - c0 : kChunk;
+        if (warp < m) {
+            const float c = __fadd_rn(first, __fmul_rn(step, (float)(c0 + warp)));
+            const float e = warp_score(re, im, u, n,
+                                       axis == 0 ? __fadd_rn(b0, c) : b0,
+                                       axis == 1 ? __fadd_rn(b1, c) : b1);
+            if (lane == 0) s_score[warp] = e;
+        }
+        __syncthreads();
+        // torch.argmin over the chunk: the first NaN, else the first minimum.
+        int w = 0;
+        for (int k = 1; k < m && s_score[w] == s_score[w]; ++k) {
+            const float e = s_score[k];
+            if (e != e || e < s_score[w]) w = k;
+        }
+        const float e_min = s_score[w];
+        if (e_min < best_e) {
+            best_e = e_min;
+            best_v = __fadd_rn(base, __fadd_rn(first, __fmul_rn(step, (float)(c0 + w))));
+        }
+        __syncthreads();  // every thread has read the scores
+    }
+    return best_v;
+}
+
+template <int kPer>
+__global__ void __launch_bounds__(kMaxThreads, 1) acme_search_kernel(
+    const float* __restrict__ re, const float* __restrict__ im, int stride_re,
+    int stride_im, const float* __restrict__ freqs,
+    const long long* __restrict__ voxel_idx,
+    const long long* __restrict__ freq_idx, float* __restrict__ p_out, int n,
+    int dec, int p0_only, int n_coarse, int n_fine, float half_cell,
+    float span0, float span1) {
+    extern __shared__ float sdyn[];
+    __shared__ Scratch scr;
+    __shared__ float s_score[kChunk];
+    const int tid = threadIdx.x;
+    const int nt = blockDim.x;
+    float* sq = sdyn;
+    float* slp = sq + kPer * nt;
+    float* sre = slp + kPer * nt;
+    float* sim = sre + kPer * nt;
+    float* su = sim + kPer * nt;
+    float* dre = su + kPer * nt;  // the decimated row, in point order
+    float* dim = dre + kScanMax;
+    float* du = dim + kScanMax;
+
+    const long long v = *voxel_idx;
+    const float* row_re = re + v * stride_re;
+    const float* row_im = im + v * stride_im;
+    const float piv = freqs[*freq_idx];
+    const float x_range = __fsub_rn(freqs[n - 1], freqs[0]);
+    const int n_d = (n + dec - 1) / dec;
+    for (int j = tid; j < n_d; j += nt) {
+        const int i = j * dec;
+        dre[j] = row_re[i];
+        dim[j] = row_im[i];
+        du[j] = __fdiv_rn(__fsub_rn(freqs[i], piv), x_range);
+    }
+    __syncthreads();
+
+    const bool p0o = p0_only != 0;
+    float p0 = scan_axis(dre, dim, du, n_d, 0.f, 0.f, 0, -180.f, 10.f, 36, s_score);
+    float p1 = 0.f;
+    if (!p0o) {
+        p1 = scan_axis(dre, dim, du, n_d, p0, 0.f, 1, -4000.f, 200.f, 41, s_score);
+        p0 = scan_axis(dre, dim, du, n_d, p0, p1, 0, -15.f, 5.f, 7, s_score);
+    }
+
+    // The polish: each thread stages its own points (i0 + k of the row the
+    // polish runs on) at [k * nt + tid], zeros past the end.
+    const Row r{sre, sim, su};
+    int red = 0;
+    float f, g0, g1;
+    const int i0 = tid * kPer;
+    if (n_coarse > 0) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+            const bool in = i0 + k < n_d;
+            sre[k * nt + tid] = in ? dre[i0 + k] : 0.f;
+            sim[k * nt + tid] = in ? dim[i0 + k] : 0.f;
+            su[k * nt + tid] = in ? du[i0 + k] : 0.f;
+        }
+        polish<kPer>(r, n_d, p0, p1, p0o, n_coarse, half_cell, span0, span1,
+                     sq, slp, scr, red, f, g0, g1);
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        const bool in = i0 + k < n;
+        sre[k * nt + tid] = in ? row_re[i0 + k] : 0.f;
+        sim[k * nt + tid] = in ? row_im[i0 + k] : 0.f;
+        su[k * nt + tid] =
+            in ? __fdiv_rn(__fsub_rn(freqs[i0 + k], piv), x_range) : 0.f;
+    }
+    polish<kPer>(r, n, p0, p1, p0o, n_fine, half_cell, span0, span1, sq, slp,
+                 scr, red, f, g0, g1);
+    if (tid == 0) {
+        p_out[0] = p0;
+        p_out[1] = p1;
+    }
+}
+
+template <int kPer>
+int launch_search(const float* re, const float* im, int stride_re,
+                  int stride_im, const float* freqs, const long long* voxel_idx,
+                  const long long* freq_idx, float* p_out, int n, int dec,
+                  int p0_only, int n_coarse, int n_fine, float half_cell,
+                  float span0, float span1, cudaStream_t stream) {
+    const size_t smem =
+        ((size_t)5 * kPer * kMaxThreads + 3 * kScanMax) * sizeof(float);
+    const cudaError_t e = cudaFuncSetAttribute(
+        acme_search_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    acme_search_kernel<kPer><<<1, kMaxThreads, smem, stream>>>(
+        re, im, stride_re, stride_im, freqs, voxel_idx, freq_idx, p_out, n,
+        dec, p0_only, n_coarse, n_fine, half_cell, span0, span1);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -404,4 +393,24 @@ extern "C" int xmt_acme_polish(const float* re, const float* im,
             n_iter, p0_only, half_cell, span0, span1, vec_load);
     }
     return (int)cudaGetLastError();
+}
+
+extern "C" int xmt_acme_search(const float* re, const float* im,
+                               int stride_re, int stride_im,
+                               const float* freqs, const long long* voxel_idx,
+                               const long long* freq_idx, float* p_out, int n,
+                               int dec, int p0_only, int n_coarse, int n_fine,
+                               float half_cell, float span0, float span1,
+                               void* stream) {
+    if (n < 2 || n > 8 * kMaxThreads || dec < 1 ||
+        (n + dec - 1) / dec > kScanMax)
+        return (int)cudaErrorInvalidValue;
+    // The polish's points a thread: the fewest that cover the row.
+    const auto launch = n <= kMaxThreads       ? &launch_search<1>
+                        : n <= 2 * kMaxThreads ? &launch_search<2>
+                        : n <= 4 * kMaxThreads ? &launch_search<4>
+                                               : &launch_search<8>;
+    return launch(re, im, stride_re, stride_im, freqs, voxel_idx, freq_idx,
+                  p_out, n, dec, p0_only, n_coarse, n_fine, half_cell, span0,
+                  span1, (cudaStream_t)stream);
 }

@@ -590,7 +590,9 @@ _GRAPHS: dict = {}
 def grid_phase_search_graphed(rows_re, rows_im, coords, x_range, pivots,
                               p0_only: bool):
     """:func:`_grid_phase_search` with the gd polish on CUDA tensors,
-    replayed from a CUDA graph.
+    replayed from a CUDA graph: the single-pivot search on the card where
+    kernel K5s (``acme_cuda.acme_search``) does not take the row, a float64
+    row or one past ``acme_cuda.MAX_POINTS`` points.
 
     The eager search on one row issues thousands of small kernels (the scan,
     then 40 forward + backward polish steps), which the host launches far

@@ -8,16 +8,17 @@ every voxel with its own pivot (``autophase="all"``).  The transform is
 each voxel's peak in ONE launch), or a matmul DFT of
 :mod:`xmris_tpu_torch.ops.kernels.dft` where the payload lies (the peak
 then read from its spectra).  The search is differential evolution
-(``ap_optimizer="de"``, the default) or the candidate grid, whose per-voxel
-polish is kernel K5 on the card (``ap_polish="auto"``/``"fused"``) or the
-torch gd, Newton or BFGS polish.
+(``ap_optimizer="de"``, the default) or the candidate grid: on the card the
+single pivot's gd search is kernel K5s, and the per-voxel polish kernel K5
+(``ap_polish="auto"``/``"fused"``); else the torch gd, Newton or BFGS
+polish.
 """
 
 from __future__ import annotations
 
 import torch
 
-from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet
+from xmris_tpu_torch.ops.kernels import DISPATCH, KernelSet, acme_cuda
 from xmris_tpu_torch.ops.kernels.dft import (
     DEFAULT_VARIANT,
     _check_precision,
@@ -31,7 +32,7 @@ from xmris_tpu_torch.ops.phasing import (
     resolve_polish,
 )
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
-from xmris_tpu_torch.runtime.profiling import span, spanned
+from xmris_tpu_torch.runtime.profiling import count, span, spanned
 
 
 def _apply_phase_planar(re, im, phi, barrier: bool = False):
@@ -44,24 +45,43 @@ def _apply_phase_planar(re, im, phi, barrier: bool = False):
     return re * c - im * s, re * s + im * c
 
 
-def _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg: PipelineConfig,
+def _solve_phase_on_row(spec_re, spec_im, freqs, peak, cfg: PipelineConfig,
                         kernels: KernelSet = DISPATCH):
-    """ACME (p0, p1) on one pivot spectrum row: differential evolution
+    """ACME (p0, p1) on the pivot row: voxel ``voxel_idx`` of the spectra
+    (B, ...), pivoted at ``freqs[freq_idx]``, with ``peak = (voxel_idx,
+    freq_idx)`` 0-dim index tensors.  Differential evolution
     (``cfg.ap_optimizer == "de"``, seeded from ``cfg.de_seed``) or the
-    deterministic grid search.  On the card the gd grid search is replayed
-    from a CUDA graph; ``"auto"`` resolves to gd for one row, as in the
-    reference; ``"newton"``/``"bfgs"`` run eagerly."""
-    x_range = freqs[-1] - freqs[0]
-    args = (row_re[None, :], row_im[None, :], freqs, x_range, pivot[None])
-    if cfg.ap_optimizer == "de":
-        xs = _de_phase_search(*args, cfg.p0_only, seed=cfg.de_seed,
-                              popsize=cfg.de_popsize, maxiter=cfg.de_maxiter)
-    elif row_re.is_cuda and resolve_polish(cfg.ap_polish, args[0]) == "gd":
-        xs = grid_phase_search_graphed(*args, cfg.p0_only)
+    deterministic grid search, whose ``"auto"`` polish resolves to gd for
+    one row, as in the reference.  The gd search of a float32 row of at
+    most ``acme_cuda.MAX_POINTS`` points on the card is one launch of
+    ``kernels.acme_search`` (K5s), which reads the row and the pivot where
+    they lie (counter ``spectral.phase_search.kernel``); other gd searches
+    on the card replay a CUDA graph of the torch search; the rest, and
+    every search on the CPU, run :func:`_grid_phase_search` eagerly."""
+    voxel_idx, freq_idx = peak
+    n_freq = freqs.shape[0]
+    gd = (cfg.ap_optimizer != "de"
+          and resolve_polish(cfg.ap_polish, spec_re[:1].reshape(1, -1)) == "gd")
+    if (gd and spec_re.is_cuda and spec_re.dtype == torch.float32
+            and n_freq <= acme_cuda.MAX_POINTS):
+        count("spectral.phase_search.kernel")
+        xs = kernels.acme_search(spec_re, spec_im, freqs, voxel_idx, freq_idx,
+                                 p0_only=cfg.p0_only)
     else:
-        xs = _grid_phase_search(*args, cfg.p0_only,
-                                polish_optimizer=cfg.ap_polish, cand_chunk=16,
-                                kernels=kernels)
+        row_re = spec_re[voxel_idx].reshape(n_freq)
+        row_im = spec_im[voxel_idx].reshape(n_freq)
+        args = (row_re[None, :], row_im[None, :], freqs, freqs[-1] - freqs[0],
+                freqs[freq_idx][None])
+        if cfg.ap_optimizer == "de":
+            xs = _de_phase_search(*args, cfg.p0_only, seed=cfg.de_seed,
+                                  popsize=cfg.de_popsize,
+                                  maxiter=cfg.de_maxiter)
+        elif gd and row_re.is_cuda:
+            xs = grid_phase_search_graphed(*args, cfg.p0_only)
+        else:
+            xs = _grid_phase_search(*args, cfg.p0_only,
+                                    polish_optimizer=cfg.ap_polish,
+                                    cand_chunk=16, kernels=kernels)
     p0 = xs[0, 0]
     p1 = torch.zeros_like(p0) if cfg.p0_only else xs[0, 1]
     return p0, p1
@@ -76,16 +96,11 @@ def _autophase_single_planar(re, im, freqs, cfg: PipelineConfig, peak,
     freq_idx)`` from the in-kernel peak search.
     """
     stacked = re.dim() == 3
-    n_freq = freqs.shape[0]
-    voxel_idx, freq_idx = peak
-    pivot = freqs[freq_idx]
+    pivot = freqs[peak[1]]
     x_range = freqs[-1] - freqs[0]
-    row_re = re[voxel_idx].reshape(n_freq)
-    row_im = im[voxel_idx].reshape(n_freq)
 
     with span("spectral.phase_search"):
-        p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg,
-                                     kernels)
+        p0, p1 = _solve_phase_on_row(re, im, freqs, peak, cfg, kernels)
 
     phi = (torch.deg2rad(p0)
            + torch.deg2rad(p1) * ((freqs - pivot) / x_range)).to(re.dtype)
@@ -251,8 +266,8 @@ def _elect_and_phase(shards, freqs, cfg: PipelineConfig,
     the candidates are copied there and the first maximum wins (the
     unsharded ``argmax`` over the grid); the phase is solved ONCE on the
     winning row with the unsharded program's search
-    (:func:`_solve_phase_on_row`: the same generator seed, the same CUDA
-    graph) and the same ramp turns every shard on its device.  Returns
+    (:func:`_solve_phase_on_row`: the same generator seed, the same kernel)
+    and the same ramp turns every shard on its device.  Returns
     ``(spectra, (p0, p1, pivot))``: ``[(spec_re, spec_im), ...]`` per shard
     and the phases on the first device (0-dim, or gathered per voxel for
     ``"all"``).
@@ -270,7 +285,9 @@ def _elect_and_phase(shards, freqs, cfg: PipelineConfig,
     _, row_re, row_im, freq_idx = (x.to(dev0) for x in
                                    shards[int(torch.argmax(maxs))][2])
     pivot = freqs[freq_idx]
-    p0, p1 = _solve_phase_on_row(row_re, row_im, freqs, pivot, cfg, kernels)
+    p0, p1 = _solve_phase_on_row(row_re[None], row_im[None], freqs,
+                                 (freq_idx.new_zeros(()), freq_idx), cfg,
+                                 kernels)
     x_range = freqs[-1] - freqs[0]
     phi = torch.deg2rad(p0) + torch.deg2rad(p1) * ((freqs - pivot) / x_range)
     out = []
