@@ -310,9 +310,11 @@ def _template_grid(case, dtype):
 @pytest.mark.parametrize("case", ["random", "nan_row", "zero_noise",
                                   "all_zero", "all_nan"])
 def test_select_template_planes_matches_select_template_fid(case, dtype):
-    """The scan on the planes picks ``select_template_fid``'s voxel, with
-    the SNR that its rule gives in float64 (NaN rows skipped, SNR 0 where
-    the noise is 0, an all-NaN grid raises)."""
+    """The scan on the planes, and ``select_template_fid`` on the array,
+    pick the voxel of the rule stated in NumPy: ``np.nanargmax`` of signal
+    = mean |first 10 points| over noise = std of the last fifth, in
+    float64, SNR 0 where the noise is 0 (NaN rows skipped, an all-NaN grid
+    raises), with that voxel's SNR."""
     z = _template_grid(case, dtype)
     re, im = _t(z.real), _t(z.imag)
     if case == "all_nan":
@@ -321,13 +323,15 @@ def test_select_template_planes_matches_select_template_fid(case, dtype):
         with pytest.raises(ValueError):
             select_template_planes(re, im, announce=False)
         return
-    idx, snr = select_template_planes(re, im, announce=False)
-    assert idx == select_template_fid(z, announce=False)
     z64 = z.astype(np.complex128)
-    signal = np.mean(np.abs(z64[idx, :10]))
-    noise = np.std(z64[idx, -max(10, z.shape[1] // 5):])
-    want = 0.0 if noise == 0 else signal / noise
-    np.testing.assert_allclose(snr, want, rtol=1e-12, atol=0)
+    signal = np.mean(np.abs(z64[:, :10]), axis=1)
+    noise = np.std(z64[:, -max(10, z.shape[1] // 5):], axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        snrs = np.where(noise == 0, 0.0, signal / noise)
+    want_idx = int(np.nanargmax(snrs))
+    idx, snr = select_template_planes(re, im, announce=False)
+    assert idx == want_idx == select_template_fid(z, announce=False)
+    np.testing.assert_allclose(snr, snrs[idx], rtol=1e-12, atol=0)
     if case in ("nan_row", "zero_noise"):
         assert idx != 17
     if case == "all_zero":

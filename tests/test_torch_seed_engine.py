@@ -24,6 +24,7 @@ from xmris_tpu.parallel.pipeline import PipelineConfig as RefConfig
 from xmris_tpu.parallel.process import process_grid_planar_raw as ref_process
 
 from xmris_tpu_torch.fitting import amares as tam
+from xmris_tpu_torch.ops.bounds import external_to_internal_torch
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
 from xmris_tpu_torch.parallel.process import (
     grid_inputs_from_numpy,
@@ -37,6 +38,7 @@ from _torch_parity import (
     load_priors,
     spectral_constants,
 )
+import test_process
 
 ZF, WEIGHT, FREQS = spectral_constants()
 
@@ -100,6 +102,42 @@ def test_failed_seed_solve_warns_and_keeps_the_template(seed_inputs,
     assert str(w_port[0].message) == str(w_ref[0].message)
     np.testing.assert_array_equal(got, kept)
     np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["bench", "free_g_scan"])
+def test_template_seed_is_seed_grid(case, seed_inputs, tmp_path):
+    """One seeding for both fits: without the template fit, the labeled
+    fit's seed (``template_seeded_x0``, float64) through the bound
+    transform is the grid program's ``seed_grid`` u0 (float32) within
+    float32 rounding, on the bench prior and with the g scan on a free-g
+    prior."""
+    if case == "bench":
+        fids, t, _, pkt = seed_inputs
+        g_scan = None
+    else:
+        _, pkt = load_priors(test_process.PK_CSV_FREE_G, tmp_path)
+        fids, t = test_process.TestGScanSeed()._voigt_phantom()
+        g_scan = (0.0, 0.25, 0.5, 0.75)
+    x0 = tam.template_seeded_x0(fids, pkt, torch.from_numpy(t), MHZ,
+                                fit_template=False, g_scan=g_scan)
+    lower, upper, kind = (torch.from_numpy(np.asarray(a)) for a in
+                          (pkt.lower, pkt.upper, pkt.kind))
+    u_labeled = external_to_internal_torch(torch.from_numpy(x0), lower,
+                                           upper, kind)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    amp_slots, ls_plan = tam.seed_plan(pkt)
+    u_grid = tam.seed_grid(
+        f32(fids.real), f32(fids.imag), f32(t), f32(pkt.init_free),
+        f32(pkt.lower), f32(pkt.upper), kind,
+        pmap_static=jlm.hashable_pmap(pkt.pmap), mhz=MHZ,
+        amp_slots=amp_slots, ls_plan=ls_plan, g_scan=g_scan or (),
+        g_plan=tam.g_seed_plan(pkt))
+    assert u_grid.dtype == torch.float32 and x0.dtype == np.float64
+    np.testing.assert_allclose(u_grid.numpy(), u_labeled.numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_grid_program_engine_xla_matches_reference_planar(tmp_path):

@@ -200,7 +200,11 @@ def test_fit_amares_is_bit_identical_and_counts_its_trips(monkeypatch):
         np.testing.assert_array_equal(on[name].values, off[name].values)
     snap = rec.snapshot()
     assert planar["trips"] > 0 and trips == snap["counters"]["lm.iterations"]
-    assert snap["counters"]["host.syncs"] >= trips
+    # Besides one read a trip, six: the template scan's index and SNR, the
+    # template fit's optimum with its flag, the read that ends each of the
+    # three LM loops (template, first and refinement pass), and the pack's
+    # one read of x, the flags, the CRLB SDs and sigma^2.
+    assert snap["counters"]["host.syncs"] - trips == 1 + 1 + 3 + 1
     # The tensor payload is split where it lies: without curves the grid
     # crosses neither way, and the call counts as resident.
     copies = (snap["counters"].get("host.d2h_bytes", 0)

@@ -1,13 +1,13 @@
-"""Console entry points of the port: test runner, docs generator, benchmark.
+"""Console entry points of the port: test runner, docs generator, card check.
 
 Port of :mod:`xmris_tpu._scripts` (console scripts ``xmris-tpu-torch-test``
 / ``-docs-api`` / ``-test-gen`` / ``-docs`` / ``-bench``).  The API
 reference is generated from the port's docstrings with no external tooling,
 the docs pages convert to notebooks as plain JSON, the tests run through
-pytest, and the benchmark is ``chip_smoke.py``, which drives the port on the
-card and prints the headline ms/grid and voxels/s line.  Default outputs go
-to ``docs/api_torch/`` and ``tests/autogen_notebooks_torch/``, beside the
-JAX package's own.
+pytest, and ``-bench`` runs ``chip_smoke.py``, the card's kernel and path
+check (the benchmark of record is ``benchmark/run.py``).  Default outputs
+go to ``docs/api_torch/`` and ``tests/autogen_notebooks_torch/``, beside
+the JAX package's own.
 """
 
 from __future__ import annotations
@@ -192,8 +192,9 @@ def run_tests(extra_args: list[str] | None = None) -> int:
 
 
 def run_bench() -> int:
-    """Run ``chip_smoke.py`` on the card: every kernel against its plain
-    version, the main paths, and the ms/grid and voxels/s line."""
+    """Run ``chip_smoke.py`` on the card, the kernel and path check: every
+    kernel against its plain version, the main paths, and the ms/grid and
+    voxels/s line.  The benchmark of record is ``benchmark/run.py``."""
     return subprocess.call([sys.executable, str(REPO_ROOT / "chip_smoke.py")],
                            cwd=REPO_ROOT)
 

@@ -2,11 +2,13 @@
 public :func:`fit_amares` (PyTorch port).
 
 Port of :mod:`xmris_tpu.fitting.amares`: the highest-SNR template voxel
-(:func:`select_template_fid`, its twin on a grid's planes where they lie
-:func:`select_template_planes`, :func:`template_optimum`), the static seeding
-plans (:func:`seed_plan`, :func:`g_seed_plan`), the shared-basis linear LS
-amplitude/phase seed and its scan over candidate g values for a free-g
-prior (:func:`_linear_seed_scan_g`), :func:`seeded_fit_grid_raw` (amplitude
+(:func:`select_template_planes` on a grid's planes where they lie,
+:func:`select_template_fid` on a numpy array, :func:`template_optimum`),
+the static seeding plans (:func:`seed_plan`, :func:`g_seed_plan`), the
+shared-basis linear LS amplitude/phase seed and its scan over candidate g
+values for a free-g prior (:func:`_linear_seed_scan_g`), one seeding on
+the planes for both fits (:func:`seed_grid` and
+:func:`template_seeded_x0`), :func:`seeded_fit_grid_raw` (amplitude
 rescaling, the LS seed, the bound transform, the LM and the CRLBs for
 every voxel of a grid, as one call), planes uploaded ahead of a fit
 (:func:`stage_device_fids`), and :func:`fit_amares`, the labeled entry
@@ -16,6 +18,7 @@ the reference's variables, dims, coords and attrs.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 import warnings
@@ -57,26 +60,15 @@ from xmris_tpu_torch.runtime.profiling import (
 
 
 def select_template_fid(fid_arrs: np.ndarray, announce: bool = True) -> int:
-    """Index of the highest-SNR FID: signal = mean |first 10 points|,
-    noise = std of the last fifth."""
-    n_time = fid_arrs.shape[-1]
-    signal_region = np.mean(np.abs(fid_arrs[:, 0:10]), axis=1)
-    noise_pts = max(10, n_time // 5)
-    noise_region = np.std(fid_arrs[:, -noise_pts:], axis=1)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        snr_array = np.where(noise_region == 0, 0, signal_region / noise_region)
-    best_idx = int(np.nanargmax(snr_array))
-    if announce:
-        print(
-            f"Auto-selected FID index {best_idx} for initialization "
-            f"(SNR: {snr_array[best_idx]:.2f})"
-        )
-    return best_idx
+    """Index of the highest-SNR FID of a numpy (B, n_t) array:
+    :func:`select_template_planes` on CPU tensors of its planes."""
+    return select_template_planes(*complex_planes(fid_arrs, "cpu"),
+                                  announce=announce)[0]
 
 
 def select_template_planes(re, im, announce: bool = True) -> tuple[int, float]:
-    """:func:`select_template_fid`'s rule on a grid's ``(re, im)`` planes,
-    (B, n_t), where they lie: signal = mean |first 10 points|, noise = the
+    """The highest-SNR voxel of a grid's ``(re, im)`` planes, (B, n_t),
+    where they lie: signal = mean |first 10 points|, noise = the
     population std of the complex last ``max(10, n_t // 5)`` points, SNR 0
     where the noise is 0, NaN SNRs skipped (an all-NaN grid raises
     ``ValueError`` as ``np.nanargmax`` does), the first of equal maxima.
@@ -125,33 +117,24 @@ def template_optimum(
     if template_fid is None:
         template_fid = fid_arrs[select_template_fid(fid_arrs, announce=False)]
     dev = t.device
-    if isinstance(template_fid, torch.Tensor):
-        z = template_fid.detach()
-        re_t, im_t = ((z.real, z.imag) if z.is_complex()
-                      else (z, torch.zeros_like(z)))
-        re_t, im_t = re_t.contiguous(), im_t.contiguous()
-    else:
-        re_t = np.ascontiguousarray(template_fid.real)
-        im_t = np.ascontiguousarray(template_fid.imag)
+    z = (template_fid.detach() if isinstance(template_fid, torch.Tensor)
+         else np.asarray(template_fid))
+    re_t, im_t = complex_planes(z.reshape(1, -1), dev)
     u0_t = to_card(
         external_to_internal(pk.init_free[None, :], pk.lower, pk.upper, pk.kind),
         dev,
     )
     res = lm_fit_batched_planar(
-        to_card(re_t[None, :], dev),
-        to_card(im_t[None, :], dev),
-        t, u0_t,
-        to_card(pk.lower, dev),
-        to_card(pk.upper, dev),
-        to_card(pk.kind, dev),
+        re_t, im_t, t, u0_t,
+        to_card(pk.lower, dev), to_card(pk.upper, dev), to_card(pk.kind, dev),
         hashable_pmap(pk.pmap), mhz, max_iter=max_iter,
     )
-    x_t = to_host(res.x_free[0]).numpy()
-    if to_host(res.converged[0]) and np.isfinite(x_t).all():
+    x_t, converged = _read_together((res.x_free, res.converged))
+    if converged[0] and np.isfinite(x_t[0]).all():
         if verbose:
             print(f"Template fit converged (cost {to_host(res.cost[0]):.3e}); "
                   "seeding grid.")
-        return x_t
+        return x_t[0]
     return pk.init_free
 
 
@@ -286,35 +269,41 @@ def _nudge_into_bounds_torch(vals, lo: float, hi: float):
     return vals
 
 
-def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
-              mhz: float, amp_slots: tuple, ls_plan: tuple,
-              g_scan: tuple = (), g_plan: tuple = ()):
-    """Per-voxel initial INTERNAL parameters (B, F) of the grid fit.
-
-    Every voxel starts from the template optimum; free amplitudes are
-    rescaled by the voxel's first-point magnitude over the template total
-    (clipped to [0.1, 100]).  With ``g_scan`` candidates and a ``g_plan``
-    (:func:`g_seed_plan`), the g scan (:func:`_linear_seed_scan_g`) seeds
-    every free g slot with each voxel's winning candidate and supplies the
-    matching amplitudes/phases, whatever ``ls_plan`` holds; otherwise the
-    shared-basis LS at the template's g does.  The ``ls_plan`` slots get
-    those amplitudes/phases (wrapped into the phase window, nudged inside
-    the bounds; a non-finite value keeps the scaled template entry); then
-    the bound transform.  Inputs are float32 planes (B, n_t).
-    """
-    b = re.shape[0]
+def _scaled_template_seed(y0_re, y0_im, x_template, amp_slots: tuple):
+    """``x_template`` broadcast to (B, F), its free amplitude slots scaled
+    by each voxel's first-point magnitude ``|y0|`` over the template total
+    (clipped to [0.1, 100]; unscaled when that total is not positive).
+    Works where the first points lie, in ``x_template``'s dtype."""
+    b = y0_re.shape[0]
     n_free = x_template.shape[-1]
     x0 = x_template[None, :].expand(b, n_free).clone()
     if amp_slots:
         slots = list(amp_slots)
         total = x_template[slots].abs().sum()
-        y0_mag = torch.sqrt(re[:, 0] ** 2 + im[:, 0] ** 2)
+        y0_mag = torch.sqrt(y0_re ** 2 + y0_im ** 2)
         factor = torch.where(
             total > 0,
             torch.clamp(y0_mag / torch.clamp(total, min=1e-30), 0.1, 100.0),
             torch.ones_like(y0_mag),
         )
         x0[:, slots] = x0[:, slots] * factor[:, None]
+    return x0
+
+
+def _linear_seed_writes(x0, re, im, x_template, t, *, pmap_static,
+                        mhz: float, ls_plan: tuple, g_scan: tuple = (),
+                        g_plan: tuple = ()):
+    """Write the linear seed into ``x0`` (B, F) in place and return it.
+
+    With ``g_scan`` candidates and a ``g_plan`` (:func:`g_seed_plan`), the
+    g scan (:func:`_linear_seed_scan_g`) seeds every free g slot with each
+    voxel's winning candidate and supplies the matching amplitudes/phases,
+    whatever ``ls_plan`` holds; otherwise the shared-basis LS at the
+    template's g does.  The ``ls_plan`` slots get those amplitudes/phases,
+    wrapped into the phase window and nudged inside the bounds; a
+    non-finite value keeps the entry.  The solves run on ``re``/``im``,
+    ``x_template`` and ``t`` in their dtype, where they lie.
+    """
 
     def put(slot, vals):
         x0[:, slot] = torch.where(torch.isfinite(vals), vals, x0[:, slot])
@@ -333,7 +322,21 @@ def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
             if col == 3:
                 vals = _wrap_phase_window_torch(vals, lo, hi)
             put(slot, _nudge_into_bounds_torch(vals, lo, hi))
+    return x0
 
+
+def seed_grid(re, im, t, x_template, lower, upper, kind, *, pmap_static,
+              mhz: float, amp_slots: tuple, ls_plan: tuple,
+              g_scan: tuple = (), g_plan: tuple = ()):
+    """Per-voxel initial INTERNAL parameters (B, F) of the grid fit: the
+    scaled template seed (:func:`_scaled_template_seed`), the linear seed
+    (:func:`_linear_seed_writes`, the g scan with ``g_scan`` and a
+    ``g_plan``), then the bound transform.  Inputs are float32 planes
+    (B, n_t)."""
+    x0 = _scaled_template_seed(re[:, 0], im[:, 0], x_template, amp_slots)
+    x0 = _linear_seed_writes(x0, re, im, x_template, t,
+                             pmap_static=pmap_static, mhz=mhz,
+                             ls_plan=ls_plan, g_scan=g_scan, g_plan=g_plan)
     return external_to_internal_torch(
         x0, lower[None, :], upper[None, :], kind[None, :]
     ).to(torch.float32)
@@ -553,6 +556,49 @@ def stage_device_fids(da: XmrArray, dim: str = "time", device="cuda"):
                       ready=ready)
 
 
+def _template_seed_x0(re_all, im_all, pk: PriorKnowledge, t, mhz: float,
+                      template_fid, *, fit_template: bool,
+                      scale_amplitudes: bool, max_iter: int, verbose: bool,
+                      linear_seed: bool, g_scan) -> torch.Tensor:
+    """:func:`template_seeded_x0` on the grid's planes where they lie: the
+    external x0 (B, F), a float64 tensor on their device."""
+    x_template = pk.init_free
+    if fit_template:
+        if template_fid is None:
+            idx, _ = select_template_planes(re_all, im_all, announce=False)
+            template_fid = torch.complex(re_all[idx], im_all[idx])
+        x_template = template_optimum(
+            None, pk, t, mhz, template_fid=template_fid,
+            max_iter=max_iter, verbose=verbose,
+        )
+    dev = re_all.device
+    x_t = to_card(np.asarray(x_template, np.float64), dev)
+    amp_slots, ls_plan = seed_plan(pk)
+    x0 = _scaled_template_seed(
+        re_all[:, 0].to(torch.float64), im_all[:, 0].to(torch.float64), x_t,
+        amp_slots if scale_amplitudes else ())
+    if not linear_seed:
+        return x0
+    if isinstance(g_scan, str):
+        raise TypeError(
+            "g_scan must be a tuple of candidate mixing fractions or None; "
+            "the 'auto' policy is resolved by fit_amares, not here")
+    f32 = torch.float32
+    try:  # into a copy: a write that fails midway leaves x0 whole
+        return _linear_seed_writes(
+            x0.clone(), re_all.to(f32), im_all.to(f32), x_t.to(f32),
+            t.to(f32), pmap_static=hashable_pmap(pk.pmap), mhz=float(mhz),
+            ls_plan=ls_plan, g_scan=tuple(float(g) for g in g_scan or ()),
+            g_plan=g_seed_plan(pk))
+    except Exception as exc:
+        warnings.warn(
+            f"linear seed skipped ({exc!r}); using template seed",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    return x0
+
+
 def template_seeded_x0(
     fid_arrs: np.ndarray | None,
     pk: PriorKnowledge,
@@ -568,111 +614,47 @@ def template_seeded_x0(
     device_fids: tuple | None = None,
 ) -> np.ndarray:
     """Per-voxel initial values (B, n_free) seeded from a template-voxel fit
-    (reference ``template_seeded_x0``).
+    (reference ``template_seeded_x0``): :func:`seed_grid`'s seed before
+    the bound transform, in float64 where the planes lie, read to the host
+    once.
 
-    Fits ``template_fid`` (default: the highest-SNR voxel) once, starts every
-    voxel from its optimum and rescales free amplitudes by the voxel's
-    first-point magnitude over the template total (clipped to [0.1, 100]).
-    With ``linear_seed`` (the default) the shared-basis LS amplitudes/phases
-    at the template's shifts/linewidths/g go into the ``seed_plan`` slots
-    (wrapped
-    into the phase window, nudged inside the bounds; non-finite entries
-    keep the scaled template).  ``g_scan``, a tuple of candidate mixing
-    fractions, scans them for a prior with a free g
-    (:func:`_linear_seed_scan_g`): every free g slot gets each voxel's
-    winning candidate, and the amplitudes/phases are that candidate's.  A
-    string ``g_scan`` raises ``TypeError`` (``"auto"`` is
-    :func:`fit_amares`'s).  The writes are staged and applied together
-    once every solve is done; a solve that fails warns (``RuntimeWarning``)
-    and leaves the scaled template seed.  ``t`` is the time-axis tensor (the device
-    of the work).  Everything reads the grid's planes there: ``device_fids``
-    when the caller holds them (``fid_arrs`` may then be None), else one
-    upload of ``fid_arrs``; the default template is
-    :func:`select_template_planes`' voxel, and only the first points'
-    column comes to the host, for the amplitude scaling.
+    ``template_fid`` (default: :func:`select_template_planes`' voxel) is
+    fitted once unless ``fit_template`` is off; ``scale_amplitudes`` turns
+    the amplitude scaling on, ``linear_seed`` the linear seed, with the g
+    scan over ``g_scan``, a tuple of candidate mixing fractions (a string
+    raises ``TypeError``: ``"auto"`` is :func:`fit_amares`'s).  A linear
+    seed that fails warns (``RuntimeWarning``) and leaves the scaled
+    template seed.  ``t`` is the time-axis tensor, the device of the work;
+    the planes are ``device_fids`` when the caller holds them (``fid_arrs``
+    may then be None), else one upload of ``fid_arrs``.
     """
     if device_fids is None:
         device_fids = complex_planes(fid_arrs, t.device)
     _wait_staged(device_fids)
-    re_all, im_all = device_fids[0], device_fids[1]
-    n_spectra = re_all.shape[0]
-    x_template = pk.init_free
-    if fit_template:
-        if template_fid is None:
-            idx, _ = select_template_planes(re_all, im_all, announce=False)
-            template_fid = torch.complex(re_all[idx], im_all[idx])
-        x_template = template_optimum(
-            fid_arrs, pk, t, mhz, template_fid=template_fid,
-            max_iter=max_iter, verbose=verbose,
-        )
-    x0 = np.broadcast_to(x_template[None, :], (n_spectra, pk.n_free)).copy()
-    amp_slots, ls_plan = seed_plan(pk)
-    if scale_amplitudes:
-        slots = list(amp_slots)
-        template_total = float(np.sum(np.abs(x_template[slots])) if slots else 0.0)
-        if slots and template_total > 0:
-            z0 = to_host(torch.complex(re_all[:, 0], im_all[:, 0])).numpy()
-            factor = np.clip(np.abs(z0) / template_total, 0.1, 100.0)
-            x0[:, slots] *= factor[:, None]
-
-    if linear_seed:
-        if isinstance(g_scan, str):
-            raise TypeError(
-                "g_scan must be a tuple of candidate mixing fractions or None; "
-                "the 'auto' policy is resolved by fit_amares, not here")
-        try:
-            g_slots = g_seed_plan(pk) if g_scan else ()
-            amp = ph = None
-            if g_slots or ls_plan:
-                re, im = re_all.to(torch.float32), im_all.to(torch.float32)
-                xt = torch.as_tensor(x_template, dtype=torch.float32,
-                                     device=t.device)
-                args = (re, im, xt, t.to(torch.float32),
-                        hashable_pmap(pk.pmap), float(mhz))
-            if g_slots:
-                amp, ph, g_best, _ = _linear_seed_scan_g(
-                    *args, tuple(float(g) for g in g_scan))
-                g_best = to_host(g_best)
-            elif ls_plan:
-                amp, ph = _linear_seed_solve(*args)
-            # Staged, then written all together.
-            staged: dict[int, np.ndarray] = {}
-            for slot, offset, lo, hi in g_slots:
-                staged[slot] = _nudge_into_bounds_torch(
-                    g_best - offset, lo, hi).numpy()
-            if amp is not None:
-                for slot, k, col, offset, lo, hi in ls_plan:
-                    if slot in staged:
-                        continue
-                    vals = (amp[:, k] if col == 0 else ph[:, k]) - offset
-                    if col == 3:
-                        vals = _wrap_phase_window_torch(vals, lo, hi)
-                    staged[slot] = to_host(_nudge_into_bounds_torch(
-                        vals, lo, hi)).numpy()
-            for slot, vals in staged.items():
-                ok = np.isfinite(vals)
-                x0[ok, slot] = vals[ok]
-        except Exception as exc:
-            warnings.warn(
-                f"linear seed skipped ({exc!r}); using template seed",
-                RuntimeWarning,
-                stacklevel=2,
-            )
-    return x0
+    x0 = _template_seed_x0(
+        device_fids[0], device_fids[1], pk, t, mhz, template_fid,
+        fit_template=fit_template, scale_amplitudes=scale_amplitudes,
+        max_iter=max_iter, verbose=verbose, linear_seed=linear_seed,
+        g_scan=g_scan)
+    return to_host(x0).numpy()
 
 
-def _reconstruct_planar(xs, t, pmap_static, mhz):
-    """The Eq.6 model (m_re, m_im), each (B, n_t), of free vectors ``xs``."""
-    m_re, m_im, _, _ = eq6_basis_planar(t, expand_params(xs, pmap_static), mhz)
-    return m_re, m_im
+def _read_together(tensors):
+    """(B, ...) tensors of one device to numpy in ONE host read, in their
+    widest dtype (which holds the narrower floats and the flags exactly),
+    each back in its own."""
+    cols = [a.reshape(a.shape[0], -1) for a in tensors]
+    wide = functools.reduce(torch.promote_types, (a.dtype for a in tensors))
+    host = to_host(torch.cat([c.to(wide) for c in cols], 1))
+    edges = np.cumsum([0] + [c.shape[1] for c in cols])
+    return [host[:, i:j].reshape(a.shape).to(a.dtype).numpy()
+            for a, i, j in zip(tensors, edges[:-1], edges[1:])]
 
 
-def _reconstruct_batch(x_free, t, pk: PriorKnowledge, mhz: float):
-    """Time-domain model of a batch of solutions, complex numpy (B, n_t)."""
-    m_re, m_im = _reconstruct_planar(
-        torch.as_tensor(x_free, device=t.device), t, hashable_pmap(pk.pmap),
-        float(mhz),
-    )
+def _reconstruct_batch(xs, t, pmap_static, mhz: float):
+    """The Eq.6 model of free vectors ``xs`` (B, F), complex numpy (B, n_t)."""
+    m_re, m_im, _, _ = eq6_basis_planar(
+        t, expand_params(xs.to(t.device), pmap_static), mhz)
     return to_host(m_re).numpy() + 1j * to_host(m_im).numpy()
 
 
@@ -775,6 +757,9 @@ def fit_amares(
     (:func:`select_template_planes`), the seed and the fit read those
     planes; the grid comes back to the host only for ``raw_data`` and
     ``residuals`` (``return_curves=True``, a CUDA payload: one copy).
+    The seeds, both LM passes and the CRLBs stay on ``device``; a chunk's
+    parameters, convergence flags, CRLB SDs and noise variance come to
+    the host in one read, at the pack.
     ``device_fids`` takes the grid's planes uploaded ahead of the call by
     :func:`stage_device_fids` on the same array and ``dim`` (or a plain
     ``(re, im)`` pair): their shapes, and a :class:`StagedFids`' layout,
@@ -875,14 +860,12 @@ def fit_amares(
 
         if g_scan == "auto":
             g_scan = (0.0, 0.2, 0.4, 0.6, 0.8) if g_seed_plan(pk) else None
-        x0 = template_seeded_x0(
-            None, pk, t, mhz, template_fid=template_fid,
-            fit_template=initialize_with_lm, scale_amplitudes=scale_init_amplitudes,
-            max_iter=max_iter, verbose=verbose, g_scan=g_scan,
-            device_fids=(re_all, im_all),
-        )
-        u0 = to_card(external_to_internal(x0, pk.lower, pk.upper, pk.kind),
-                     dev)
+        x0 = _template_seed_x0(
+            re_all, im_all, pk, t, mhz, template_fid,
+            fit_template=initialize_with_lm,
+            scale_amplitudes=scale_init_amplitudes, max_iter=max_iter,
+            verbose=verbose, linear_seed=True, g_scan=g_scan)
+        u0 = external_to_internal_torch(x0, lower, upper, kind)
 
     # 5. Batched bounded LM over voxel chunks.
     if chunk_size is None:
@@ -933,9 +916,9 @@ def fit_amares(
             if initialize_with_lm:
                 # Refinement pass from each voxel's own optimum with a fresh
                 # damping schedule; keep the better solution per voxel.
-                u_refined = to_card(
-                    external_to_internal(to_host(x).numpy(), pk.lower,
-                                         pk.upper, pk.kind), x.device)
+                u_refined = external_to_internal_torch(
+                    x.to(torch.float64),
+                    *(a.to(x.device) for a in (lower, upper, kind)))
                 res2, h2 = run_lm(re_c, im_c, u_refined)
                 better = res2.cost < res.cost
                 x = torch.where(better[:, None], res2.x_free, x)
@@ -943,19 +926,42 @@ def fit_amares(
                 if h_pick is not None:
                     h_pick = torch.where(better[:, None, None], h2, h_pick)
                 conv = res.converged | res2.converged
-            x_parts.append(to_host(x).numpy())
-            conv_parts.append(to_host(conv).numpy())
+            x_parts.append(x)
+            conv_parts.append(conv)
             cost_parts.append(cost_pick)
             if h_pick is not None:
                 h_parts.append(h_pick)
 
-        x_free = np.concatenate(x_parts, axis=0)
-        converged = np.concatenate(conv_parts, axis=0)
         print(f"Fitting {n_spectra} spectra with batched device LM took "
               f"{time.perf_counter() - t_before:.2f} seconds.")
 
     # 6. Physical parameters, CRLBs, reconstructed fits.
     with span("fit_amares.crlb_model"):
+        sds_parts, sigma_parts, fit_parts = [], [], []
+        for ci, start in enumerate(range(0, n_spectra, chunk_size)):
+            rows = slice(start, start + chunk_size)
+            if h_parts:
+                # The LM returned the GN Hessian (the Fisher information) at
+                # each voxel's chosen optimum: no extra model evaluation.
+                sds, sigma2 = crlb_from_hessian(h_parts[ci], cost_parts[ci],
+                                                n_time, kernels=kernels)
+            else:
+                sds, sigma2 = crlb_batched_planar(re_all[rows], im_all[rows], t,
+                                                  x_parts[ci], pmap_static, mhz)
+            sds_parts.append(sds)
+            sigma_parts.append(sigma2)
+            if return_curves:
+                fit_parts.append(_reconstruct_batch(x_parts[ci], t, pmap_static,
+                                                    mhz))
+        fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
+
+    with span("fit_amares.pack"):
+        # A chunk's x, convergence, CRLB SDs and sigma^2: ONE host read.
+        host = [_read_together(parts) for parts in
+                zip(x_parts, conv_parts, sds_parts, sigma_parts)]
+        x_free, converged, sds_free, sigma2 = (
+            np.concatenate(cols, axis=0) for cols in zip(*host))
+
         metabolites = np.asarray(pk.metabolites, dtype=object)
         n_metab = pk.n_peaks
         pm = pk.pmap
@@ -965,28 +971,6 @@ def fit_amares(
         )
         grids = full_flat.reshape(n_spectra, n_metab, 5)
 
-        sds_parts, sigma_parts, fit_parts = [], [], []
-        for ci, start in enumerate(range(0, n_spectra, chunk_size)):
-            rows = slice(start, start + chunk_size)
-            xs = to_card(x_free[rows], dev)
-            if h_parts:
-                # The LM returned the GN Hessian (the Fisher information) at
-                # each voxel's chosen optimum: no extra model evaluation.
-                sds, sigma2 = crlb_from_hessian(h_parts[ci], cost_parts[ci],
-                                                n_time, kernels=kernels)
-            else:
-                sds, sigma2 = crlb_batched_planar(re_all[rows], im_all[rows], t,
-                                                  xs, pmap_static, mhz)
-            sds_parts.append(to_host(sds).numpy())
-            sigma_parts.append(to_host(sigma2).numpy())
-            if return_curves:
-                fit_parts.append(_reconstruct_batch(xs, t, pk, mhz))
-
-        sds_free = np.concatenate(sds_parts, axis=0)  # (B, F)
-        sigma2 = np.concatenate(sigma_parts, axis=0)  # (B,)
-        fit_data = np.concatenate(fit_parts, axis=0) if return_curves else None
-
-    with span("fit_amares.pack"):
         amplitudes = grids[:, :, 0]
         chem_shifts = grids[:, :, 1]
         linewidths = grids[:, :, 2]

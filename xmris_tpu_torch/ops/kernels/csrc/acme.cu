@@ -55,16 +55,15 @@
 //
 // K5s: the whole single-pivot grid search of one row, one launch.
 //
-// Replaces ops/phasing.py::grid_phase_search_graphed (a CUDA graph of the
-// eager torch search, ~5 700 kernels) on the single-pivot path; it ports no
-// TPU kernel (the reference runs this search as XLA ops).  One block of 512
-// threads reads the pivot row straight from the spectra at the device-side
-// (voxel_idx, freq_idx) of K1's peak search (no gather, no host read; the
-// row is 8-16 KiB), then:
+// Replaces a CUDA graph of the eager torch search (~5 700 kernels) on the
+// single-pivot path; it ports no TPU kernel (the reference runs this search
+// as XLA ops).  One block of 512 threads reads the pivot row straight from
+// the spectra at the device-side (voxel_idx, freq_idx) of K1's peak search
+// (no gather, no host read; the row is 8-16 KiB), then:
 // * the scan of ops/phasing.py::_grid_phase_search on the row decimated by
 //   dec = n_f // 512: 36 p0 candidates, then for p0 + p1 41 p1 candidates
 //   given p0 and 7 p0 refinements, each scored by value_grad's score
-//   arithmetic, one warp a candidate (16 warps: a chunk of the graph's
+//   arithmetic, one warp a candidate (16 warps: a chunk of the eager search's
 //   cand_chunk 16 at a time, the scores in shared memory), the winner by
 //   scan_axis's rule: a chunk's first minimum (its first NaN, if any)
 //   replaces the running best only if strictly lower, so an all-inf stage

@@ -194,7 +194,7 @@ POLISH_ITERS = 40
 @functools.lru_cache(maxsize=16)
 def _search_constants(dtype, device: str):
     """Candidate meshes and the unit-space span as tensors on ``device``
-    (made once, outside any CUDA-graph capture)."""
+    (made once)."""
     step = 360.0 / N_P0
     meshes = (
         np.linspace(-180.0, 180.0, N_P0, endpoint=False),
@@ -581,49 +581,6 @@ def _de_phase_search(rows_re, rows_im, coords, x_range, pivots,
     if p0_only:
         xs = torch.cat([xs, torch.zeros_like(xs)], dim=1)
     return xs
-
-
-# (device, shape, dtype, p0_only) -> (graph, static inputs, static output)
-_GRAPHS: dict = {}
-
-
-def grid_phase_search_graphed(rows_re, rows_im, coords, x_range, pivots,
-                              p0_only: bool):
-    """:func:`_grid_phase_search` with the gd polish on CUDA tensors,
-    replayed from a CUDA graph: the single-pivot search on the card where
-    kernel K5s (``acme_cuda.acme_search``) does not take the row, a float64
-    row or one past ``acme_cuda.MAX_POINTS`` points.
-
-    The eager search on one row issues thousands of small kernels (the scan,
-    then 40 forward + backward polish steps), which the host launches far
-    slower than the device runs them.  The search has no host synchronisation, so
-    it is captured once per (device, shape, dtype, ``p0_only``) — after two
-    eager warm-up runs on a side stream — and each later call copies its
-    inputs into the captured buffers and replays the same kernels: the
-    results equal the eager search's on the same device.
-    """
-    args = (rows_re, rows_im, coords, x_range, pivots)
-    key = (rows_re.device, tuple(rows_re.shape), tuple(coords.shape),
-           rows_re.dtype, bool(p0_only))
-    search = functools.partial(_grid_phase_search, p0_only=p0_only,
-                               polish_optimizer="gd", cand_chunk=16)
-    if key not in _GRAPHS:
-        static = [a.clone() for a in args]
-        side = torch.cuda.Stream(rows_re.device)
-        side.wait_stream(torch.cuda.current_stream(rows_re.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                search(*static)
-        torch.cuda.current_stream(rows_re.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = search(*static)
-        _GRAPHS[key] = (graph, static, out)
-    graph, static, out = _GRAPHS[key]
-    for dst, src in zip(static, args):
-        dst.copy_(src)
-    graph.replay()
-    return out.clone()
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,6 @@ from xmris_tpu_torch.ops.kernels.dft import (
 from xmris_tpu_torch.ops.phasing import (
     _de_phase_search,
     _grid_phase_search,
-    grid_phase_search_graphed,
     resolve_polish,
 )
 from xmris_tpu_torch.parallel.pipeline import PipelineConfig
@@ -55,9 +54,8 @@ def _solve_phase_on_row(spec_re, spec_im, freqs, peak, cfg: PipelineConfig,
     one row, as in the reference.  The gd search of a float32 row of at
     most ``acme_cuda.MAX_POINTS`` points on the card is one launch of
     ``kernels.acme_search`` (K5s), which reads the row and the pivot where
-    they lie (counter ``spectral.phase_search.kernel``); other gd searches
-    on the card replay a CUDA graph of the torch search; the rest, and
-    every search on the CPU, run :func:`_grid_phase_search` eagerly."""
+    they lie (counter ``spectral.phase_search.kernel``); every other search
+    runs :func:`_grid_phase_search` eagerly."""
     voxel_idx, freq_idx = peak
     n_freq = freqs.shape[0]
     gd = (cfg.ap_optimizer != "de"
@@ -76,8 +74,6 @@ def _solve_phase_on_row(spec_re, spec_im, freqs, peak, cfg: PipelineConfig,
             xs = _de_phase_search(*args, cfg.p0_only, seed=cfg.de_seed,
                                   popsize=cfg.de_popsize,
                                   maxiter=cfg.de_maxiter)
-        elif gd and row_re.is_cuda:
-            xs = grid_phase_search_graphed(*args, cfg.p0_only)
         else:
             xs = _grid_phase_search(*args, cfg.p0_only,
                                     polish_optimizer=cfg.ap_polish,
